@@ -1,0 +1,142 @@
+"""Build, load and call the port's hand-written Hopper kernels (``csrc/``).
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface, for ``sm_90a``, at first use. The library goes to ``_build/``
+under a name that carries a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads the cached build. It is loaded
+with ``ctypes``: every pointer and the CUDA stream travel as ``c_void_p``,
+every C entry point returns ``cudaGetLastError()`` after its launches, and
+:func:`launch` raises on a non-zero code.
+
+Without ``nvcc`` (or without a card) the kernels cannot run, and the
+wrappers raise: no wrapper falls back to its plain PyTorch version for a
+CUDA tensor. The plain versions serve CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument types of every C entry point, in csrc/ declaration order
+_SIGNATURES = {
+    "gcis_gabor_group": [_P] * 8 + [_I] * 10 + [_P],
+    "gcis_lloyd_chw": [_P] * 7 + [_I] * 6 + [_P],
+    "gcis_maximin_chw": [_P] * 8 + [_I] * 5 + [_P],
+    "gcis_coarse_centers": [_P] * 4 + [_I] * 8 + [_P],
+}
+
+
+def _find_nvcc() -> str | None:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.access(os.path.join(root, "bin", "nvcc"), os.X_OK):
+            return os.path.join(root, "bin", "nvcc")
+    return None
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the build for the current sources lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgcis_kernels_{h.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this source hash has no
+    build yet. Raises RuntimeError when nvcc is missing or fails."""
+    out = library_path()
+    if not out.exists():
+        nvcc = _find_nvcc()
+        if nvcc is None:
+            raise RuntimeError(
+                "the CUDA kernels of gabor_color_image_segmentation_tpu_torch "
+                "need nvcc (the CUDA toolkit) to build; none was found on "
+                "PATH or under CUDA_HOME. The plain PyTorch versions serve "
+                "CPU tensors only."
+            )
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               *(str(s) for s in _sources() if s.suffix == ".cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.gcis_error_string.argtypes = [ctypes.c_int]
+    lib.gcis_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``name`` on the current CUDA stream (appended as
+    the last argument) and raise if it reports a CUDA error."""
+    lib = library()
+    rc = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} failed: CUDA error {rc} "
+            f"({lib.gcis_error_string(rc).decode()})"
+        )
+
+
+def use_plain(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (run the plain version), False
+    when all lie on one CUDA device (launch the kernel). Anything else
+    raises: there is no fallback."""
+    devices = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devices):
+        return True
+    if len(devices) == 1 and next(iter(devices)).type == "cuda":
+        return False
+    raise ValueError(
+        f"kernel inputs must all lie on the CPU or on one CUDA device, got "
+        f"{sorted(str(d) for d in devices)}"
+    )
+
+
+def check(cond: bool, msg: str) -> None:
+    """Raise ValueError(msg) unless cond: the wrappers' input contract."""
+    if not cond:
+        raise ValueError(msg)
+
+
+def storage_code(dtype: torch.dtype) -> int:
+    """The kernels' storage flag: 0 for float32, 1 for bfloat16."""
+    if dtype == torch.float32:
+        return 0
+    if dtype == torch.bfloat16:
+        return 1
+    raise ValueError(f"kernels take float32 or bfloat16, got {dtype}")

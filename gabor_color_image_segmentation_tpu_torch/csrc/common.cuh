@@ -1,0 +1,95 @@
+// Shared helpers of the port's Hopper kernels: typed loads and stores
+// (float32 or bfloat16 storage, float32 arithmetic), REFLECT_101 indexing
+// and the deterministic warp/block reductions the kernels use in place of
+// float atomics.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <climits>
+
+#define GCIS_API extern "C" __attribute__((visibility("default")))
+
+namespace gcis {
+
+static __device__ __forceinline__ float ld(const float* p, long i) { return p[i]; }
+static __device__ __forceinline__ float ld(const __nv_bfloat16* p, long i) {
+  return __bfloat162float(p[i]);
+}
+static __device__ __forceinline__ void st(float* p, long i, float v) { p[i] = v; }
+static __device__ __forceinline__ void st(__nv_bfloat16* p, long i, float v) {
+  p[i] = __float2bfloat16(v);
+}
+
+// A float32 value rounded through the storage type T and back.
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+static __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// REFLECT_101 (... 2 1 | 0 1 2 ... n-1 | n-2 n-3 ...), folded as often as
+// the offset needs.
+static __device__ __forceinline__ int reflect101(int i, int n) {
+  if (n == 1) return 0;
+  while (i < 0 || i >= n) {
+    if (i < 0) i = -i;
+    if (i >= n) i = 2 * (n - 1) - i;
+  }
+  return i;
+}
+
+// (value, flat index): the larger value wins, the smaller index on ties.
+// The rule is associative and commutative, so any reduction order gives
+// the first index of the maximum.
+struct ArgMax {
+  float v;
+  int i;
+};
+
+static __device__ __forceinline__ ArgMax better(ArgMax a, ArgMax b) {
+  return (b.v > a.v || (b.v == a.v && b.i < a.i)) ? b : a;
+}
+
+static __device__ __forceinline__ ArgMax warp_argmax(ArgMax a) {
+  for (int off = 16; off > 0; off >>= 1) {
+    ArgMax o;
+    o.v = __shfl_xor_sync(0xffffffffu, a.v, off);
+    o.i = __shfl_xor_sync(0xffffffffu, a.i, off);
+    a = better(a, o);
+  }
+  return a;
+}
+
+// Block-wide argmax; every thread gets the result. blockDim.x is a
+// multiple of 32; scratch holds 32 entries.
+static __device__ ArgMax block_argmax(ArgMax a, ArgMax* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  a = warp_argmax(a);
+  __syncthreads();  // scratch may still be read from a previous call
+  if (lane == 0) scratch[warp] = a;
+  __syncthreads();
+  if (warp == 0) {
+    ArgMax b = lane < nw ? scratch[lane] : ArgMax{neg_inf(), INT_MAX};
+    b = warp_argmax(b);
+    if (lane == 0) scratch[0] = b;
+  }
+  __syncthreads();
+  return scratch[0];
+}
+
+// Butterfly sum over a warp. The order is fixed, so lane 0's result is the
+// same on every run.
+static __device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+}  // namespace gcis

@@ -1,0 +1,158 @@
+"""Labels-only k-means pipeline (counterpart of the JAX package's
+models/pipeline.py: _color_transform, segment_chw_grouped,
+_segment_batch_transposed, segment_batch, segment_images).
+
+uint8 sRGB (B, H, W, 3) on any device -> int32 label maps (B, H, W) on the
+same device, through the reference's production path:
+
+  1. Lab colour transform;
+  2. Gabor energies and their 2x2 twin (kernel K1), one (B, E, H, W) tensor;
+  3. the per-image standardisation affine with the coherence weights folded
+     in;
+  4. with a multigrid schedule (config1): the coarse buffer pooled from the
+     twin, maximin seeding and coarse Lloyd in one launch (K3), mid-level
+     Lloyd passes on the twin (K2), then at most ``refine_iters``
+     full-resolution passes (K2);
+     without one (config0): maximin seeding at full resolution (K4) and up
+     to ``n_iter`` full-resolution passes (K2);
+  5. one assign-only pass (K2) writes the labels.
+
+Configurations outside this slice raise NotImplementedError naming the
+ROADMAP queue-1 item that will bring them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from gabor_color_image_segmentation_tpu.config import PipelineConfig
+from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import (
+    _affine_params,
+    build_color4,
+    kmeans_fused_chw,
+)
+from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import (
+    kmeans_coarse_centers_xp,
+)
+from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
+from gabor_color_image_segmentation_tpu_torch.ops.color import rgb_to_lab
+from gabor_color_image_segmentation_tpu_torch.ops.features import (
+    _pool2x2_cm,
+    assemble_xp_from_affine,
+)
+from gabor_color_image_segmentation_tpu_torch.ops.fused import gabor_energies_fused
+from gabor_color_image_segmentation_tpu_torch.ops.precision import (
+    set_policy,
+    storage_dtype,
+)
+
+
+def _check_supported(cfg: PipelineConfig, with_features: bool) -> None:
+    c = cfg.cluster
+    nhwc = "queue 1 item 14 (the NHWC / with-features path)"
+    features = "queue 1 item 13 (the rest of the feature stage)"
+    unsupported = [
+        (with_features, "with_features=True", nhwc),
+        (cfg.graph.enabled, "graph.enabled (superpixels + cut)",
+         "queue 1 item 10 (config3)"),
+        (c.method != "kmeans", f"method={c.method!r}", "queue 1 item 9 (config2)"),
+        (cfg.tile_hw is not None, "tile_hw (spatial tiling)", "queue 1 item 11 (config4)"),
+        (c.feature_set != "full", f"feature_set={c.feature_set!r}", nhwc),
+        (c.subsample != 1, f"subsample={c.subsample}", nhwc),
+        (cfg.bank.gamma != 1.0, f"bank gamma={cfg.bank.gamma}", features),
+        (c.init_stride != 1, f"init_stride={c.init_stride}", nhwc),
+        (cfg.feature_impl not in ("auto", "pallas"),
+         f"feature_impl={cfg.feature_impl!r}", features),
+    ]
+    for bad, what, item in unsupported:
+        if bad:
+            raise NotImplementedError(
+                f"the PyTorch port does not run {what} yet: ROADMAP {item}"
+            )
+
+
+def _color_transform(rgb: torch.Tensor, color_space: str) -> torch.Tensor:
+    if rgb.dtype == torch.uint8:
+        rgb = rgb.to(torch.float32) / 255.0
+    if color_space == "lab":
+        return rgb_to_lab(rgb)
+    return rgb.to(torch.float32)
+
+
+def segment_chw_grouped(
+    color: torch.Tensor,
+    energies: torch.Tensor,
+    pooled_e: Optional[torch.Tensor],
+    cfg: PipelineConfig,
+    fold_twin: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """k-means on precomputed channel-major energies (B, E, H, W).
+
+    color: (B, H, W, 3); pooled_e: the 2x2 twin (B, E, H//2, W//2) to run
+    the multigrid warm start on, or None for none; fold_twin: the twin for
+    the coherence statistics when there is no warm start."""
+    _, h, w, _ = color.shape
+    dtype = energies.dtype
+    c = cfg.cluster
+    multigrid = pooled_e is not None
+    xc4 = build_color4(color, dtype)
+    twin = fold_twin if fold_twin is not None else pooled_e
+    pc0 = _pool2x2_cm(xc4) if (multigrid or twin is not None) else None
+    affine = _affine_params(energies, xc4, c, 1e-6,
+                            pooled=(twin, pc0) if twin is not None else None)
+    c0 = None
+    if multigrid:
+        pe_l, pc_l = pooled_e, pc0
+        levels = [(pe_l, pc_l)]  # pooled twins, finest first
+        for _ in range(c.coarse_levels - 1):
+            pe_l, pc_l = _pool2x2_cm(pe_l), _pool2x2_cm(pc_l)
+            levels.append((pe_l, pc_l))
+        e = energies.shape[1]
+        m = pe_l.shape[2] * pe_l.shape[3]
+        xp = assemble_xp_from_affine(pe_l, pc_l, affine[0], affine[1], dtype)
+        c0 = kmeans_coarse_centers_xp(xp, c.k, e + 3, m, c.coarse_iters)
+        if c.mid_iters > 0:
+            for pe_m, pc_m in reversed(levels[:-1]):
+                _, c0 = kmeans_fused_chw(pe_m, pc_m, affine, c.k, 0, c.mid_iters,
+                                         init_centers=c0, with_labels=False)
+    labels, _ = kmeans_fused_chw(energies, xc4, affine, c.k, c.n_iter,
+                                 c.refine_iters, init_centers=c0)
+    return labels
+
+
+def _segment_batch_transposed(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
+    """(B, H, W, 3) sRGB -> (B, H, W) int32 labels, the production path."""
+    _, h, w, _ = rgb.shape
+    dtype = storage_dtype(cfg.dtype)
+    c = cfg.cluster
+    lvl = c.coarse_levels
+    multigrid = c.coarse_iters > 0 and h >= max(4, 1 << lvl) and w >= max(4, 1 << lvl)
+    # the coherence fold's statistics want the twin even without a warm start
+    want_twin = multigrid or (c.cue_weight == "coherence" and h >= 16 and w >= 16)
+    color = _color_transform(rgb, cfg.color_space)
+    energies, twin = gabor_energies_fused(color, bank_tensors(bank, rgb.device),
+                                          dtype, pooled=want_twin)
+    return segment_chw_grouped(color, energies, twin if multigrid else None, cfg,
+                               fold_twin=twin)
+
+
+def segment_batch(
+    rgb: torch.Tensor, cfg: PipelineConfig, bank=None, with_features: bool = False,
+) -> Tuple[torch.Tensor, None]:
+    """(B, H, W, 3) uint8 (or [0, 1] float) sRGB -> ((B, H, W) int32 labels,
+    None), both on rgb's device. ``bank``: the port's or the JAX package's
+    GaborBank for cfg.bank (built when None). Only the labels-only path is
+    ported (with_features=False)."""
+    _check_supported(cfg, with_features)
+    set_policy()
+    if bank is None:
+        bank = make_bank(cfg.bank)
+    return _segment_batch_transposed(rgb, cfg, bank), None
+
+
+def segment_images(rgb: torch.Tensor, cfg: PipelineConfig, bank=None) -> torch.Tensor:
+    """Batch entry point of eval and serving: (B, H, W, 3) -> (B, H, W) int32."""
+    labels, _ = segment_batch(rgb, cfg, bank, False)
+    return labels

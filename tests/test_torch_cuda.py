@@ -1,0 +1,119 @@
+"""PyTorch port on the card: each Hopper kernel against its plain PyTorch
+version on the same CUDA tensors, at small and ragged shapes (tile edges,
+odd sizes), and the pipeline's kernel path against its all-plain path.
+
+Marked ``cuda``: the tests skip without an NVIDIA card (decided inside the
+``device`` fixture, never at import). Run them on a card with
+``python -m pytest tests/test_torch_cuda.py -m cuda``. Tolerances as in
+chip_smoke.py."""
+
+import numpy as np
+import pytest
+import torch
+
+from gabor_color_image_segmentation_tpu.config import BankConfig, preset
+from gabor_color_image_segmentation_tpu.data import synthetic_mosaic
+from gabor_color_image_segmentation_tpu.utils.labels import align_labels
+from gabor_color_image_segmentation_tpu_torch.models import kmeans_chw as kc
+from gabor_color_image_segmentation_tpu_torch.models import kmeans_fused as kf
+from gabor_color_image_segmentation_tpu_torch.models.pipeline import segment_batch
+from gabor_color_image_segmentation_tpu_torch.ops import fused
+from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
+from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    set_policy()
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hw", [(37, 53), (64, 96)])
+def test_gabor_energies_kernel(device, dtype, hw):
+    dt = DTYPES[dtype]
+    bank = make_bank(BankConfig(scales=(2.0, 4.0, 8.0), orientations=3,
+                                frequencies=(0.12,)))
+    groups = bank_tensors(bank, device)
+    img = torch.randn((2, *hw, 3), generator=torch.Generator().manual_seed(0)).to(device)
+    out, twin = fused.gabor_energies_fused(img, groups, dt)
+    ref, ref_twin = fused.gabor_energies_fused_plain(img, groups, dt)
+    torch.cuda.synchronize()
+    peak = ref.float().abs().max()
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max() <= tol * peak
+    assert (twin.float() - ref_twin.float()).abs().max() <= tol * peak
+
+
+def _rows(device, dt, b=2, e=7, h=29, w=41, seed=0):
+    rng = np.random.default_rng(seed)
+    xe = torch.from_numpy(np.abs(rng.normal(size=(b, e, h, w))).astype(np.float32))
+    color = torch.from_numpy(rng.uniform(0, 100, size=(b, h, w, 3)).astype(np.float32))
+    return xe.to(device, dt), kc.build_color4(color.to(device), dt)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_lloyd_kernel(device, dtype):
+    dt = DTYPES[dtype]
+    xe, xc4 = _rows(device, dt)
+    b, e = xe.shape[:2]
+    g = torch.Generator().manual_seed(1)
+    wc = (torch.randn((b, 5, e + 3), generator=g) * 0.1).to(device).to(dt).float()
+    offs = torch.rand((b, 5), generator=g).to(device)
+    labels, sums, counts = kc.lloyd_chw_pass(xe, xc4, wc, offs)
+    rl, rs, rc = kc.lloyd_chw_pass_plain(xe, xc4, wc, offs)
+    torch.cuda.synchronize()
+    assert (labels == rl).float().mean() >= 0.9999
+    assert torch.equal(counts, rc)
+    assert torch.allclose(sums, rs, rtol=1e-4, atol=1e-4 * rs.abs().max().item())
+    assert torch.equal(kc.lloyd_chw_pass(xe, xc4, wc, offs, assign_only=True), labels)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_maximin_kernel(device, dtype):
+    dt = DTYPES[dtype]
+    xe, xc4 = _rows(device, dt, seed=2)
+    b, e, h, w = xe.shape
+    a2 = torch.rand((b, e + 3), generator=torch.Generator().manual_seed(3)).to(device)
+    probe = xe.float().mean(dim=(2, 3))
+    probe = torch.cat([probe, xc4[:, :3].float().mean(dim=(2, 3))], dim=1)
+    dk = torch.zeros((b, h, w), device=device)
+    dp = torch.zeros((b, h, w), device=device)
+    for step in range(4):
+        pk = kc.maximin_chw_pass(xe, xc4, a2, probe, dk, step < 2)
+        pp = kc.maximin_chw_pass_plain(xe, xc4, a2, probe, dp, step < 2)
+        torch.cuda.synchronize()
+        assert torch.equal(pk, pp), step
+        assert torch.allclose(dk, dp, rtol=1e-5, atol=1e-5)
+        probe = pk
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_coarse_centers_kernel(device, dtype):
+    dt = DTYPES[dtype]
+    xe, xc4 = _rows(device, dt, b=3, e=20, h=30, w=44, seed=4)
+    b, e, h, w = xe.shape
+    xp = torch.cat([xe.reshape(b, e, -1), xc4[:, :3].reshape(b, 3, -1)], dim=1)
+    out = kf.kmeans_coarse_centers_xp(xp, 5, e + 3, h * w, 8)
+    ref = kf.kmeans_coarse_centers_xp_plain(xp, 5, e + 3, h * w, 8)
+    torch.cuda.synchronize()
+    assert torch.allclose(out, ref, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("name", ["config0", "config1"])
+def test_pipeline_kernels_match_plain_path(device, name):
+    rgb = np.stack([synthetic_mosaic(h=96, w=128, n_regions=5, seed=100 + i)[0]
+                    for i in range(2)])
+    cfg = preset(name).replace(batch_size=2)
+    gpu, _ = segment_batch(torch.from_numpy(rgb).to(device), cfg)
+    cpu, _ = segment_batch(torch.from_numpy(rgb), cfg)
+    gpu = gpu.cpu().numpy()
+    for i in range(2):
+        ref = cpu[i].numpy()
+        assert (align_labels(gpu[i], ref) == ref).mean() >= 0.999

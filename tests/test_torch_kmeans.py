@@ -1,0 +1,197 @@
+"""PyTorch port: the k-means kernels' plain versions against the JAX
+package's Pallas kernels (interpret mode on the CPU), and the port's eager
+k-means reference against the JAX one.
+
+Tolerances: K2 on identical inputs and centres gives equal labels on
+>= 99.99 % of pixels and sums within rtol 1e-4 (f32) / 1e-3 (bf16); K3's
+centres within rtol and atol 2e-3 (tests/test_kmeans_chw.py's bound); K4
+seeds the same pixels, so its centres agree to float32 rounding."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gabor_color_image_segmentation_tpu.config import ClusterConfig
+from gabor_color_image_segmentation_tpu.models.kmeans import (
+    kmeans as jax_kmeans,
+    kmeans_multigrid as jax_kmeans_multigrid,
+    maximin_init as jax_maximin_init,
+)
+from gabor_color_image_segmentation_tpu.models import kmeans_chw as jchw
+from gabor_color_image_segmentation_tpu.models.kmeans_pallas import (
+    kmeans_coarse_centers_xp as jax_coarse,
+    xt_geometry,
+)
+from gabor_color_image_segmentation_tpu.ops import features as jfeat
+from gabor_color_image_segmentation_tpu.utils.labels import align_labels
+from gabor_color_image_segmentation_tpu_torch.models import kmeans as tkm
+from gabor_color_image_segmentation_tpu_torch.models import kmeans_chw as tchw
+from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import (
+    kmeans_coarse_centers_xp,
+)
+
+torch.set_num_threads(2)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(b, e, h, w, seed):
+    """Piecewise-constant blocks plus noise (tests/test_kmeans_chw.py)."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(b, e, 2, 2)).repeat(h // 2 + 1, 2).repeat(
+        w // 2 + 1, 3)[:, :, :h, :w]
+    energies = (np.abs(base + 0.15 * rng.normal(size=(b, e, h, w))) * 3.0)
+    color = rng.uniform(0, 100, size=(b, h, w, 3))
+    return energies.astype(np.float32), color.astype(np.float32)
+
+
+def _both(x, jdt, tdt):
+    """The same values as a JAX array and a torch tensor of one dtype."""
+    j = jnp.asarray(x, jdt)
+    return j, torch.from_numpy(np.array(j, np.float32)).to(tdt)
+
+
+@pytest.fixture(scope="module")
+def problem():
+    energies, color = _inputs(2, 12, 37, 45, seed=5)
+    cfg = ClusterConfig(k=5)
+    a, b = jchw._affine_params(jnp.asarray(energies),
+                               jchw.build_color4(jnp.asarray(color), jnp.float32),
+                               cfg, 1e-6)
+    return energies, color, np.asarray(a), np.asarray(b)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_lloyd_chw_pass_matches_kernel(problem, dtype):
+    jdt, tdt = DTYPES[dtype]
+    energies, color, a, b_aff = problem
+    bsz, e, h, w = energies.shape
+    k, d, hb = 5, e + 3, jchw._HB
+    rng = np.random.default_rng(7)
+    centers = (a[:, None, :] * np.concatenate(
+        [energies.reshape(bsz, e, -1), np.moveaxis(color, 3, 1).reshape(bsz, 3, -1)],
+        axis=1)[:, :, rng.choice(h * w, k, replace=False)].transpose(0, 2, 1)
+        + b_aff[:, None, :]).astype(np.float32)
+    u = centers - b_aff[:, None, :]
+    wc = jnp.asarray(a[:, None, :] * u).astype(jdt)  # operands in the storage dtype
+    offs_v = np.sum(u * u, axis=2).astype(np.float32)
+    wck = jnp.zeros((bsz, k, d + 1), jnp.float32).at[:, :, :d].set(wc.astype(jnp.float32))
+    wce = jchw._expand_diag(wck[:, :, :e], hb).astype(jdt)
+    wcc = jchw._expand_diag(wck[:, :, e:], hb).astype(jdt)
+    offs = jnp.zeros((bsz, 8, 128), jnp.float32).at[:, :k, 0].set(offs_v)
+    xe_j, xe_t = _both(energies, jdt, tdt)
+    xc_j = jchw.build_color4(jnp.asarray(color), jdt)
+    xc_t = tchw.build_color4(torch.from_numpy(color), tdt)
+    ref_l, ref_se, ref_sc = jchw._lloyd_chw_pass(
+        xe_j, xc_j, wce, wcc, offs, k, hb, True)
+    wc_t = _t(wc)
+    labels, sums, counts = tchw.lloyd_chw_pass(xe_t, xc_t, wc_t, _t(offs_v))
+    assert labels.dtype == torch.int32 and tuple(labels.shape) == (bsz, h, w)
+    same = (labels.numpy() == np.asarray(ref_l)).mean()
+    assert same >= 0.9999, same
+    ref_sums = np.concatenate([np.asarray(ref_se), np.asarray(ref_sc)[:, :, :3]], 2)
+    rtol = 1e-4 if dtype == "float32" else 1e-3
+    np.testing.assert_allclose(sums.numpy(), ref_sums, rtol=rtol,
+                               atol=rtol * np.abs(ref_sums).max())
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(ref_sc)[:, :, 3])
+    only = tchw.lloyd_chw_pass(xe_t, xc_t, wc_t, _t(offs_v), assign_only=True)
+    assert torch.equal(only, labels)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_maximin_init_chw_matches_kernel(problem, dtype):
+    jdt, tdt = DTYPES[dtype]
+    energies, color, a, b_aff = problem
+    xe_j, xe_t = _both(energies, jdt, tdt)
+    ref = jchw._maximin_init_chw(
+        xe_j, jchw.build_color4(jnp.asarray(color), jdt), jnp.asarray(a),
+        jnp.asarray(b_aff), 5, jchw._HB, True)
+    out = tchw._maximin_init_chw(
+        xe_t, tchw.build_color4(torch.from_numpy(color), tdt), _t(a), _t(b_aff), 5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_coarse_centers_match_kernel(problem, dtype):
+    """K3 on the reference's own padded xp buffer (its ones-row and padding
+    unread) and on the port's (B, D, m) buffer built from the same rows."""
+    jdt, tdt = DTYPES[dtype]
+    energies, color, a, b_aff = problem
+    bsz, e = energies.shape[:2]
+    d = e + 3
+    pe = jfeat._pool2x2_cm(jnp.asarray(energies, jdt))
+    pc = jfeat._pool2x2_cm(jchw.build_color4(jnp.asarray(color), jdt))
+    m = pe.shape[2] * pe.shape[3]
+    dp, m_pad, _ = xt_geometry(m, d, jdt)
+    xp = jfeat.assemble_xp_from_affine(pe, pc, jnp.asarray(a), jnp.asarray(b_aff),
+                                       dp, m_pad, jdt)
+    ref = np.asarray(jax_coarse(xp, 5, d, m, 6))
+    xp_t = _t(xp).to(tdt)
+    out = kmeans_coarse_centers_xp(xp_t, 5, d, m, 6)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (bsz, 5, d)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-3, atol=2e-3)
+    compact = kmeans_coarse_centers_xp(xp_t[:, :d, :m].contiguous(), 5, d, m, 6)
+    assert torch.equal(compact, out)
+
+
+def test_eager_kmeans_matches_jax(problem):
+    energies, color, a, b_aff = problem
+    x = np.concatenate([energies[0].reshape(energies.shape[1], -1),
+                        np.moveaxis(color[0], 2, 0).reshape(3, -1)], 0).T
+    x = (x * a[0] + b_aff[0]).astype(np.float32)
+    np.testing.assert_array_equal(
+        tkm.maximin_init(torch.from_numpy(x), 5).numpy(),
+        np.asarray(jax_maximin_init(jnp.asarray(x), 5)))
+    ref_l, ref_c = jax_kmeans(jnp.asarray(x), 5, 12)
+    lab, cen = tkm.kmeans(torch.from_numpy(x), 5, 12)
+    assert (lab.numpy() == np.asarray(ref_l)).mean() >= 0.9999
+    np.testing.assert_allclose(cen.numpy(), np.asarray(ref_c), rtol=1e-4, atol=1e-4)
+    h, w = energies.shape[2:]
+    ref_l, _ = jax_kmeans_multigrid(jnp.asarray(x), 5, (h, w), 4, 3, jnp.float32, 2, 2)
+    lab, _ = tkm.kmeans_multigrid(torch.from_numpy(x), 5, (h, w), 4, 3, torch.float32, 2, 2)
+    assert (lab.numpy() == np.asarray(ref_l)).mean() >= 0.9999
+
+
+def _normalized(energies, color, a, b_aff):
+    bsz, e, h, w = energies.shape
+    raw = np.concatenate([energies.reshape(bsz, e, h * w),
+                          np.moveaxis(color, 3, 1).reshape(bsz, 3, h * w)], 1)
+    return np.swapaxes(raw, 1, 2) * a[:, None, :] + b_aff[:, None, :]
+
+
+@pytest.mark.parametrize("warm_start", [False, True])
+def test_kmeans_fused_chw_matches_eager(problem, warm_start):
+    """The folded-affine CHW solver against the port's eager k-means on the
+    normalised features (the structure of tests/test_kmeans_chw.py): seeded
+    by its own maximin, or refining given centres as the pipeline's
+    multigrid warm start does."""
+    energies, color, a, b_aff = problem
+    bsz = energies.shape[0]
+    x = torch.from_numpy(_normalized(energies, color, a, b_aff).astype(np.float32))
+    xc4 = tchw.build_color4(torch.from_numpy(color), torch.float32)
+    affine = (_t(a), _t(b_aff))
+    if warm_start:
+        c0 = torch.stack([tkm.maximin_init(x[i], 5) for i in range(bsz)])
+        labels, centers = tchw.kmeans_fused_chw(
+            torch.from_numpy(energies), xc4, affine, 5, refine_iters=6, init_centers=c0)
+        refs = [tkm.kmeans(x[i], 5, 6, centers0=c0[i]) for i in range(bsz)]
+    else:
+        labels, centers = tchw.kmeans_fused_chw(torch.from_numpy(energies), xc4,
+                                                affine, 5, n_iter=12)
+        refs = [tkm.kmeans(x[i], 5, 12) for i in range(bsz)]
+    none, same = tchw.kmeans_fused_chw(torch.from_numpy(energies), xc4, affine, 5,
+                                       n_iter=12, refine_iters=6, with_labels=False,
+                                       init_centers=c0 if warm_start else None)
+    assert none is None and torch.equal(same, centers)
+    for i in range(bsz):
+        ref = refs[i][0].numpy()
+        got = labels[i].reshape(-1).numpy()
+        assert (align_labels(got, ref) == ref).mean() >= 0.995
+        np.testing.assert_allclose(centers[i].numpy(), refs[i][1].numpy(),
+                                   rtol=2e-3, atol=2e-3)
