@@ -6,38 +6,70 @@
 Phases, one line each, stopping with a non-zero exit at the first failure:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the Hopper kernels from ``csrc/`` with nvcc;
-3. each kernel K1-K4 against its plain PyTorch version on the card, at the
-   main path's shapes (config1: batch 16 of 321x481 in bf16; config0:
-   batch 1 in f32 and bf16), with the error against its stated bound and
-   the median time of each over a few runs (CUDA events);
+2. build the Hopper kernels from ``csrc/`` with nvcc (one process per
+   source, all started together);
+3. each kernel against its plain PyTorch version on the card, at the main
+   paths' shapes, with the error against its stated bound and the median
+   time of each over a few runs (CUDA events):
+   K1-K4 at config1 (batch 16 of 321x481, bf16) and config0 (batch 1, f32
+   and bf16); K1 (no twin), K5, K6, K8 (the fit grid and full resolution,
+   with moments and labels only) and K9 at config2 (batch 8, f32 and bf16);
 4. ``segment_batch(uint8 -> int32 labels, with_features=False)`` end to end
-   at config1 batch 16 bf16 and config0 batch 1 f32: ms/batch and MP/s
-   from host uint8 in to host int32 labels out, each kernel's launch count
-   in that run (every one must be > 0), and agreement with the all-plain
-   path on the card, and the Rand index against the mosaics' ground truth
-   (a reading, not a gate);
-5. where the time goes: a ``torch.profiler`` table of one config1 call;
-6. a JSON line of the kernels, then the last line
-   ``{"ok": true, "device": {...}}``.
+   at config1 batch 16 bf16, config0 batch 1 f32 and config2 batch 8 bf16
+   and f32: ms/batch and MP/s from host uint8 in to host int32 labels out;
+   each path runs with the launch counts set to 0 just before it and read
+   just after, and every kernel of the path must have launched; agreement
+   with the all-plain path on the card; the Rand index against the
+   mosaics' ground truth (a reading, not a gate);
+5. where the time goes: ``torch.profiler`` tables of one config1 and one
+   config2 call (written in full to chiprun_out/);
+6. a JSON line of the kernels (time, plain time, bound, library call), then
+   the last line ``{"ok": true, "device": {...}}``.
 
-Tolerances (also in the tests): energies and twin <= 1e-4 * peak (f32),
-<= 2e-2 * peak (bf16); Lloyd labels equal on >= 99.99 % of pixels, sums
-within rtol 1e-4 (f32) / 1e-3 (bf16); coarse centres within rtol and atol
-2e-3; maximin picks the same pixels, running minima within rtol 1e-5;
-end-to-end labels after alignment >= 0.999 (f32) / >= 0.99 (bf16).
+Tolerances (also in the tests): energies <= 1e-4 * peak (f32), <= 2e-2 *
+peak (bf16); Lloyd labels equal on >= 99.99 % of pixels, sums within rtol
+1e-4 (f32) / 1e-3 (bf16); coarse centres within rtol and atol 2e-3;
+maximin picks the same pixels, running minima within rtol 1e-5 (K4) or
+within 1e-5 of the largest distance (K6, whose expanded form cancels near
+the probe); EM labels
+equal on >= 99.99 %, and, held with the plain version against the plain
+version in float64, the log-likelihood within max(rtol 1e-5, twice the
+plain version's error) and the moments within max(1e-4 of each
+component's summed magnitude, twice the plain version's error);
+precision Cholesky within 5e-4 relative of cuSOLVER on well-conditioned
+matrices, and on the EM's ill-conditioned covariances, where two float32
+inverses differ entry by entry by up to cond * eps, a backward error
+||L L^T - C||_F / ||C||_F <= 2e-5 (L the float64 inverse of P^T) and
+|diag * P^T_ii - 1| <= 1e-6, a gate the run checks rejects a P^T perturbed
+by 1e-5 or zeroed; end-to-end labels after alignment >= 0.999 (f32) /
+>= 0.99 (bf16).
+
+Bounds (``bound_ms``): the larger of the bytes the function must move (each
+input read once, each output written once) over 3.35 TB/s and its
+operations over 67 TFLOP/s (float32 on the CUDA cores, an FMA counted as
+two), both computed from this run's shapes.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM HBM3, 3.35 TB/s
+F32_FLOP_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores, 67 TFLOP/s
+# K9's gates on the EM's covariances. P^T must be the exact precision factor
+# of a covariance within 2e-5 of C, normwise (a backward-stable float32
+# factorisation gives about d * eps = 2.3e-6 at d = 39), and diag must be
+# 1 / P^T's diagonal within 1e-6 (a few float32 roundings).
+CHOL_BACKWARD_TOL = 2e-5
+CHOL_DIAG_TOL = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -65,6 +97,13 @@ def rand_index(pred: np.ndarray, gt: np.ndarray) -> float:
     return (total + 2.0 * pairs(cont) - pairs(cont.sum(1)) - pairs(cont.sum(0))) / total
 
 
+def bound(nbytes: float, flops: float):
+    """(least time in ms, what bounds it) for moving ``nbytes`` and doing
+    ``flops`` float32 operations on one H100."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, flops / F32_FLOP_PER_MS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def main() -> None:
     import torch
 
@@ -80,17 +119,20 @@ def main() -> None:
           f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}",
           flush=True)
 
-    from gabor_color_image_segmentation_tpu.config import preset
-    from gabor_color_image_segmentation_tpu.data import synthetic_mosaic
-    from gabor_color_image_segmentation_tpu.utils.labels import align_labels
     from gabor_color_image_segmentation_tpu_torch import _kernels
+    from gabor_color_image_segmentation_tpu_torch.config import preset
+    from gabor_color_image_segmentation_tpu_torch.data import synthetic_mosaic
+    from gabor_color_image_segmentation_tpu_torch.models import chol
+    from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
     from gabor_color_image_segmentation_tpu_torch.models import kmeans_chw as kc
     from gabor_color_image_segmentation_tpu_torch.models import kmeans_fused as kf
     from gabor_color_image_segmentation_tpu_torch.models import pipeline as pl
+    from gabor_color_image_segmentation_tpu_torch.models.gmm import gmm_fit_levels
     from gabor_color_image_segmentation_tpu_torch.ops import features as ft
     from gabor_color_image_segmentation_tpu_torch.ops import fused
     from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
     from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy
+    from gabor_color_image_segmentation_tpu_torch.utils.labels import align_labels
 
     t0 = time.perf_counter()
     _kernels.library()
@@ -99,7 +141,8 @@ def main() -> None:
 
     set_policy()
     dev = torch.device("cuda")
-    kernels = {  # wrapper -> JSON entry
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    kernels = {  # wrapper -> (wrapper, source, TPU kernel it replaces)
         "gabor_energies_fused": (fused.gabor_energies_fused,
                                  "gabor_energies.cu", "ops/fused_pallas.py:115"),
         "lloyd_chw_pass": (kc.lloyd_chw_pass, "lloyd_chw.cu", "models/kmeans_chw.py:130"),
@@ -107,8 +150,14 @@ def main() -> None:
                                      "models/kmeans_pallas.py:573"),
         "maximin_chw_pass": (kc.maximin_chw_pass, "maximin_chw.cu",
                              "models/kmeans_chw.py:341"),
+        "lloyd_t_pass": (kf.lloyd_t_pass, "lloyd_t.cu", "models/kmeans_pallas.py:171"),
+        "maximin_t_pass": (kf.maximin_t_pass, "maximin_t.cu",
+                           "models/kmeans_pallas.py:304"),
+        "em_pass": (gf.em_pass, "em_pass.cu", "models/gmm_pallas.py:90"),
+        "precision_chol": (chol.precision_chol, "precision_chol.cu",
+                           "models/chol_pallas.py:112"),
     }
-    record = {name: {} for name in kernels}
+    record = {name: {"library_ms": None} for name in kernels}
 
     def cuda_ms(fn, reps=5):
         fn()
@@ -123,16 +172,39 @@ def main() -> None:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    def report(name, shape, abs_err, err, bound, ok, kern_fn, plain_fn, main_shape):
+    def report(name, shape, abs_err, err, bound_txt, ok, kern_fn, plain_fn, main=None):
         """``err`` is measured in the bound's units; ``abs_err`` is the max
-        absolute difference of the outputs, for the JSON line."""
+        absolute difference of the outputs, for the JSON line. ``main`` =
+        (bytes, flops) of the call when this is the shape the JSON line
+        reports."""
         ms, plain_ms = cuda_ms(kern_fn), cuda_ms(plain_fn)
         print(f"phase 3: {name} [{shape}] max abs err {abs_err:.3e}, err {err:.3e} "
-              f"(bound {bound}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms ({card})",
+              f"(bound {bound_txt}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms ({card})",
               flush=True)
-        check(ok, f"{name} [{shape}] disagrees with its plain version: {err} vs {bound}")
-        if main_shape:
-            record[name].update(max_abs_err=float(abs_err), ms=ms, plain_ms=plain_ms)
+        check(ok, f"{name} [{shape}] disagrees with its plain version: {err} vs {bound_txt}")
+        if main is not None:
+            b_ms, b_by = bound(*main)
+            record[name].update(max_abs_err=float(abs_err), ms=ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by)
+
+    def chol_errors(covs, pt, diag):
+        """Per matrix of a precision Cholesky: (backward error
+        ||L L^T - C||_F / ||C||_F, with L the float64 inverse of P^T;
+        diag error max_i |diag_i * P^T_ii - 1|). NaN where P^T is
+        singular."""
+        c64, x = covs.double(), pt.double()
+        eye = torch.eye(c64.shape[-1], dtype=torch.float64, device=dev).expand_as(c64)
+        lt = torch.linalg.solve_triangular(x, eye, upper=False)
+        back = (torch.linalg.matrix_norm(lt @ lt.transpose(1, 2) - c64)
+                / torch.linalg.matrix_norm(c64))
+        dg = (diag.double() * torch.diagonal(x, dim1=1, dim2=2) - 1).abs().amax(dim=1)
+        return back, dg
+
+    def chol_ok(covs, pt, diag):
+        back, dg = chol_errors(covs, pt, diag)
+        return bool(torch.isfinite(back).all() and back.max() <= CHOL_BACKWARD_TOL
+                    and dg.max() <= CHOL_DIAG_TOL
+                    and torch.count_nonzero(torch.triu(pt, 1)) == 0)
 
     def mosaics(n, h=321, w=481):
         """(rgb (n, h, w, 3) uint8, ground truth (n, h, w)): the bench's
@@ -140,28 +212,43 @@ def main() -> None:
         pairs = [synthetic_mosaic(h=h, w=w, n_regions=5, seed=100 + i) for i in range(n)]
         return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
 
+    def size(dt):
+        return torch.empty((), dtype=dt).element_size()
+
     # ---- phase 3: kernels against their plain versions ---------------------
-    def compare_features(cfg, rgb, dtype, tag, main_shape):
-        dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    def compare_features(cfg, rgb, dt, tag, main_shape, pooled=True):
         color = pl._color_transform(torch.from_numpy(rgb).to(dev), "lab")
         groups = bank_tensors(make_bank(cfg.bank), dev)
-        e, tw = fused.gabor_energies_fused(color, groups, dt)
-        pe, pt = fused.gabor_energies_fused_plain(color, groups, dt)
+        e, tw = fused.gabor_energies_fused(color, groups, dt, pooled=pooled)
+        pe, pt = fused.gabor_energies_fused_plain(color, groups, dt, pooled=pooled)
         torch.cuda.synchronize()
         peak = pe.float().abs().max().item()
-        abs_err = max((e.float() - pe.float()).abs().max().item(),
-                      (tw.float() - pt.float()).abs().max().item())
+        abs_err = (e.float() - pe.float()).abs().max().item()
+        if pooled:
+            abs_err = max(abs_err, (tw.float() - pt.float()).abs().max().item())
         rel = abs_err / peak
-        bound = 1e-4 if dt == torch.float32 else 2e-2
-        report("gabor_energies_fused", tag, abs_err, rel, f"{bound}*peak={bound * peak:.4g}",
-               rel <= bound,
-               lambda: fused.gabor_energies_fused(color, groups, dt),
-               lambda: fused.gabor_energies_fused_plain(color, groups, dt), main_shape)
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        b, h, w, c = color.shape
+        # tap-loop FMAs of the separable modulated blur (rows over the conv
+        # halo's width, then columns; real and imaginary parts) and of the
+        # separable smoothing, per plane
+        flops = sum(2 * b * g.n * c * (2 * (2 * g.p + 1) * (h * (w + 2 * g.p) + h * w)
+                                       + 2 * (2 * g.r + 1) * h * w) for g in groups)
+        nbytes = color.numel() * 4 + e.numel() * size(dt) + (tw.numel() * size(dt)
+                                                            if pooled else 0)
+        report("gabor_energies_fused", tag, abs_err, rel, f"{tol}*peak={tol * peak:.4g}",
+               rel <= tol,
+               lambda: fused.gabor_energies_fused(color, groups, dt, pooled=pooled),
+               lambda: fused.gabor_energies_fused_plain(color, groups, dt, pooled=pooled),
+               (nbytes, flops) if main_shape else None)
         del pe, pt
+        return color, e, tw
+
+    def chw_inputs(cfg, color, e, tw, dt):
         xc4 = kc.build_color4(color, dt)
         pc0 = ft._pool2x2_cm(xc4)
         affine = kc._affine_params(e, xc4, cfg.cluster, 1e-6, pooled=(tw, pc0))
-        return e, tw, xc4, pc0, affine, dt
+        return xc4, pc0, affine
 
     def compare_lloyd(xe, xc4, affine, centers, dt, tag, main_shape):
         a, b = affine
@@ -177,10 +264,15 @@ def main() -> None:
         scale = sp.abs().max().item()
         err = (sk - sp).abs().max().item()
         ok = (same >= 0.9999 and err <= rtol * scale and torch.equal(only, lk))
+        bsz, e = xe.shape[:2]
+        npix = xe.shape[2] * xe.shape[3]
+        k, d = wc.shape[1], e + 3
+        main = (bsz * npix * (d * size(dt) + 4), bsz * npix * (2 * k * d + d))
         report("lloyd_chw_pass", f"{tag} labels equal {same:.6f}", err, err,
                f"{rtol}*{scale:.4g}", ok,
                lambda: kc.lloyd_chw_pass(xe, xc4, wc, offs),
-               lambda: kc.lloyd_chw_pass_plain(xe, xc4, wc, offs), main_shape)
+               lambda: kc.lloyd_chw_pass_plain(xe, xc4, wc, offs),
+               main if main_shape else None)
 
     def compare_maximin(xe, xc4, affine, tag, main_shape):
         a, _ = affine
@@ -199,42 +291,221 @@ def main() -> None:
             abs_err = max(abs_err, (dk - dp).abs().max().item())
             err = max(err, ((dk - dp).abs() / dp.abs().clamp(min=1e-30)).max().item())
             probe = pk
+        d = e + 3
+        main = (bsz * h * w * (d * xe.element_size() + 8), bsz * h * w * 4 * d)
         report("maximin_chw_pass", f"{tag} same pixels {same}", abs_err, err,
-               "1e-5 (rel)",
-               same and err <= 1e-5,
+               "1e-5 (rel)", same and err <= 1e-5,
                lambda: kc.maximin_chw_pass(xe, xc4, a2, probe, dk, False),
                lambda: kc.maximin_chw_pass_plain(xe, xc4, a2, probe, dp, False),
-               main_shape)
+               main if main_shape else None)
 
     cfg1 = preset("config1").replace(batch_size=16, dtype="bfloat16")
     rgb16, gt16 = mosaics(16)
     tag = "config1 16x321x481 bf16"
-    e, tw, xc4, pc0, affine, dt = compare_features(cfg1, rgb16, "bfloat16", tag, True)
+    color, e, tw = compare_features(cfg1, rgb16, torch.bfloat16, tag, True)
+    xc4, pc0, affine = chw_inputs(cfg1, color, e, tw, torch.bfloat16)
     pe2, pc2 = ft._pool2x2_cm(tw), ft._pool2x2_cm(pc0)
     d, m = e.shape[1] + 3, pe2.shape[2] * pe2.shape[3]
-    xp = ft.assemble_xp_from_affine(pe2, pc2, affine[0], affine[1], dt)
-    ck = kf.kmeans_coarse_centers_xp(xp, 5, d, m, cfg1.cluster.coarse_iters)
-    cp = kf.kmeans_coarse_centers_xp_plain(xp, 5, d, m, cfg1.cluster.coarse_iters)
+    xp = ft.assemble_xp_from_affine(pe2, pc2, affine[0], affine[1], torch.bfloat16)
+    iters = cfg1.cluster.coarse_iters
+    ck = kf.kmeans_coarse_centers_xp(xp, 5, d, m, iters)
+    cp = kf.kmeans_coarse_centers_xp_plain(xp, 5, d, m, iters)
     torch.cuda.synchronize()
     err = (ck - cp).abs().max().item()
+    nb = xp.shape[0]
     report("kmeans_coarse_centers_xp", f"{tag} 4x4 grid {tuple(xp.shape)}", err, err,
            "2e-3 (rtol and atol)", torch.allclose(ck, cp, rtol=2e-3, atol=2e-3),
-           lambda: kf.kmeans_coarse_centers_xp(xp, 5, d, m, cfg1.cluster.coarse_iters),
-           lambda: kf.kmeans_coarse_centers_xp_plain(xp, 5, d, m,
-                                                     cfg1.cluster.coarse_iters), True)
-    compare_lloyd(e, xc4, affine, ck, dt, f"{tag} full resolution", True)
-    compare_lloyd(tw, pc0, affine, ck, dt, f"{tag} 2x2 twin", False)
-    del e, tw, xc4, pc0, xp
+           lambda: kf.kmeans_coarse_centers_xp(xp, 5, d, m, iters),
+           lambda: kf.kmeans_coarse_centers_xp_plain(xp, 5, d, m, iters),
+           (xp.numel() * 2, nb * m * (5 * 3 * d + iters * (2 * 5 * d + d))))
+    compare_lloyd(e, xc4, affine, ck, torch.bfloat16, f"{tag} full resolution", True)
+    compare_lloyd(tw, pc0, affine, ck, torch.bfloat16, f"{tag} 2x2 twin", False)
+    del color, e, tw, xc4, pc0, xp
 
     cfg0 = preset("config0").replace(batch_size=1)
     rgb1, gt1 = mosaics(1)
-    for dtype in ("float32", "bfloat16"):
-        tag0 = f"config0 1x321x481 {'f32' if dtype == 'float32' else 'bf16'}"
-        e, tw, xc4, pc0, affine, dt = compare_features(cfg0, rgb1, dtype, tag0, False)
-        compare_maximin(e, xc4, affine, tag0, dtype == "float32")
+    for dt in (torch.float32, torch.bfloat16):
+        tag0 = f"config0 1x321x481 {'f32' if dt == torch.float32 else 'bf16'}"
+        color, e, tw = compare_features(cfg0, rgb1, dt, tag0, False)
+        xc4, pc0, affine = chw_inputs(cfg0, color, e, tw, dt)
+        compare_maximin(e, xc4, affine, tag0, dt == torch.float32)
         c0 = kc._maximin_init_chw(e, xc4, affine[0], affine[1], cfg0.cluster.k)
         compare_lloyd(e, xc4, affine, c0, dt, tag0, False)
-    del e, tw, xc4, pc0
+    del color, e, tw, xc4, pc0
+
+    cfg2 = preset("config2")  # batch 8
+    c2 = cfg2.cluster
+    rgb8, gt8 = mosaics(cfg2.batch_size)
+    for dt in (torch.bfloat16, torch.float32):
+        main2 = dt == torch.bfloat16  # the production dtype is the JSON line's
+        tag2 = f"config2 8x321x481 {'bf16' if main2 else 'f32'}"
+        color, e, _ = compare_features(cfg2, rgb8, dt, f"{tag2} no twin", False,
+                                       pooled=False)
+        c4 = kc.build_color4(color, torch.float32)
+        a, b_aff = kc._affine_params(e, c4, c2, 1e-6)
+        x = ft.assemble_xp_from_affine(e, c4, a, b_aff, dt)
+        _, _, lv = gmm_fit_levels(321, 481, c2.gmm_fit_pool)
+        pe, pc = e, kc.build_color4(color, dt)
+        for _ in range(lv):
+            pe, pc = ft._pool2x2_cm(pe), ft._pool2x2_cm(pc)
+        fit = ft.assemble_xp_from_affine(pe, pc, a, b_aff, dt)
+        del color, c4, e, pe, pc
+        bsz, d, m = fit.shape
+        n = x.shape[2]
+        k = c2.k
+        gtag = f"{tag2} fit grid {tuple(fit.shape)}"
+
+        # K6: five maximin steps from the mean, as the GMM init seeds
+        probe = fit.float().sum(dim=2) / m
+        dk = torch.zeros((bsz, m), device=dev)
+        dp = torch.zeros((bsz, m), device=dev)
+        abs_err, err, same, seeds = 0.0, 0.0, True, []
+        for step in range(k):
+            pk = kf.maximin_t_pass(fit, probe, dk, step < 2)
+            pp = kf.maximin_t_pass_plain(fit, probe, dp, step < 2)
+            torch.cuda.synchronize()
+            same = same and torch.equal(pk, pp)
+            diff = (dk - dp).abs().max().item()
+            abs_err = max(abs_err, diff)
+            # the expanded form cancels near the probe (distance ~ 0), so
+            # the error is taken against the largest distance
+            err = max(err, diff / dp.abs().max().item())
+            probe = pk
+            seeds.append(pk)
+        report("maximin_t_pass", f"{gtag} same pixels {same}", abs_err, err,
+               "1e-5 (of the largest distance)",
+               same and err <= 1e-5,
+               lambda: kf.maximin_t_pass(fit, probe, dk, False),
+               lambda: kf.maximin_t_pass_plain(fit, probe, dp, False),
+               (bsz * m * (d * size(dt) + 8), bsz * m * 4 * d) if main2 else None)
+
+        # K5: a Lloyd pass from those seeds
+        centers = torch.stack(seeds, dim=1)
+        lk, sk, nk = kf.lloyd_t_pass(fit, centers)
+        lp, sp, np_ = kf.lloyd_t_pass_plain(fit, centers)
+        only = kf.lloyd_t_pass(fit, centers, assign_only=True)
+        torch.cuda.synchronize()
+        same = (lk == lp).float().mean().item()
+        rtol = 1e-4 if dt == torch.float32 else 1e-3
+        scale = sp.abs().max().item()
+        err = (sk - sp).abs().max().item()
+        report("lloyd_t_pass", f"{gtag} labels equal {same:.6f}", err, err,
+               f"{rtol}*{scale:.4g}",
+               same >= 0.9999 and err <= rtol * scale and torch.equal(nk, np_)
+               and torch.equal(only, lk),
+               lambda: kf.lloyd_t_pass(fit, centers),
+               lambda: kf.lloyd_t_pass_plain(fit, centers),
+               (bsz * m * (d * size(dt) + 4), bsz * m * (2 * k * d + d)) if main2 else None)
+
+        # K9 and K8 on the parameters of that hard split, as the EM loop's
+        # first iteration takes them
+        params = gf._moments_to_params(*gf._init_moments(fit, lk, k), m, c2.gmm_reg_covar)
+        covs = params[2].reshape(bsz * k, d, d).contiguous()
+        nmat = covs.shape[0]
+        if main2:
+            # well-conditioned matrices (cond < 40) of the same count and
+            # order: entry by entry within 5e-4 of cuSOLVER, as the tests hold
+            rng = np.random.default_rng(39)
+            g = rng.normal(size=(nmat, d, 2 * d))
+            wc = torch.from_numpy((g @ g.transpose(0, 2, 1) / (2 * d) + 1e-3 * np.eye(d))
+                                  .astype(np.float32)).to(dev)
+            (pw, dw), (pr, dr) = chol.precision_chol(wc), chol.precision_chol_plain(wc)
+            rel = ((pw - pr).abs() / (pr.abs() + 1e-3)).max().item()
+            drel = ((dw - dr).abs() / dr).max().item()
+            print(f"phase 3: precision_chol [well-conditioned M={nmat} d={d}] against "
+                  f"cuSOLVER: max rel {rel:.3e} (bound 5e-4), diag {drel:.3e} (bound 1e-5)",
+                  flush=True)
+            check(rel < 5e-4 and drel <= 1e-5,
+                  "precision_chol disagrees with cuSOLVER on well-conditioned matrices")
+        ptk, dgk = chol.precision_chol(covs)
+        ptp, dgp = chol.precision_chol_plain(covs)
+        torch.cuda.synchronize()
+        # The EM's covariances are ill-conditioned (small clusters: near
+        # rank-deficient plus reg_covar * I), so two float32 inverses differ
+        # entry by entry by up to cond * eps: the forward error is a reading.
+        # The gate is the backward error, which does not grow with cond.
+        (bk, gk), (bp, gp) = chol_errors(covs, ptk, dgk), chol_errors(covs, ptp, dgp)
+        c64 = covs.double()
+        pt64 = torch.linalg.solve_triangular(
+            torch.linalg.cholesky(c64),
+            torch.eye(d, dtype=torch.float64, device=dev).expand_as(c64), upper=False)
+
+        def fwd(pt):
+            return (torch.linalg.matrix_norm(pt.double() - pt64)
+                    / torch.linalg.matrix_norm(pt64)).max().item()
+
+        cond = torch.linalg.cond(c64)
+        noise = torch.randn(ptk.shape, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+        perturbed = torch.tril(ptk * (1 + 1e-5 * noise))
+        catches = not (chol_ok(covs, perturbed, dgk)
+                       or chol_ok(covs, torch.zeros_like(ptk), dgk))
+        print(f"phase 3: precision_chol [{tag2}] cond {cond.min().item():.3e}.."
+              f"{cond.max().item():.3e}; backward error kernel {bk.max().item():.3e}, "
+              f"cuSOLVER {bp.max().item():.3e}, P^T perturbed by 1e-5 "
+              f"{chol_errors(covs, perturbed, dgk)[0].max().item():.3e}; diag error "
+              f"kernel {gk.max().item():.3e}, cuSOLVER {gp.max().item():.3e}; forward "
+              f"error against float64 (normwise, a reading) kernel {fwd(ptk):.3e}, "
+              f"cuSOLVER {fwd(ptp):.3e}", flush=True)
+        check(catches, "the precision_chol gate passes a perturbed or zero P^T")
+        report("precision_chol", f"{tag2} M={nmat} d={d}", (ptk - ptp).abs().max().item(),
+               bk.max().item(), f"backward error {CHOL_BACKWARD_TOL:g}, diag error "
+               f"{CHOL_DIAG_TOL:g}, upper triangle zero", chol_ok(covs, ptk, dgk),
+               lambda: chol.precision_chol(covs), lambda: chol.precision_chol_plain(covs),
+               (nmat * d * (2 * d + 1) * 4, nmat * d ** 3) if main2 else None)
+        if main2:  # the plain version is the PyTorch (cuSOLVER) pair itself
+            record["precision_chol"]["library_ms"] = record["precision_chol"]["plain_ms"]
+
+        inputs = gf._params_to_kernel_inputs(*params)
+        for buf, where, moments, main in ((fit, "fit grid", True, main2),
+                                          (x, "full resolution", True, False),
+                                          (x, "full resolution labels only", False, False)):
+            got = gf.em_pass(buf, *inputs, moments=moments)
+            ref = gf.em_pass_plain(buf, *inputs, moments=moments)
+            torch.cuda.synchronize()
+            if not moments:
+                got, ref = (got,), (ref,)
+            same = (got[0] == ref[0]).float().mean().item()
+            ok, abs_err, err, tol = same >= 0.9999, 0.0, 0.0, 1e-4
+            if moments:
+                # Long float32 reductions (154,401 pixels at full resolution)
+                # in two orders: both are held against the plain version in
+                # float64. Rounding grows with the summed magnitudes, not
+                # with the sums (normalised features cancel), so each
+                # component's error is scaled by max(count, max_a sum r
+                # x_a^2), which bounds sum |terms| of every one of its
+                # entries.
+                r64 = gf.em_pass_plain(buf, *(t.double() for t in inputs))
+                scale = torch.maximum(r64[2], torch.diagonal(r64[4], dim1=2, dim2=3)
+                                      .amax(dim=2))
+
+                def err64(out):
+                    """(ll relative error, moments error) against float64."""
+                    e_ll = ((out[1].double() - r64[1]).abs() / r64[1].abs()).max().item()
+                    e_m = 0.0
+                    for g, r in zip(out[2:], r64[2:]):
+                        diff = (g.double() - r).abs().reshape(bsz, k, -1).amax(dim=2)
+                        e_m = max(e_m, (diff / scale).max().item())
+                    return e_ll, e_m
+
+                (ll_k, err), (ll_p, err_p) = err64(got), err64(ref)
+                tol = max(1e-4, 2.0 * err_p)
+                ok = ok and ll_k <= max(1e-5, 2.0 * ll_p)
+                abs_err = max((g - r).abs().max().item() for g, r in zip(got[2:], ref[2:]))
+                print(f"phase 3: em_pass [{tag2} {where}] against float64: ll rel kernel "
+                      f"{ll_k:.3e}, plain {ll_p:.3e}; moments (of the summed magnitude) "
+                      f"kernel {err:.3e}, plain {err_p:.3e}", flush=True)
+            npx = buf.shape[2]
+            flops = bsz * npx * (k * d * (d + 1) + (k * (d + 1) * (d + 2) if moments else 0))
+            report("em_pass", f"{tag2} {where} {tuple(buf.shape)} labels equal {same:.6f}",
+                   abs_err, err, f"labels 0.9999; vs float64, ll within max(1e-5, 2 x "
+                   f"plain's), moments within max(1e-4, 2 x plain's) = {tol:.3e}",
+                   ok and err <= tol,
+                   lambda: gf.em_pass(buf, *inputs, moments=moments),
+                   lambda: gf.em_pass_plain(buf, *inputs, moments=moments),
+                   (bsz * npx * (d * size(dt) + 4), flops) if main else None)
+        del x, fit, inputs
+    torch.cuda.empty_cache()
 
     # ---- phase 4: end to end ----------------------------------------------
     @contextlib.contextmanager
@@ -243,7 +514,11 @@ def main() -> None:
         swaps = [(pl, "gabor_energies_fused", fused.gabor_energies_fused_plain),
                  (pl, "kmeans_coarse_centers_xp", kf.kmeans_coarse_centers_xp_plain),
                  (kc, "lloyd_chw_pass", kc.lloyd_chw_pass_plain),
-                 (kc, "maximin_chw_pass", kc.maximin_chw_pass_plain)]
+                 (kc, "maximin_chw_pass", kc.maximin_chw_pass_plain),
+                 (kf, "lloyd_t_pass", kf.lloyd_t_pass_plain),
+                 (kf, "maximin_t_pass", kf.maximin_t_pass_plain),
+                 (gf, "em_pass", gf.em_pass_plain),
+                 (gf, "precision_chol", chol.precision_chol_plain)]
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, fn in swaps:
             setattr(mod, name, fn)
@@ -253,17 +528,23 @@ def main() -> None:
             for mod, name, fn in saved:
                 setattr(mod, name, fn)
 
-    runs = [(cfg1, rgb16, gt16, "config1 batch 16 bf16"),
-            (cfg0, rgb1, gt1, "config0 batch 1 f32")]
-    for wrapper, *_ in kernels.values():
-        wrapper.launches = 0
+    k1to4 = ["gabor_energies_fused", "lloyd_chw_pass"]
+    runs = [(cfg1, rgb16, gt16, "config1 batch 16 bf16", k1to4 + ["kmeans_coarse_centers_xp"]),
+            (cfg0, rgb1, gt1, "config0 batch 1 f32", k1to4 + ["maximin_chw_pass"])]
+    gmm_path = ["gabor_energies_fused", "maximin_t_pass", "lloyd_t_pass", "precision_chol",
+                "em_pass"]
+    for dtype in ("bfloat16", "float32"):
+        runs.append((cfg2.replace(dtype=dtype), rgb8, gt8,
+                     f"config2 batch 8 {'bf16' if dtype == 'bfloat16' else 'f32'}", gmm_path))
+    totals = {name: 0 for name in kernels}
     outputs = []
-    for cfg, rgb, gt, label in runs:
+    for cfg, rgb, gt, label, path in runs:
         def run():
-            x = torch.from_numpy(rgb).to(dev)
-            labels, _ = pl.segment_batch(x, cfg, with_features=False)
+            labels, _ = pl.segment_batch(rgb, cfg, with_features=False, device="cuda")
             return labels.cpu()
 
+        for wrapper, *_ in kernels.values():
+            wrapper.launches = 0
         t0 = time.perf_counter()
         first = run()
         warm = time.perf_counter() - t0
@@ -273,6 +554,7 @@ def main() -> None:
             t0 = time.perf_counter()
             out = run()
             times.append(time.perf_counter() - t0)
+        counts = {name: wrapper.launches for name, (wrapper, *_) in kernels.items()}
         ms = statistics.median(times) * 1e3
         mp = rgb.shape[0] * rgb.shape[1] * rgb.shape[2] / 1e6 / (ms / 1e3)
         check(torch.equal(out, first), f"{label}: labels differ between runs")
@@ -280,44 +562,61 @@ def main() -> None:
         print(f"phase 4: {label}: {ms:.2f} ms/batch (median of 5, first call "
               f"{warm:.2f} s), {mp:.2f} MP/s, host uint8 in -> host int32 labels "
               f"out, {card}", flush=True)
-    counts = {name: wrapper.launches for name, (wrapper, *_) in kernels.items()}
-    print(f"phase 4: launches in the end-to-end runs {counts}", flush=True)
-    for name, n in counts.items():
-        check(n > 0, f"{name} was never launched on the main path")
+        print(f"phase 4: {label}: launches in its 6 calls "
+              f"{ {name: counts[name] for name in path} }", flush=True)
+        for name in path:
+            check(counts[name] > 0, f"{name} was never launched on the {label} path")
+            totals[name] += counts[name]
     for cfg, rgb, gt, label, out in outputs:
         check(out.dtype == torch.int32 and tuple(out.shape) == rgb.shape[:3],
               f"{label}: labels {out.dtype} {tuple(out.shape)}")
         check(int(out.min()) >= 0 and int(out.max()) < cfg.cluster.k,
               f"{label}: labels outside [0, k)")
         with plain_kernels():
-            ref, _ = pl.segment_batch(torch.from_numpy(rgb).to(dev), cfg)
+            ref, _ = pl.segment_batch(rgb, cfg, device="cuda")
         ref = ref.cpu().numpy()
         floor = 0.99 if cfg.dtype == "bfloat16" else 0.999
-        agree = min(float((align_labels(out[i].numpy(), ref[i]) == ref[i]).mean())
-                    for i in range(len(ref)))
+        each = [float((align_labels(out[i].numpy(), ref[i]) == ref[i]).mean())
+                for i in range(len(ref))]
         print(f"phase 4: {label}: kernel path vs all-plain path on the card, "
-              f"min aligned agreement {agree:.6f} (floor {floor})", flush=True)
-        check(agree >= floor, f"{label}: kernel path disagrees with the plain path")
+              f"min aligned agreement {min(each):.6f} (floor {floor}; per image "
+              f"{[round(v, 6) for v in each]})", flush=True)
+        check(min(each) >= floor, f"{label}: kernel path disagrees with the plain path")
         pri = [rand_index(out[i].numpy(), gt[i]) for i in range(len(gt))]
         print(f"phase 4: {label}: Rand index against the mosaics' ground truth, "
               f"mean {statistics.mean(pri):.4f}, min {min(pri):.4f} (a reading; "
               f"the gate is the agreement above)", flush=True)
 
     # ---- phase 5: where the time goes -------------------------------------
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x = torch.from_numpy(rgb16).to(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pl.segment_batch(x, cfg1)
+    os.makedirs(out_dir, exist_ok=True)
+    for cfg, rgb, label in ((cfg1, rgb16, "config1 batch 16 bf16"),
+                            (cfg2.replace(dtype="bfloat16"), rgb8, "config2 batch 8 bf16")):
+        pl.segment_batch(rgb, cfg, device="cuda")
         torch.cuda.synchronize()
-    print(f"phase 5: one config1 batch 16 bf16 call under torch.profiler ({card})")
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), flush=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pl.segment_batch(rgb, cfg, device="cuda")[0].cpu()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        device_ms = sum(ev.self_device_time_total for ev in events  # kernels only
+                        if ev.device_type == DeviceType.CUDA
+                        and not getattr(ev, "is_user_annotation", False)) / 1e3
+        table = events.table(sort_by="self_cuda_time_total", row_limit=25)
+        with open(os.path.join(out_dir, f"profile_{label.split()[0]}.txt"), "w") as f:
+            f.write(f"{label} ({card})\n{events.table(sort_by='self_cuda_time_total')}")
+        print(f"phase 5: one {label} call under torch.profiler ({card}): device time "
+              f"{device_ms:.2f} ms of {wall:.2f} ms host to host, idle share "
+              f"{1 - device_ms / wall:.3f}")
+        print(table, flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"gabor_color_image_segmentation_tpu_torch/csrc/{src}",
          "replaces": f"gabor_color_image_segmentation_tpu/{where}",
-         "launches": counts[name], **record[name]}
+         "launches": totals[name], **record[name]}
         for name, (_, src, where) in kernels.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

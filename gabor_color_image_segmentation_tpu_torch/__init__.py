@@ -1,15 +1,18 @@
 """gabor_color_image_segmentation_tpu_torch — the PyTorch / CUDA port.
 
 A second package beside the JAX reference ``gabor_color_image_segmentation_tpu``
-with the same layout (``ops/``, ``models/``): each port module pairs with
-one reference module. It imports torch and numpy, never JAX; of the
-reference package it imports only the JAX-free ``config``, ``data`` and
-``utils.labels``.
+with the same layout (``ops/``, ``models/``, ``data/``, ``utils/``): each
+port module pairs with one reference module. It imports torch, numpy and
+scipy, never JAX and no module of the reference package: what it needs of
+the reference's JAX-free modules (``config``, ``data.synthetic``,
+``utils.labels``) it keeps as its own copies.
 
 Every Pallas kernel the port's path runs has a counterpart written by hand
 in CUDA C++ for Hopper (``csrc/``, built by ``_kernels.py``), and beside it
 a plain PyTorch version of the same math that serves CPU tensors.
 
-Covered so far: the labels-only k-means path of ``config0`` and ``config1``
-(``models/pipeline.py::segment_batch``).
+Covered so far: the labels-only paths of ``config0`` and ``config1``
+(k-means) and ``config2`` (per-image GMM), through
+``models/pipeline.py::segment_batch``, which runs on the card unless the
+caller passes ``device="cpu"``.
 """

@@ -1,10 +1,14 @@
 """Build, load and call the port's hand-written Hopper kernels (``csrc/``).
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, for ``sm_90a``, at first use. The library goes to ``_build/``
-under a name that carries a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads the cached build. It is loaded
-with ``ctypes``: every pointer and the CUDA stream travel as ``c_void_p``,
+At first use one ``nvcc`` process per ``csrc/*.cu``, all started together,
+compiles the sources for ``sm_90a``, and a last ``nvcc`` links the objects
+into one shared library with a plain C interface (compiling side by side,
+the first use waits about as long as the slowest source, not their sum,
+which keeps the build well inside ``chip_smoke.py``'s time limit as the
+sources grow; any failed compile or link raises with its log). The library goes to
+``_build/`` under a name that carries a hash of the sources and flags, so
+an edited source rebuilds and an unchanged one loads the cached build. It is
+loaded with ``ctypes``: every pointer and the CUDA stream travel as ``c_void_p``,
 every C entry point returns ``cudaGetLastError()`` after its launches, and
 :func:`launch` raises on a non-zero code.
 
@@ -30,7 +34,7 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -40,6 +44,10 @@ _SIGNATURES = {
     "gcis_lloyd_chw": [_P] * 7 + [_I] * 6 + [_P],
     "gcis_maximin_chw": [_P] * 8 + [_I] * 5 + [_P],
     "gcis_coarse_centers": [_P] * 4 + [_I] * 8 + [_P],
+    "gcis_lloyd_t": [_P] * 5 + [_I] * 6 + [_P],
+    "gcis_maximin_t": [_P] * 6 + [_I] * 5 + [_P],
+    "gcis_em_pass": [_P] * 7 + [_I] * 6 + [_P],
+    "gcis_precision_chol": [_P] * 3 + [_I] * 2 + [_P],
 }
 
 
@@ -82,13 +90,24 @@ def library() -> ctypes.CDLL:
             )
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources() if s.suffix == ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+        srcs = [src for src in _sources() if src.suffix == ".cu"]
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = [(proc.communicate()[0], proc.returncode) for proc in procs]
+        failed = [log for log, rc in logs if rc != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                                   *(str(o) for o in objs)],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                failed.append(link.stdout + link.stderr)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():

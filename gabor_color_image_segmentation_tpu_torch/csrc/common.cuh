@@ -92,4 +92,26 @@ static __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// out[b, e] = sum over blocks i, in block order, of partial[b, i, e]: the
+// second launch of every kernel that writes per-block partials instead of
+// using float atomics. Grid ((width + 255) / 256, B), 256 threads.
+static __global__ void block_order_sum_kernel(const float* __restrict__ partial,
+                                              float* __restrict__ out, int nblk,
+                                              int width) {
+  const int b = blockIdx.y;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= width) return;
+  const float* pp = partial + (long)b * nblk * width + e;
+  float acc = 0.f;
+  for (int i = 0; i < nblk; ++i) acc += pp[(long)i * width];
+  out[(long)b * width + e] = acc;
+}
+
+static inline cudaError_t block_order_sum(const float* partial, float* out, int B,
+                                          int nblk, int width, cudaStream_t s) {
+  block_order_sum_kernel<<<dim3((width + 255) / 256, B), 256, 0, s>>>(partial, out,
+                                                                      nblk, width);
+  return cudaGetLastError();
+}
+
 }  // namespace gcis

@@ -15,8 +15,9 @@
 //
 // Sums without float atomics: each block writes (k, D + 1) partial sums of
 // its own pixels (one warp per feature row, lanes striding over the block's
-// pixels, a fixed butterfly across lanes), and lloyd_reduce_kernel adds the
-// blocks' partials in block order. The result is the same on every run.
+// pixels, a fixed butterfly across lanes), and a second launch adds the
+// blocks' partials in block order (gcis::block_order_sum). The result is
+// the same on every run.
 //
 // Bound on the H100: HBM bandwidth. A pass reads the (E + 3)-row feature
 // buffer once to assign and once more, mostly from L2, for the sums; the
@@ -109,19 +110,6 @@ __global__ void __launch_bounds__(NT) lloyd_assign_kernel(
   }
 }
 
-// sums[b, e] = sum over blocks, in block order, of partial[b, blk, e]
-__global__ void lloyd_reduce_kernel(const float* __restrict__ partial,
-                                    float* __restrict__ sums, int nblk,
-                                    int width) {
-  const int b = blockIdx.y;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= width) return;
-  const float* pp = partial + (long)b * nblk * width + e;
-  float acc = 0.f;
-  for (int i = 0; i < nblk; ++i) acc += pp[(long)i * width];
-  sums[(long)b * width + e] = acc;
-}
-
 }  // namespace
 
 // xe: (B, E, N) and xc: (B, 4, N), float32 or bfloat16 (bf16 != 0).
@@ -151,8 +139,5 @@ GCIS_API int gcis_lloyd_chw(const void* xe, const void* xc, const float* wc,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || assign_only) return (int)err;
-  const int width = k * (D + 1);
-  lloyd_reduce_kernel<<<dim3((width + 255) / 256, B), 256, 0, s>>>(
-      partial, sums, nblk, width);
-  return (int)cudaGetLastError();
+  return (int)gcis::block_order_sum(partial, sums, B, nblk, k * (D + 1), s);
 }

@@ -1,3 +1,4 @@
-"""Clustering stage and pipeline of the port: eager k-means reference, the
-CHW Lloyd and maximin kernels (K2, K4), the coarse warm-start kernel (K3)
-and the labels-only pipeline."""
+"""Clustering stage and pipeline of the port: the eager k-means reference,
+the CHW Lloyd and maximin kernels (K2, K4), the coarse warm-start kernel
+(K3), the (B, D, N) Lloyd and maximin kernels (K5, K6), the precision
+Cholesky (K9), the GMM's EM pass (K8) and the labels-only pipeline."""

@@ -1,0 +1,197 @@
+"""Per-image full-covariance GMM on the normalised (B, D, N) buffer
+(counterpart of the JAX package's models/gmm_pallas.py), with kernel K8.
+
+K8 ``em_pass`` (csrc/em_pass.cu) replaces ``_em_kernel``: one E+M step,
+  y_j = P_j^T x - b_j,  maha_j = ||y_j||^2,  lp_j = const_j - maha_j / 2,
+the first-index argmax labels and, unless ``moments=False``, log-sum-exp
+responsibilities r_j, the per-image sum of the log-sum-exp and the
+per-component moments sum r_j, sum r_j x and sum r_j x x^T. Arithmetic is
+float32 in both storage dtypes: the TPU kernel's bf16x3 operand split made
+up for a missing float32 dot on the TPU and is not carried over. Partials
+are per block and reduced in block order, with no float atomics, so a run
+repeats bit for bit: EM's basin depends on these sums over 30 iterations.
+
+The solver ``gmm_fused_t_xt`` mirrors the reference's sklearn semantics:
+k-means init (K6 + K5), hard one-hot moments, ``n_iter`` EM iterations with
+the per-image tol freeze, ``refine_iters`` full-resolution passes and a
+labels-only pass. Each iteration factors the covariances with K9
+(models/chol.py). The loop runs a fixed count with the freeze done by
+``torch.where`` on the device, as the reference's ``fori_loop`` does, so the
+host never waits on the card inside the solver.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+from gabor_color_image_segmentation_tpu_torch import _kernels
+from gabor_color_image_segmentation_tpu_torch.models.chol import precision_chol
+from gabor_color_image_segmentation_tpu_torch.models.gmm import _LOG2PI
+from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import _TILE, K_MAX
+from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import kmeans_fused_t_xt
+
+D_MAX = 40  # feature rows the kernel holds per pixel (config2: 39)
+
+
+@functools.lru_cache(maxsize=16)
+def _unpack_index(d: int, device: str):
+    """Index of each output in the kernel's packed moments. The kernel
+    extends x with a ones entry at index d and packs, per component, the
+    lower triangle (a >= b) of the extended (d + 1) x (d + 1) scatter at
+    a * (a + 1) / 2 + b: (a < d, b < d) the scatter, (d, b < d) the sums,
+    (d, d) the count. Returns (scatter index (d, d), sums index (d,), count
+    index, triangle size)."""
+    a = torch.arange(d)
+    hi, lo = torch.maximum(a[:, None], a[None, :]), torch.minimum(a[:, None], a[None, :])
+    tri = d * (d + 1) // 2
+    return ((hi * (hi + 1) // 2 + lo).to(device), (tri + a).to(device), tri + d,
+            (d + 1) * (d + 2) // 2)
+
+
+def em_pass_plain(x, pt, bias, const, moments: bool = True):
+    """Plain PyTorch version of K8 (same contract as em_pass). It computes in
+    the parameters' dtype (float32; float64 parameters give a float64
+    reference)."""
+    xf = x.to(torch.promote_types(x.dtype, pt.dtype))
+    y = torch.matmul(pt, xf[:, None]) - bias[..., None]  # (B, k, D, N)
+    lp = const[..., None] - 0.5 * y.square().sum(dim=2)  # (B, k, N)
+    del y
+    labels = torch.argmax(lp, dim=1).to(torch.int32)  # first maximum
+    if not moments:
+        return labels
+    m = lp.max(dim=1, keepdim=True).values
+    ex = torch.exp(lp - m)
+    se = ex.sum(dim=1, keepdim=True)
+    resp = ex / se
+    ll = (m + torch.log(se)).sum(dim=(1, 2))
+    sums = torch.bmm(resp, xf.transpose(1, 2))  # (B, k, D)
+    scatter = torch.matmul(xf[:, None] * resp[:, :, None], xf.transpose(1, 2)[:, None])
+    return labels, ll, resp.sum(dim=2), sums, scatter
+
+
+def em_pass(x, pt, bias, const, moments: bool = True):
+    """One fused E+M pass over the normalised buffer.
+
+    x: (B, D, N) float32 or bfloat16; pt: (B, k, D, D) float32 stacked P^T
+    (lower; the kernel reads the lower triangle); bias: (B, k, D) float32
+    P^T mu; const: (B, k) float32 log w + log det P - D/2 log 2 pi. Returns
+    labels (B, N) int32 and, unless moments=False, (ll (B,) the sum of the
+    per-pixel log-likelihoods, counts (B, k), sums (B, k, D), scatter
+    (B, k, D, D)), float32."""
+    _kernels.check(x.dim() == 3, f"x must be (B, D, N), got {tuple(x.shape)}")
+    _kernels.storage_code(x.dtype)
+    b, d, n = x.shape
+    k = bias.shape[1] if bias.dim() == 3 else 0
+    _kernels.check(1 <= k <= K_MAX, f"k must be in [1, {K_MAX}], got {k}")
+    for name, t, shape in (("pt", pt, (b, k, d, d)), ("bias", bias, (b, k, d)),
+                           ("const", const, (b, k))):
+        _kernels.check(tuple(t.shape) == shape and t.dtype == torch.float32,
+                       f"{name} must be float32 {shape}, got {t.dtype} {tuple(t.shape)}")
+    if _kernels.use_plain(x, pt, bias, const):
+        return em_pass_plain(x, pt, bias, const, moments)
+    _kernels.check(d <= D_MAX, f"the CUDA kernel takes D <= {D_MAX}, got {d}")
+    x, pt, bias, const = x.contiguous(), pt.contiguous(), bias.contiguous(), const.contiguous()
+    labels = torch.empty((b, n), dtype=torch.int32, device=x.device)
+    scat_idx, sums_idx, count_idx, tri = _unpack_index(d, str(x.device))
+    width = k * tri + 1  # packed moments, then the log-likelihood
+    partial = packed = None
+    if moments:
+        nblk = -(-n // _TILE)
+        partial = torch.empty((b, nblk, width), dtype=torch.float32, device=x.device)
+        packed = torch.empty((b, width), dtype=torch.float32, device=x.device)
+    _kernels.launch(
+        "gcis_em_pass", x.data_ptr(), pt.data_ptr(), bias.data_ptr(), const.data_ptr(),
+        labels.data_ptr(), None if partial is None else partial.data_ptr(),
+        None if packed is None else packed.data_ptr(),
+        b, d, n, k, _kernels.storage_code(x.dtype), int(moments),
+    )
+    em_pass.launches += 1
+    if not moments:
+        return labels
+    per = packed[:, : k * tri].reshape(b, k, tri)
+    return (labels, packed[:, k * tri], per[:, :, count_idx], per[:, :, sums_idx],
+            per[:, :, scat_idx])
+
+
+em_pass.launches = 0
+
+
+def _moments_to_params(counts, sums, scatter, n: int, reg_covar: float):
+    """Moments -> (weights (B, k), means (B, k, D), covariances (B, k, D, D))
+    with sklearn's formulas (counts + 10 eps, E[x x^T] - mu mu^T + reg I)."""
+    nk = counts + 10.0 * torch.finfo(torch.float32).eps
+    means = sums / nk[:, :, None]
+    cov = scatter / nk[:, :, None, None] - means[:, :, :, None] * means[:, :, None, :]
+    eye = torch.eye(sums.shape[2], dtype=torch.float32, device=sums.device)
+    return nk / n, means, cov + reg_covar * eye
+
+
+def _params_to_kernel_inputs(weights, means, covs):
+    """(weights, means, covariances) -> K8's (P^T, bias, const). P^T comes
+    from K9 on a CUDA tensor; log det P = -sum log diag L."""
+    b, k, d = means.shape
+    pt, diag = precision_chol(covs.reshape(b * k, d, d))
+    pt, diag = pt.reshape(b, k, d, d), diag.reshape(b, k, d)
+    bias = torch.matmul(pt, means[..., None])[..., 0]
+    const = torch.log(weights) - torch.log(diag).sum(dim=2) - 0.5 * d * _LOG2PI
+    return pt, bias, const
+
+
+def _init_moments(x, labels, k: int):
+    """Hard one-hot moments of the k-means init: (counts, sums, scatter)."""
+    xf = x.to(torch.float32)
+    onehot = torch.nn.functional.one_hot(labels.long(), k).to(torch.float32)
+    onehot = onehot.transpose(1, 2)  # (B, k, N)
+    sums = torch.bmm(onehot, xf.transpose(1, 2))
+    scatter = torch.matmul(xf[:, None] * onehot[:, :, None], xf.transpose(1, 2)[:, None])
+    return onehot.sum(dim=2), sums, scatter
+
+
+def gmm_fused_t_xt(
+    x: torch.Tensor,
+    k: int,
+    n_iter: int = 30,
+    reg_covar: float = 1e-4,
+    kmeans_iters: int = 10,
+    tol: float = 0.0,
+    fit_x: Optional[torch.Tensor] = None,
+    refine_iters: int = 0,
+) -> torch.Tensor:
+    """GMM labels (B, N) int32 on the normalised buffer x (B, D, N).
+
+    The mixture is fitted on ``fit_x`` (B, D, m) when given (the pooled fit
+    grid, normalised with x's affine), else on x: k-means init (K6, K5),
+    hard moments, ``n_iter`` EM iterations (K9, K8). tol > 0 applies
+    sklearn's rule per image: an image whose mean log-likelihood moved by
+    less than tol keeps its parameters from then on. Then ``refine_iters``
+    EM passes on x and one labels-only pass on x."""
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"fused EM supports k <= {K_MAX}, got {k}")
+    fit = x if fit_x is None else fit_x
+    b, _, m = fit.shape
+    init_labels, _ = kmeans_fused_t_xt(fit, k, kmeans_iters)
+    params = _moments_to_params(*_init_moments(fit, init_labels, k), m, reg_covar)
+
+    def em(params, buf):
+        _, ll, counts, sums, scatter = em_pass(buf, *_params_to_kernel_inputs(*params))
+        return _moments_to_params(counts, sums, scatter, buf.shape[2], reg_covar), ll
+
+    prev_ll = torch.full((b,), float("-inf"), device=x.device)
+    go = torch.full((b,), n_iter > 0, dtype=torch.bool, device=x.device)
+    for _ in range(n_iter):
+        new, ll = em(params, fit)
+        ll = ll / m
+        if tol == 0.0:
+            params = new
+            continue
+        params = tuple(torch.where(go.reshape((b,) + (1,) * (p.dim() - 1)), p, q)
+                       for p, q in zip(new, params))
+        ll = torch.where(go, ll, prev_ll)
+        go = go & ((ll - prev_ll).abs() >= tol)
+        prev_ll = ll
+    for _ in range(refine_iters):
+        params, _ = em(params, x)
+    return em_pass(x, *_params_to_kernel_inputs(*params), moments=False)

@@ -1,13 +1,28 @@
-"""Coarse multigrid warm start, kernel K3 (counterpart of the JAX package's
-models/kmeans_pallas.py::kmeans_coarse_centers_xp).
+"""Lloyd k-means on the normalised (B, D, N) solver buffer (counterpart of
+the JAX package's models/kmeans_pallas.py), with kernels K3, K5 and K6.
 
-K3 (csrc/coarse_centers.cu) replaces ``_coarse_all_kernel``: maximin
-seeding and ``coarse_iters`` Lloyd passes on the normalised pooled buffer in
-one launch, one thread block per image. The JAX package runs that kernel in
-bf16 only and routes f32 through separate maximin and Lloyd passes (with a
-fixed-point early exit, identical at the fixed point); the port runs K3 in
-both dtypes, so the two differ only in reduction order. The source file
-says what bounds it on the H100 (one SM per image).
+The buffer holds D normalised feature rows of N pixels in the storage dtype
+(float32 or bfloat16). The reference's transposed ``xt`` layout also
+carried a ones-row (member counts) and zero padding to TPU tiles; the
+kernels here count members themselves and mask the ragged edge, so neither
+is built.
+
+- K3 (csrc/coarse_centers.cu) replaces ``_coarse_all_kernel``: maximin
+  seeding and ``coarse_iters`` Lloyd passes on the pooled buffer in one
+  launch, one thread block per image. The JAX package runs that kernel in
+  bf16 only and routes f32 through separate maximin and Lloyd passes (with
+  a fixed-point early exit, identical at the fixed point); the port runs K3
+  in both dtypes, so the two differ only in reduction order.
+- K5 ``lloyd_t_pass`` (csrc/lloyd_t.cu) replaces ``_lloyd_t_kernel``: one
+  Lloyd pass, per-block partial sums reduced in block order.
+- K6 ``maximin_t_pass`` (csrc/maximin_t.cu) replaces ``_maximin_kernel``:
+  one farthest-point step, per-block (max, first index) partials and a
+  select launch that reads the winning column.
+
+Scores follow the reference: ||c||^2 - 2 c . x with c in float32 for the
+norm and rounded to the storage dtype for the cross term, first minimum
+wins, an empty cluster keeps its centre. Each source file says what bounds
+its kernel on the H100.
 """
 
 from __future__ import annotations
@@ -15,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from gabor_color_image_segmentation_tpu_torch import _kernels
-from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import K_MAX
+from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import _TILE, K_MAX
 
 
 def kmeans_coarse_centers_xp_plain(xp, k: int, d: int, m: int, coarse_iters: int):
@@ -75,3 +90,166 @@ def kmeans_coarse_centers_xp(xp, k: int, d: int, m: int, coarse_iters: int):
 
 
 kmeans_coarse_centers_xp.launches = 0
+
+
+def _rounded(c: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 values as the cross term sees them: rounded to the storage
+    dtype."""
+    return c.to(dtype).to(torch.float32)
+
+
+def _check_buffer(x: torch.Tensor) -> None:
+    _kernels.check(x.dim() == 3, f"x must be (B, D, N), got {tuple(x.shape)}")
+    _kernels.storage_code(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K5: Lloyd pass
+# ---------------------------------------------------------------------------
+
+
+def lloyd_t_pass_plain(x, centers, assign_only: bool = False):
+    """Plain PyTorch version of K5 (same contract as lloyd_t_pass)."""
+    b, _, n = x.shape
+    k = centers.shape[1]
+    xf = x.to(torch.float32)
+    csq = centers.square().sum(dim=2)
+    scores = csq[:, :, None] - 2.0 * torch.bmm(_rounded(centers, x.dtype), xf)
+    labels = torch.argmin(scores, dim=1)  # first minimum
+    if assign_only:
+        return labels.to(torch.int32)
+    onehot = torch.nn.functional.one_hot(labels, k).to(torch.float32)  # (B, N, k)
+    sums = torch.bmm(xf, onehot).transpose(1, 2)  # (B, k, D)
+    return labels.to(torch.int32), sums, onehot.sum(dim=1)
+
+
+def lloyd_t_pass(x, centers, assign_only: bool = False):
+    """One Lloyd pass over the normalised buffer.
+
+    x: (B, D, N) float32 or bfloat16; centers: (B, k, D) float32. Returns
+    labels (B, N) int32 and, unless assign_only, member sums (B, k, D) and
+    counts (B, k), float32."""
+    _check_buffer(x)
+    b, d, n = x.shape
+    k = centers.shape[1]
+    _kernels.check(1 <= k <= K_MAX, f"k must be in [1, {K_MAX}], got {k}")
+    _kernels.check(tuple(centers.shape) == (b, k, d) and centers.dtype == torch.float32,
+                   f"centers must be float32 {(b, k, d)}")
+    if _kernels.use_plain(x, centers):
+        return lloyd_t_pass_plain(x, centers, assign_only)
+    x, centers = x.contiguous(), centers.contiguous()
+    nblk = -(-n // _TILE)
+    labels = torch.empty((b, n), dtype=torch.int32, device=x.device)
+    partial = sums = None
+    if not assign_only:
+        partial = torch.empty((b, nblk, k, d + 1), dtype=torch.float32, device=x.device)
+        sums = torch.empty((b, k, d + 1), dtype=torch.float32, device=x.device)
+    _kernels.launch(
+        "gcis_lloyd_t", x.data_ptr(), centers.data_ptr(), labels.data_ptr(),
+        None if assign_only else partial.data_ptr(),
+        None if assign_only else sums.data_ptr(),
+        b, d, n, k, _kernels.storage_code(x.dtype), int(assign_only),
+    )
+    lloyd_t_pass.launches += 1
+    if assign_only:
+        return labels
+    return labels, sums[:, :, :d], sums[:, :, d]
+
+
+lloyd_t_pass.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: maximin step
+# ---------------------------------------------------------------------------
+
+
+def maximin_t_pass_plain(x, probe, dmin, reset: bool):
+    """Plain PyTorch version of K6 (same contract as maximin_t_pass)."""
+    xf = x.to(torch.float32)
+    cross = torch.bmm(_rounded(probe, x.dtype)[:, None, :], xf)[:, 0]  # (B, N)
+    d2 = xf.square().sum(dim=1) - 2.0 * cross + probe.square().sum(dim=1, keepdim=True)
+    new = d2 if reset else torch.minimum(dmin, d2)
+    dmin.copy_(new)
+    idx = torch.argmax(new, dim=1)  # first maximum
+    return torch.gather(xf, 2, idx[:, None, None].expand(-1, x.shape[1], 1))[:, :, 0]
+
+
+def maximin_t_pass(x, probe, dmin, reset: bool):
+    """One farthest-point step: d2 = ||x||^2 - 2 round(p) . x + ||p||^2 in
+    float32 (the reference's expanded form; its ones-row adds 1 - 2 + 1 = 0
+    and is left out), ``dmin`` (B, N) float32 becomes d2 (reset) or
+    min(dmin, d2), in place. Returns the column (B, D) float32 of x at the
+    first index of the new dmin's maximum. probe: (B, D) float32."""
+    _check_buffer(x)
+    b, d, n = x.shape
+    _kernels.check(tuple(probe.shape) == (b, d) and probe.dtype == torch.float32,
+                   f"probe must be float32 {(b, d)}")
+    _kernels.check(tuple(dmin.shape) == (b, n) and dmin.dtype == torch.float32
+                   and dmin.is_contiguous(), f"dmin must be contiguous float32 {(b, n)}")
+    if _kernels.use_plain(x, probe, dmin):
+        return maximin_t_pass_plain(x, probe, dmin, reset)
+    x, probe = x.contiguous(), probe.contiguous()
+    nblk = -(-n // _TILE)
+    bestv = torch.empty((b, nblk), dtype=torch.float32, device=x.device)
+    besti = torch.empty((b, nblk), dtype=torch.int32, device=x.device)
+    best = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    _kernels.launch(
+        "gcis_maximin_t", x.data_ptr(), probe.data_ptr(), dmin.data_ptr(),
+        bestv.data_ptr(), besti.data_ptr(), best.data_ptr(), b, d, n,
+        _kernels.storage_code(x.dtype), int(reset),
+    )
+    maximin_t_pass.launches += 1
+    return best
+
+
+maximin_t_pass.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# solvers
+# ---------------------------------------------------------------------------
+
+
+def _maximin_init_t_fused(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Maximin seeds (B, k, D) float32: probe the float32 mean, then k
+    farthest-point steps (the running min restarts on steps 0 and 1)."""
+    b, _, n = x.shape
+    probe = x.to(torch.float32).sum(dim=2) / n
+    dmin = torch.zeros((b, n), dtype=torch.float32, device=x.device)
+    cols = []
+    for step in range(k):
+        probe = maximin_t_pass(x, probe, dmin, step < 2)
+        cols.append(probe)
+    return torch.stack(cols, dim=1)
+
+
+def _solve_t(x: torch.Tensor, c0: torch.Tensor, max_iter: int):
+    """Lloyd from centres c0 (B, k, D): exactly ``max_iter`` update passes,
+    then one labels pass. Returns (labels (B, N) int32, centres).
+
+    The reference loops until the centres stop changing or ``max_iter``
+    passes. Its passes reduce in a fixed order, as K5's do, so a pass at the
+    fixed point returns the same centres bit for bit: running the full
+    count gives the reference's centres and labels, with no host sync to
+    test for the fixed point."""
+    c = c0
+    for _ in range(max_iter):
+        _, sums, counts = lloyd_t_pass(x, c)
+        new = sums / torch.clamp(counts, min=1.0)[:, :, None]
+        c = torch.where(counts[:, :, None] > 0, new, c)
+    return lloyd_t_pass(x, c, assign_only=True), c
+
+
+def kmeans_fused_t_xt(x: torch.Tensor, k: int, n_iter: int = 25, coarse_iters: int = 0):
+    """k-means on the normalised buffer x (B, D, N): maximin seeds (K6), then
+    ``n_iter`` Lloyd passes (K5). Returns (labels (B, N) int32, centres
+    (B, k, D) float32). The reference's multigrid branch (coarse_iters > 0)
+    serves the NHWC / with-features path and is not ported."""
+    if coarse_iters > 0:
+        raise NotImplementedError(
+            "the PyTorch port does not run the multigrid schedule on the (B, D, N) "
+            "buffer yet: ROADMAP queue 1 item 14 (the NHWC / with-features path)"
+        )
+    _kernels.check(1 <= k <= K_MAX, f"fused Lloyd supports k <= {K_MAX}, got {k}")
+    return _solve_t(x, _maximin_init_t_fused(x, k), n_iter)

@@ -1,10 +1,12 @@
-"""Labels-only k-means pipeline (counterpart of the JAX package's
+"""Labels-only pipeline (counterpart of the JAX package's
 models/pipeline.py: _color_transform, segment_chw_grouped,
 _segment_batch_transposed, segment_batch, segment_images).
 
-uint8 sRGB (B, H, W, 3) on any device -> int32 label maps (B, H, W) on the
-same device, through the reference's production path:
+uint8 sRGB (B, H, W, 3), a numpy array or a tensor on any device -> int32
+label maps (B, H, W) on the device the caller names (the card unless
+``device="cpu"``), through the reference's production paths:
 
+k-means (config0, config1):
   1. Lab colour transform;
   2. Gabor energies and their 2x2 twin (kernel K1), one (B, E, H, W) tensor;
   3. the per-image standardisation affine with the coherence weights folded
@@ -17,17 +19,29 @@ same device, through the reference's production path:
      to ``n_iter`` full-resolution passes (K2);
   5. one assign-only pass (K2) writes the labels.
 
-Configurations outside this slice raise NotImplementedError naming the
+GMM (config2):
+  1. Lab colour transform;
+  2. Gabor energies without the twin (K1);
+  3. the normalised (B, E + 3, N) buffer and, on the grid pooled
+     ``gmm_fit_levels`` times, the fit buffer under the same affine;
+  4. k-means init on the fit buffer (K6 seeds, K5 passes), EM iterations
+     (K9 factors, K8 passes), the full-resolution refine passes (K8) and
+     one labels-only pass (K8).
+
+Configurations outside these slices raise NotImplementedError naming the
 ROADMAP queue-1 item that will bring them.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
-from gabor_color_image_segmentation_tpu.config import PipelineConfig
+from gabor_color_image_segmentation_tpu_torch.config import PipelineConfig
+from gabor_color_image_segmentation_tpu_torch.models.gmm import gmm_fit_levels
+from gabor_color_image_segmentation_tpu_torch.models.gmm_fused import gmm_fused_t_xt
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import (
     _affine_params,
     build_color4,
@@ -57,12 +71,14 @@ def _check_supported(cfg: PipelineConfig, with_features: bool) -> None:
         (with_features, "with_features=True", nhwc),
         (cfg.graph.enabled, "graph.enabled (superpixels + cut)",
          "queue 1 item 10 (config3)"),
-        (c.method != "kmeans", f"method={c.method!r}", "queue 1 item 9 (config2)"),
+        (c.method not in ("kmeans", "gmm"), f"method={c.method!r}", nhwc),
         (cfg.tile_hw is not None, "tile_hw (spatial tiling)", "queue 1 item 11 (config4)"),
         (c.feature_set != "full", f"feature_set={c.feature_set!r}", nhwc),
-        (c.subsample != 1, f"subsample={c.subsample}", nhwc),
+        # gmm with subsample > 1 is the reference's gmm_predict (NHWC solver)
+        (c.subsample != 1, f"{c.method} with subsample={c.subsample}", nhwc),
         (cfg.bank.gamma != 1.0, f"bank gamma={cfg.bank.gamma}", features),
-        (c.init_stride != 1, f"init_stride={c.init_stride}", nhwc),
+        (c.method == "kmeans" and c.init_stride != 1, f"init_stride={c.init_stride}",
+         nhwc),
         (cfg.feature_impl not in ("auto", "pallas"),
          f"feature_impl={cfg.feature_impl!r}", features),
     ]
@@ -122,8 +138,38 @@ def segment_chw_grouped(
     return labels
 
 
+def _segment_gmm(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
+    """(B, H, W, 3) sRGB -> (B, H, W) int32 labels of the per-image GMM."""
+    b, h, w, _ = rgb.shape
+    dtype = storage_dtype(cfg.dtype)
+    c = cfg.cluster
+    color = _color_transform(rgb, cfg.color_space)
+    energies, _ = gabor_energies_fused(color, bank_tensors(bank, rgb.device), dtype,
+                                       pooled=False)
+    # One affine for both buffers, from the float32 colour as the JAX
+    # package's _norm_affine reads it for the full-resolution buffer; its
+    # fit buffer's affine reads the colour rounded to the storage dtype, so
+    # in bfloat16 the colour rows' moments differ by that rounding.
+    c4 = build_color4(color, torch.float32)
+    a, b_aff = _affine_params(energies, c4, c, 1e-6)
+    x = assemble_xp_from_affine(energies, c4, a, b_aff, dtype)
+    fit_x = None
+    _, _, lv = gmm_fit_levels(h, w, c.gmm_fit_pool)
+    if lv > 0:
+        pe, pc = energies, build_color4(color, dtype)
+        for _ in range(lv):
+            pe, pc = _pool2x2_cm(pe), _pool2x2_cm(pc)
+        fit_x = assemble_xp_from_affine(pe, pc, a, b_aff, dtype)
+    del energies
+    labels = gmm_fused_t_xt(x, c.k, c.n_iter, c.gmm_reg_covar, 10, c.gmm_tol, fit_x,
+                            c.gmm_refine_iters)
+    return labels.reshape(b, h, w)
+
+
 def _segment_batch_transposed(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
     """(B, H, W, 3) sRGB -> (B, H, W) int32 labels, the production path."""
+    if cfg.cluster.method == "gmm":
+        return _segment_gmm(rgb, cfg, bank)
     _, h, w, _ = rgb.shape
     dtype = storage_dtype(cfg.dtype)
     c = cfg.cluster
@@ -138,21 +184,43 @@ def _segment_batch_transposed(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> t
                                fold_twin=twin)
 
 
+def _resolve_device(device) -> torch.device:
+    """``None`` means the card; no path moves to the CPU by itself."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "segment_batch runs on the NVIDIA card by default and found none "
+            "(torch.cuda.is_available() is False); pass device=\"cpu\" to run "
+            "the plain PyTorch versions on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def segment_batch(
-    rgb: torch.Tensor, cfg: PipelineConfig, bank=None, with_features: bool = False,
+    rgb: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig, bank=None,
+    with_features: bool = False, device=None,
 ) -> Tuple[torch.Tensor, None]:
     """(B, H, W, 3) uint8 (or [0, 1] float) sRGB -> ((B, H, W) int32 labels,
-    None), both on rgb's device. ``bank``: the port's or the JAX package's
-    GaborBank for cfg.bank (built when None). Only the labels-only path is
-    ported (with_features=False)."""
+    None). ``rgb`` is a numpy array or a tensor on any device; it is moved
+    to ``device`` and the labels come back there. ``device`` None means the
+    card, and raises RuntimeError when there is none: pass ``device="cpu"``
+    for the CPU. ``bank``: the port's or the JAX package's GaborBank for
+    cfg.bank (built when None). Only the labels-only paths are ported
+    (with_features=False)."""
     _check_supported(cfg, with_features)
+    dev = _resolve_device(device)
     set_policy()
     if bank is None:
         bank = make_bank(cfg.bank)
-    return _segment_batch_transposed(rgb, cfg, bank), None
+    if isinstance(rgb, np.ndarray):
+        rgb = torch.from_numpy(rgb)
+    return _segment_batch_transposed(rgb.to(dev), cfg, bank), None
 
 
-def segment_images(rgb: torch.Tensor, cfg: PipelineConfig, bank=None) -> torch.Tensor:
-    """Batch entry point of eval and serving: (B, H, W, 3) -> (B, H, W) int32."""
-    labels, _ = segment_batch(rgb, cfg, bank, False)
+def segment_images(rgb: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig, bank=None,
+                   device=None) -> torch.Tensor:
+    """Batch entry point of eval and serving: (B, H, W, 3) -> (B, H, W) int32
+    on ``device`` (the card unless ``device="cpu"``)."""
+    labels, _ = segment_batch(rgb, cfg, bank, False, device)
     return labels

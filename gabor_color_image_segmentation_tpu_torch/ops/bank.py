@@ -23,7 +23,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from gabor_color_image_segmentation_tpu.config import BankConfig
+from gabor_color_image_segmentation_tpu_torch.config import BankConfig
 
 
 def gabor_kernel(

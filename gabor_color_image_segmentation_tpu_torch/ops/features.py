@@ -1,6 +1,8 @@
-"""Feature assembly helpers of the labels-only path (counterpart of the JAX
+"""Feature assembly helpers of the labels-only paths (counterpart of the JAX
 package's ops/features.py: coherence_weights_cm, fold_coherence_affine,
-assemble_xp_from_affine, _pool2x2_cm).
+assemble_xp_from_affine, _pool2x2_cm; its _norm_affine and
+assemble_features_t are kmeans_chw._affine_params and
+assemble_xp_from_affine at full resolution).
 
 Plain PyTorch: in the JAX package these are XLA ops outside any Pallas
 kernel. Energies arrive as one channel-major (B, E, H, W) tensor (the
@@ -87,8 +89,9 @@ def assemble_xp_from_affine(
     pe: torch.Tensor, pc4: torch.Tensor, a: torch.Tensor, b_aff: torch.Tensor,
     out_dtype: torch.dtype,
 ) -> torch.Tensor:
-    """Pooled raw rows + full-resolution affine -> normalised coarse buffer
-    (B, E + 3, m), m = H2 * W2: energy rows, then the three colour rows.
+    """Raw channel-major rows (pooled or at full resolution) + the
+    full-resolution affine -> normalised buffer (B, E + 3, m), m = H2 * W2:
+    energy rows, then the three colour rows.
 
     The reference's xt layout also carried a ones-row (member counts) and
     zero padding to TPU tiles; the port's coarse kernel counts members

@@ -1,20 +1,30 @@
-"""PyTorch port: Gabor bank, colour transform and the kernel build contract.
+"""PyTorch port: Gabor bank, colour transform, the copies of the JAX
+package's JAX-free modules, and the kernel build contract.
 
 The port's numpy bank builder must give bitwise the JAX package's arrays
-(the system's only parameters); rgb_to_lab agrees to 1e-4 absolute. The
-port imports without JAX, and a kernel wrapper handed anything but CPU
-tensors launches its kernel or raises: it never falls back to the plain
-version."""
+(the system's only parameters); rgb_to_lab agrees to 1e-4 absolute; the
+port's config, synthetic data and label alignment equal the JAX package's.
+The port imports neither JAX nor any module of the JAX package (checked in
+a fresh interpreter and by scanning every import statement), and a kernel
+wrapper handed anything but CPU tensors launches its kernel or raises: it
+never falls back to the plain version."""
 
+import ast
+import dataclasses
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from gabor_color_image_segmentation_tpu import config as jax_config
 from gabor_color_image_segmentation_tpu.config import BankConfig, preset
+from gabor_color_image_segmentation_tpu.data.synthetic import (
+    synthetic_mosaic as jax_synthetic_mosaic,
+)
 from gabor_color_image_segmentation_tpu.ops.bank import make_bank as jax_make_bank
 from gabor_color_image_segmentation_tpu.ops.color import rgb_to_lab as jax_rgb_to_lab
 from gabor_color_image_segmentation_tpu.ops.modulated import (
@@ -22,10 +32,14 @@ from gabor_color_image_segmentation_tpu.ops.modulated import (
     _envelope_taps,
     group_frequencies,
 )
+from gabor_color_image_segmentation_tpu.utils.labels import align_labels as jax_align_labels
 from gabor_color_image_segmentation_tpu_torch import _kernels
+from gabor_color_image_segmentation_tpu_torch import config as tconfig
+from gabor_color_image_segmentation_tpu_torch import data as tdata
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import lloyd_chw_pass
 from gabor_color_image_segmentation_tpu_torch.ops import bank as tbank
 from gabor_color_image_segmentation_tpu_torch.ops.color import rgb_to_lab
+from gabor_color_image_segmentation_tpu_torch.utils.labels import align_labels as talign
 
 torch.set_num_threads(2)
 
@@ -92,14 +106,72 @@ def test_rgb_to_lab_matches_jax(small_mosaic):
         np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=0)
 
 
+PORT = Path(__import__("gabor_color_image_segmentation_tpu_torch").__file__).parent
+JAX_PKG = "gabor_color_image_segmentation_tpu"
+
+
+def _port_modules():
+    return sorted(
+        ".".join(("gabor_color_image_segmentation_tpu_torch",)
+                 + p.relative_to(PORT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+
+
 def test_port_imports_without_jax():
+    """Every module of the port imports, in a fresh interpreter, without
+    loading jax or any module of the JAX package."""
     code = (
-        "import sys\n"
-        "import gabor_color_image_segmentation_tpu_torch.models.pipeline\n"
-        "import gabor_color_image_segmentation_tpu_torch.models.kmeans\n"
-        "assert 'jax' not in sys.modules, 'the port imported jax'\n"
+        "import importlib, sys\n"
+        f"for name in {_port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')\n"
+        f"             or m == {JAX_PKG!r} or m.startswith({JAX_PKG + '.'!r}))\n"
+        "assert not bad, f'the port imported {bad}'\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300)
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(PORT.parent))
+                                        for p in [*PORT.rglob("*.py"),
+                                                  PORT.parent / "chip_smoke.py"]))
+def test_port_sources_import_no_jax(path):
+    """No import statement of the port or of chip_smoke.py names jax or the
+    JAX package, at any depth (function-local imports included)."""
+    tree = ast.parse((PORT.parent / path).read_text())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom)]
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib")
+           or m == JAX_PKG or m.startswith(JAX_PKG + ".")]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("name", sorted(jax_config.PRESETS))
+def test_config_copies_match_jax(name):
+    """The port's own config module equals the JAX package's, field for
+    field: the five presets and every dataclass default."""
+    assert sorted(tconfig.PRESETS) == sorted(jax_config.PRESETS)
+    assert (dataclasses.asdict(tconfig.preset(name))
+            == dataclasses.asdict(jax_config.preset(name)))
+    for cls in ("BankConfig", "ClusterConfig", "GraphConfig", "PipelineConfig"):
+        assert (dataclasses.asdict(getattr(tconfig, cls)())
+                == dataclasses.asdict(getattr(jax_config, cls)()))
+    bank = tconfig.preset(name).bank
+    assert bank.kernel_params() == jax_config.preset(name).bank.kernel_params()
+    assert bank.max_halo == jax_config.preset(name).bank.max_halo
+
+
+def test_data_and_label_copies_match_jax():
+    """synthetic_mosaic gives bitwise the JAX package's images and ground
+    truth; align_labels the same permutation."""
+    for kw in ({"h": 37, "w": 53, "n_regions": 4, "seed": 3},
+               {"h": 40, "w": 30, "seed": 9, "texture_only": True}):
+        for got, ref in zip(tdata.synthetic_mosaic(**kw), jax_synthetic_mosaic(**kw)):
+            np.testing.assert_array_equal(got, ref)
+    rng = np.random.default_rng(0)
+    a, b = rng.integers(0, 5, size=(2, 40, 50))
+    np.testing.assert_array_equal(talign(a, b), jax_align_labels(a, b))
 
 
 def _lloyd_inputs(device):

@@ -4,22 +4,25 @@ odd sizes), and the pipeline's kernel path against its all-plain path.
 
 Marked ``cuda``: the tests skip without an NVIDIA card (decided inside the
 ``device`` fixture, never at import). Run them on a card with
-``python -m pytest tests/test_torch_cuda.py -m cuda``. Tolerances as in
-chip_smoke.py."""
+``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest`` (the
+file imports only the port, so the card's machine needs no JAX).
+Tolerances as in chip_smoke.py."""
 
 import numpy as np
 import pytest
 import torch
 
-from gabor_color_image_segmentation_tpu.config import BankConfig, preset
-from gabor_color_image_segmentation_tpu.data import synthetic_mosaic
-from gabor_color_image_segmentation_tpu.utils.labels import align_labels
+from gabor_color_image_segmentation_tpu_torch.config import BankConfig, preset
+from gabor_color_image_segmentation_tpu_torch.data import synthetic_mosaic
+from gabor_color_image_segmentation_tpu_torch.models import chol
+from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_chw as kc
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_fused as kf
 from gabor_color_image_segmentation_tpu_torch.models.pipeline import segment_batch
 from gabor_color_image_segmentation_tpu_torch.ops import fused
 from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
 from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy
+from gabor_color_image_segmentation_tpu_torch.utils.labels import align_labels
 
 pytestmark = pytest.mark.cuda
 
@@ -106,13 +109,95 @@ def test_coarse_centers_kernel(device, dtype):
     assert torch.allclose(out, ref, rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("name", ["config0", "config1"])
+def _buffer(device, dt, b=2, d=39, n=3001, seed=5):
+    """A (B, D, N) normalised buffer of three well-separated blobs."""
+    rng = np.random.default_rng(seed)
+    means = rng.normal(scale=2.0, size=(b, 3, d))
+    lab = rng.integers(0, 3, size=(b, n))
+    x = np.take_along_axis(means, lab[:, :, None], 1) + rng.normal(size=(b, n, d))
+    return torch.from_numpy(np.swapaxes(x, 1, 2).astype(np.float32)).to(device, dt)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_lloyd_t_kernel(device, dtype):
+    x = _buffer(device, DTYPES[dtype])
+    c = x[:, :, :5].float().transpose(1, 2).contiguous() + 0.1
+    labels, sums, counts = kf.lloyd_t_pass(x, c)
+    rl, rs, rc = kf.lloyd_t_pass_plain(x, c)
+    torch.cuda.synchronize()
+    assert (labels == rl).float().mean() >= 0.9999
+    assert torch.equal(counts, rc)
+    assert torch.allclose(sums, rs, rtol=1e-4, atol=1e-4 * rs.abs().max().item())
+    assert torch.equal(kf.lloyd_t_pass(x, c, assign_only=True), labels)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_maximin_t_kernel(device, dtype):
+    x = _buffer(device, DTYPES[dtype], seed=6)
+    b, _, n = x.shape
+    probe = x.float().mean(dim=2)
+    dk = torch.zeros((b, n), device=device)
+    dp = torch.zeros((b, n), device=device)
+    for step in range(5):
+        pk = kf.maximin_t_pass(x, probe, dk, step < 2)
+        pp = kf.maximin_t_pass_plain(x, probe, dp, step < 2)
+        torch.cuda.synchronize()
+        assert torch.equal(pk, pp), step
+        assert torch.allclose(dk, dp, rtol=1e-5, atol=1e-4)
+        probe = pk
+
+
+def _em_inputs(x, k=5, seed=7):
+    """GMM parameters from a hard split of the buffer, as the EM loop makes
+    them."""
+    b, d, n = x.shape
+    labels = torch.from_numpy(np.random.default_rng(seed).integers(0, k, size=(b, n)))
+    params = gf._moments_to_params(*gf._init_moments(x, labels.to(x.device), k), n, 1e-4)
+    return gf._params_to_kernel_inputs(*params)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_em_pass_kernel(device, dtype):
+    x = _buffer(device, DTYPES[dtype], seed=8)
+    pt, bias, const = _em_inputs(x)
+    lk, llk, ck, sk, xk = gf.em_pass(x, pt, bias, const)
+    lp, llp, cp, sp, xp = gf.em_pass_plain(x, pt, bias, const)
+    torch.cuda.synchronize()
+    assert (lk == lp).float().mean() >= 0.9999
+    assert torch.allclose(llk, llp, rtol=1e-5)
+    for got, ref in ((ck, cp), (sk, sp), (xk, xp)):
+        assert torch.allclose(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+    assert torch.equal(gf.em_pass(x, pt, bias, const, moments=False), lk)
+    assert torch.equal(xk, xk.transpose(2, 3))  # one packed entry per pair
+
+
+@pytest.mark.parametrize("d", [3, 39, 64])
+def test_precision_chol_kernel(device, d):
+    # 2d samples keep the condition number near 34 at every d, so float32
+    # rounding (cond * eps) stays far below the bound
+    rng = np.random.default_rng(d)
+    a = rng.normal(size=(10, d, 2 * d))
+    cov = torch.from_numpy((a @ a.transpose(0, 2, 1) / (2 * d) + 1e-3 * np.eye(d))
+                           .astype(np.float32)).to(device)
+    pt, diag = chol.precision_chol(cov)
+    ref_pt, ref_diag = chol.precision_chol_plain(cov)
+    torch.cuda.synchronize()
+    rel = (pt - ref_pt).abs() / (ref_pt.abs() + 1e-3)
+    assert rel.max().item() < 5e-4
+    assert torch.allclose(diag, ref_diag, rtol=1e-5)
+    assert torch.count_nonzero(torch.triu(pt, 1)) == 0
+
+
+@pytest.mark.parametrize("name", ["config0", "config1", "config2"])
 def test_pipeline_kernels_match_plain_path(device, name):
-    rgb = np.stack([synthetic_mosaic(h=96, w=128, n_regions=5, seed=100 + i)[0]
+    # config2 at 160x224 fits its GMM on the 2x2-pooled grid (one level)
+    h, w = (160, 224) if name == "config2" else (96, 128)
+    rgb = np.stack([synthetic_mosaic(h=h, w=w, n_regions=5, seed=100 + i)[0]
                     for i in range(2)])
     cfg = preset(name).replace(batch_size=2)
-    gpu, _ = segment_batch(torch.from_numpy(rgb).to(device), cfg)
-    cpu, _ = segment_batch(torch.from_numpy(rgb), cfg)
+    gpu, _ = segment_batch(rgb, cfg)
+    cpu, _ = segment_batch(rgb, cfg, device="cpu")
+    assert gpu.device.type == "cuda"
     gpu = gpu.cpu().numpy()
     for i in range(2):
         ref = cpu[i].numpy()

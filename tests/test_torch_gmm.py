@@ -1,0 +1,191 @@
+"""PyTorch port, config2's kernels and solvers against the JAX package on the
+CPU (its Pallas kernels in interpret mode): K5 (Lloyd pass), K6 (maximin
+step and seeding), K8 (E+M pass), K9 (precision Cholesky), and the solvers
+kmeans_fused_t_xt and gmm_fused_t_xt.
+
+The same numpy inputs go to both: the JAX side in its padded transposed
+layout (ones-row, TPU padding), the port in its (B, D, N) layout.
+Tolerances: K5 labels equal on >= 99.99 % of pixels, sums within rtol 1e-4
+(f32) / 1e-3 (bf16); K6 picks the same pixels, running minima within rtol
+1e-5; K8 labels on >= 99.99 %, the log-likelihood within rtol 1e-5, sums,
+counts and scatter within rtol 1e-4; K9 within 5e-4 relative
+(tests/test_chol_pallas.py's bound); the solvers' labels agree on >= 99.9 %
+after alignment."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gabor_color_image_segmentation_tpu.models import gmm_pallas as jgmm
+from gabor_color_image_segmentation_tpu.models import kmeans_pallas as jkp
+from gabor_color_image_segmentation_tpu.models.chol_pallas import precision_chol_pallas
+from gabor_color_image_segmentation_tpu.utils.labels import align_labels
+from gabor_color_image_segmentation_tpu_torch.models import chol
+from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
+from gabor_color_image_segmentation_tpu_torch.models import kmeans_fused as kf
+
+torch.set_num_threads(2)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _blobs(b=2, n=3000, d=12, k=4, seed=0):
+    """(B, N, D) float32 features: k Gaussian blobs per image."""
+    rng = np.random.default_rng(seed)
+    means = rng.normal(scale=2.5, size=(b, k, d))
+    lab = rng.integers(0, k, size=(b, n))
+    x = np.take_along_axis(means, lab[:, :, None], 1)
+    return (x + rng.normal(size=(b, n, d)) * rng.uniform(0.5, 1.5, size=(b, 1, d))
+            ).astype(np.float32)
+
+
+def _both(x, dtype):
+    """(B, N, D) numpy -> (JAX padded xt, the port's (B, D, N) tensor) with
+    identical values in the storage dtype."""
+    jdt, tdt = DTYPES[dtype]
+    xt = jkp.build_xt(jnp.asarray(x), jdt)
+    return xt, torch.from_numpy(np.swapaxes(np.asarray(jnp.asarray(x, jdt), np.float32),
+                                            1, 2).copy()).to(tdt)
+
+
+def _np(t):
+    return np.asarray(t, np.float32)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_lloyd_t_pass_matches_kernel(dtype):
+    x = _blobs(seed=1)
+    b, n, d = x.shape
+    xt, xb = _both(x, dtype)
+    dp, _, block = jkp.xt_geometry(n, d, DTYPES[dtype][0])
+    centers = x[:, :5] + 0.05  # (B, 5, D)
+    cpad = jnp.zeros((b, 8, dp), jnp.float32).at[:, :5, :d].set(centers)
+    ref_l, ref_s = jkp._lloyd_t_pass(xt, cpad, 5, block, n, True)
+    labels, sums, counts = kf.lloyd_t_pass(xb, torch.from_numpy(centers))
+    assert labels.dtype == torch.int32 and tuple(labels.shape) == (b, n)
+    assert (labels.numpy() == np.asarray(ref_l)[:, :n]).mean() >= 0.9999
+    rtol = 1e-4 if dtype == "float32" else 1e-3
+    ref_sums = _np(ref_s)[:, :5, :d]
+    np.testing.assert_allclose(sums.numpy(), ref_sums, rtol=rtol,
+                               atol=rtol * np.abs(ref_sums).max())
+    np.testing.assert_array_equal(counts.numpy(), _np(ref_s)[:, :5, d])
+    only = kf.lloyd_t_pass(xb, torch.from_numpy(centers), assign_only=True)
+    assert torch.equal(only, labels)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_maximin_t_pass_matches_kernel(dtype):
+    x = _blobs(seed=2)
+    b, n, d = x.shape
+    xt, xb = _both(x, dtype)
+    dp, n_pad, block = jkp.xt_geometry(n, d, DTYPES[dtype][0])
+    probe_j = jnp.sum(xt, axis=2, dtype=jnp.float32) / n  # extended mean
+    probe_t = torch.from_numpy(_np(probe_j)[:, :d].copy())
+    dmin_j = jnp.zeros((b, n_pad), jnp.float32)
+    dmin_t = torch.zeros((b, n))
+    for step in range(5):
+        c8 = jnp.zeros((b, 8, dp), jnp.float32).at[:, 0].set(probe_j)
+        dmin_j, probe_j = jkp._maximin_pass(xt, c8, dmin_j, step < 2, block, n, True)
+        probe_t = kf.maximin_t_pass(xb, probe_t, dmin_t, step < 2)
+        np.testing.assert_array_equal(probe_t.numpy(), _np(probe_j)[:, :d])
+        np.testing.assert_allclose(dmin_t.numpy(), _np(dmin_j)[:, :n], rtol=1e-5,
+                                   atol=1e-4)
+    ref = jkp._maximin_init_t_fused(xt, 5, n, block, True)
+    np.testing.assert_array_equal(kf._maximin_init_t_fused(xb, 5).numpy(),
+                                  _np(ref)[:, :, :d])
+
+
+def _gmm_params(xb, k=4, seed=3):
+    """float32 (weights, means, covs) from a hard random split of xb."""
+    b, _, n = xb.shape
+    labels = torch.from_numpy(np.random.default_rng(seed).integers(0, k, size=(b, n)))
+    return gf._moments_to_params(*gf._init_moments(xb, labels, k), n, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_em_pass_matches_kernel(dtype):
+    x = _blobs(seed=4)
+    b, n, d = x.shape
+    k = 4
+    xt, xb = _both(x, dtype)
+    dp, _, block = jkp.xt_geometry(n, d, DTYPES[dtype][0])
+    pt, bias, const = gf._params_to_kernel_inputs(*_gmm_params(xb, k))
+    a = jnp.zeros((b, k, dp, dp), jnp.float32).at[:, :, :d, :d].set(pt.numpy())
+    bias_j = jnp.zeros((b, k, dp), jnp.float32).at[:, :, :d].set(bias.numpy())
+    const_j = jnp.zeros((b, 8, 1), jnp.float32).at[:, :k, 0].set(const.numpy())
+    ref_l, ref_ll, ref_ms, ref_cov = jgmm._em_pass(
+        xt, a.reshape(b, k * dp, dp), bias_j.reshape(b, k * dp, 1), const_j, k, block,
+        n, True, d)
+    labels, ll, counts, sums, scatter = gf.em_pass(xb, pt, bias, const)
+    assert (labels.numpy() == np.asarray(ref_l)[:, :n]).mean() >= 0.9999
+    np.testing.assert_allclose(ll.numpy(), _np(ref_ll), rtol=1e-5)
+    for got, ref in ((counts, _np(ref_ms)[:, :k, d]), (sums, _np(ref_ms)[:, :k, :d]),
+                     (scatter, _np(ref_cov)[:, :, :d, :d])):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4,
+                                   atol=1e-4 * np.abs(ref).max())
+    only = gf.em_pass(xb, pt, bias, const, moments=False)
+    ref_only, *_ = jgmm._em_pass(xt, a.reshape(b, k * dp, dp), bias_j.reshape(b, k * dp, 1),
+                                 const_j, k, block, n, True, d, False)
+    assert torch.equal(only, labels)
+    assert (only.numpy() == np.asarray(ref_only)[:, :n]).mean() >= 0.9999
+
+
+def test_precision_chol_matches_kernel():
+    """K9's plain version against the Pallas kernel at config2's order,
+    d = 39, M = 10 matrices (tests/test_chol_pallas.py's matrices)."""
+    rng = np.random.default_rng(7)
+    d = 39
+    a = rng.standard_normal((10, d, d + 8))
+    cov = (a @ a.transpose(0, 2, 1) / (d + 8) + 1e-2 * np.eye(d)).astype(np.float32)
+    ref_pt, ref_diag = precision_chol_pallas(jnp.asarray(cov), d=d)
+    pt, diag = chol.precision_chol(torch.from_numpy(cov))
+    rel = np.abs(pt.numpy() - _np(ref_pt)) / (np.abs(_np(ref_pt)) + 1e-3)
+    assert rel.max() < 5e-4, rel.max()
+    np.testing.assert_allclose(diag.numpy(), _np(ref_diag), rtol=1e-5)
+    assert np.abs(np.triu(pt.numpy(), 1)).max() == 0.0
+
+
+def _aligned(got, ref):
+    return min(float((align_labels(got[i], ref[i]) == ref[i]).mean())
+               for i in range(len(ref)))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_kmeans_fused_t_xt_matches_jax(dtype):
+    x = _blobs(seed=5)
+    b, n, d = x.shape
+    xt, xb = _both(x, dtype)
+    ref_l, ref_c = jkp.kmeans_fused_t_xt(xt, 5, d, n, 10)
+    labels, centers = kf.kmeans_fused_t_xt(xb, 5, 10)
+    assert (labels.numpy() == np.asarray(ref_l)).mean() >= 0.9999
+    np.testing.assert_allclose(centers.numpy(), _np(ref_c), rtol=1e-4, atol=1e-4)
+
+
+def _pool(x, h, w):
+    """(B, h*w, D) -> (B, (h/2)*(w/2), D) exact 2x2 block means."""
+    b, _, d = x.shape
+    g = x.reshape(b, h // 2, 2, w // 2, 2, d)
+    return ((g[:, :, 0, :, 0] + g[:, :, 0, :, 1]) + (g[:, :, 1, :, 0] + g[:, :, 1, :, 1])
+            ).reshape(b, -1, d) * np.float32(0.25)
+
+
+@pytest.mark.parametrize("pooled", [False, True])
+def test_gmm_fused_t_xt_matches_jax(pooled):
+    """The whole solver with the tol freeze, fitted on the buffer itself or
+    on its 2x2-pooled grid with one full-resolution refine pass."""
+    h, w, d, k = 128, 128, 8, 4
+    x = _blobs(n=h * w, d=d, k=k, seed=6)
+    b, n, _ = x.shape
+    xt, xb = _both(x, "float32")
+    if pooled:
+        fit = _pool(x, h, w)
+        fit_xp, fit_t = _both(fit, "float32")
+        ref = jgmm.gmm_fused_t_xt(xt, k, d, n, 15, 1e-4, 10, 1e-3, (h, w), 1, fit_xp, 1)
+        labels = gf.gmm_fused_t_xt(xb, k, 15, 1e-4, 10, 1e-3, fit_t, 1)
+    else:
+        ref = jgmm.gmm_fused_t_xt(xt, k, d, n, 15, 1e-4, 10, 1e-3)
+        labels = gf.gmm_fused_t_xt(xb, k, 15, 1e-4, 10, 1e-3)
+    assert labels.dtype == torch.int32 and tuple(labels.shape) == (b, n)
+    assert _aligned(labels.numpy(), np.asarray(ref)) >= 0.999

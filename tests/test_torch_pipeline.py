@@ -1,6 +1,7 @@
 """PyTorch port, whole slice: ``segment_batch(with_features=False)`` against
 the JAX package's ``_segment_batch_transposed`` for config0 (its Pallas
-kernels in interpret mode on the CPU), plus the entry points' contract.
+kernels in interpret mode on the CPU), plus the entry points' contract: the
+card by default, ``device="cpu"`` for the CPU.
 
 Bounds after Hungarian alignment: >= 0.999 in float32 and >= 0.99 in
 bfloat16 (tests/test_pipeline_configs.py's floor for this path). The bf16
@@ -8,7 +9,8 @@ bound presumes an image whose reference labels are themselves stable under
 bf16: the test first checks that the JAX package's own bf16 and f32 labels
 agree >= 0.99 on it. (On borderline mosaics they do not, e.g. 0.92, and
 no bf16 implementation can be held closer than that.) config1 is in
-test_torch_pipeline_config1.py, so the slow cases spread over workers."""
+test_torch_pipeline_config1.py and config2 in test_torch_pipeline_config2.py,
+so the slow cases spread over workers."""
 
 import dataclasses
 
@@ -66,7 +68,8 @@ def test_slice_matches_jax(batch, reference, dtype):
     if dtype == "bfloat16":
         stable = _agreement(ref, reference("float32"))
         assert min(stable) >= FLOOR[dtype], f"borderline test image: {stable}"
-    labels, feats = segment_batch(torch.from_numpy(batch), cfg, with_features=False)
+    labels, feats = segment_batch(torch.from_numpy(batch), cfg, with_features=False,
+                                  device="cpu")
     assert feats is None
     assert labels.dtype == torch.int32 and tuple(labels.shape) == batch.shape[:3]
     got = labels.numpy()
@@ -80,24 +83,40 @@ def test_bank_forms_and_entry_points_agree(batch):
     labels; float input in [0, 1] equals uint8 input."""
     cfg = preset(PRESET).replace(batch_size=2)
     x = torch.from_numpy(batch)
-    own, _ = segment_batch(x, cfg)
-    jb, _ = segment_batch(x, cfg, jax_make_bank(cfg.bank))
+    own, _ = segment_batch(x, cfg, device="cpu")
+    jb, _ = segment_batch(x, cfg, jax_make_bank(cfg.bank), device="cpu")
     assert torch.equal(own, jb)
-    assert torch.equal(segment_images(x, cfg, make_bank(cfg.bank)), own)
-    as_float, _ = segment_batch(x.to(torch.float32) / 255.0, cfg)
+    assert torch.equal(segment_images(x, cfg, make_bank(cfg.bank), device="cpu"), own)
+    as_float, _ = segment_batch(x.to(torch.float32) / 255.0, cfg, device="cpu")
     assert torch.equal(as_float, own)
+    from_numpy, _ = segment_batch(batch, cfg, device="cpu")
+    assert torch.equal(from_numpy, own)
+
+
+def test_entry_points_default_to_the_card(batch):
+    """device=None means the card: with none present both entry points
+    raise and name device="cpu"; nothing moves to the CPU by itself."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    cfg = preset(PRESET).replace(batch_size=2)
+    for call in (lambda: segment_batch(batch, cfg), lambda: segment_images(batch, cfg)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
 
 
 def test_constant_image_gives_valid_labels():
     cfg = preset(PRESET).replace(batch_size=1)
-    labels, _ = segment_batch(torch.full((1, 32, 40, 3), 128, dtype=torch.uint8), cfg)
+    labels, _ = segment_batch(torch.full((1, 32, 40, 3), 128, dtype=torch.uint8), cfg,
+                              device="cpu")
     assert labels.min() >= 0 and labels.max() < cfg.cluster.k
 
 
 UNSUPPORTED = {
     "with_features": (preset(PRESET), True),
     "graph": (preset("config3"), False),
-    "gmm": (preset("config2"), False),
+    # gmm's subsample > 1 is the reference's NHWC gmm_predict
+    "gmm": (preset("config2").replace(cluster=dataclasses.replace(
+        preset("config2").cluster, subsample=2)), False),
     "tiling": (preset("config4"), False),
     "feature_set": (preset(PRESET).replace(cluster=dataclasses.replace(
         preset(PRESET).cluster, feature_set="color")), False),
@@ -117,4 +136,4 @@ def test_unported_configs_raise(case):
     cfg, with_features = UNSUPPORTED[case]
     x = torch.zeros((1, 16, 16, 3), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        segment_batch(x, cfg, with_features=with_features)
+        segment_batch(x, cfg, with_features=with_features, device="cpu")
