@@ -14,15 +14,22 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    K1-K4 at config1 (batch 16 of 321x481, bf16) and config0 (batch 1, f32
    and bf16); K1 (no twin), K5, K6, K8 (the fit grid and full resolution,
    with moments and labels only) and K9 at config2 (batch 8, f32 and bf16);
+   K11 (SLIC), K14 (connectivity, on K11's output and on a fragmented
+   random map) and K15 (table lookup, with ``torch.gather`` as the library
+   call) at config3 (batch 8);
 4. ``segment_batch(uint8 -> int32 labels, with_features=False)`` end to end
-   at config1 batch 16 bf16, config0 batch 1 f32 and config2 batch 8 bf16
-   and f32: ms/batch and MP/s from host uint8 in to host int32 labels out;
+   at config1 batch 16 bf16, config0 batch 1 f32, config2 batch 8 bf16
+   and f32 and config3 batch 8 bf16 and f32, and one config3 min-cut call
+   of ``segment_images`` (batch 2): ms/batch and MP/s from host uint8 in to
+   host int32 labels out;
    each path runs with the launch counts set to 0 just before it and read
    just after, and every kernel of the path must have launched; agreement
-   with the all-plain path on the card; the Rand index against the
+   with the all-plain path on the card (for the graph stage, with both
+   paths handed K1's energies; see GRAPH_NOTE); the Rand index against the
    mosaics' ground truth (a reading, not a gate);
-5. where the time goes: ``torch.profiler`` tables of one config1 and one
-   config2 call (written in full to chiprun_out/);
+5. where the time goes: ``torch.profiler`` tables of one config1, one
+   config2 call and one config3 call in each dtype (the full tables go to
+   ``out_dir``);
 6. a JSON line of the kernels (time, plain time, bound, library call), then
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -36,7 +43,8 @@ equal on >= 99.99 %, and, held with the plain version against the plain
 version in float64, the log-likelihood within max(rtol 1e-5, twice the
 plain version's error) and the moments within max(1e-4 of each
 component's summed magnitude, twice the plain version's error);
-precision Cholesky within 5e-4 relative of cuSOLVER on well-conditioned
+SLIC labels equal on >= 99.9 % of each image's pixels; connectivity and
+lookup bit-equal; precision Cholesky within 5e-4 relative of cuSOLVER on well-conditioned
 matrices, and on the EM's ill-conditioned covariances, where two float32
 inverses differ entry by entry by up to cond * eps, a backward error
 ||L L^T - C||_F / ||C||_F <= 2e-5 (L the float64 inverse of P^T) and
@@ -70,6 +78,14 @@ F32_FLOP_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores, 67 TFLOP/s
 # 1 / P^T's diagonal within 1e-6 (a few float32 roundings).
 CHOL_BACKWARD_TOL = 2e-5
 CHOL_DIAG_TOL = 1e-6
+# Why config3's all-plain agreement is a reading: the n-cut's discrete steps
+# (the eigenvectors at a cut with gaps of ~1e-4, k-means on the embedding)
+# turn the ulp-level differences between K1 and its plain version (2e-5 of
+# the bf16 energies, the f32 ones in their last bits) into whole superpixels
+# changing region; experiments/torch_config3_stages.py measures it. K1 is
+# held at config3's shapes in phase 3 (config2's K1 line), and the gate
+# hands both paths K1's energies.
+GRAPH_NOTE = ", a reading for the graph stage: the gate is the next line"
 
 
 def fail(msg: str) -> None:
@@ -123,13 +139,17 @@ def main() -> None:
     from gabor_color_image_segmentation_tpu_torch.config import preset
     from gabor_color_image_segmentation_tpu_torch.data import synthetic_mosaic
     from gabor_color_image_segmentation_tpu_torch.models import chol
+    from gabor_color_image_segmentation_tpu_torch.models import connectivity as cn
     from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
     from gabor_color_image_segmentation_tpu_torch.models import kmeans_chw as kc
     from gabor_color_image_segmentation_tpu_torch.models import kmeans_fused as kf
     from gabor_color_image_segmentation_tpu_torch.models import pipeline as pl
+    from gabor_color_image_segmentation_tpu_torch.models import slic as sl
+    from gabor_color_image_segmentation_tpu_torch.models import slic_fused as sf
     from gabor_color_image_segmentation_tpu_torch.models.gmm import gmm_fit_levels
     from gabor_color_image_segmentation_tpu_torch.ops import features as ft
-    from gabor_color_image_segmentation_tpu_torch.ops import fused
+    from gabor_color_image_segmentation_tpu_torch.config import GraphConfig
+    from gabor_color_image_segmentation_tpu_torch.ops import fused, lookup
     from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
     from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy
     from gabor_color_image_segmentation_tpu_torch.utils.labels import align_labels
@@ -156,6 +176,10 @@ def main() -> None:
         "em_pass": (gf.em_pass, "em_pass.cu", "models/gmm_pallas.py:90"),
         "precision_chol": (chol.precision_chol, "precision_chol.cu",
                            "models/chol_pallas.py:112"),
+        "slic_batch": (sf.slic_batch, "slic.cu", "models/slic_pallas.py:351"),
+        "enforce_connectivity_fused": (cn.enforce_connectivity_fused, "connectivity.cu",
+                                       "models/connectivity_pallas.py:168"),
+        "table_lookup": (lookup.table_lookup, "lookup.cu", "ops/lookup.py:24"),
     }
     record = {name: {"library_ms": None} for name in kernels}
 
@@ -507,10 +531,74 @@ def main() -> None:
         del x, fit, inputs
     torch.cuda.empty_cache()
 
+    cfg3 = preset("config3")  # batch 8
+    g3 = cfg3.graph
+    tag3 = "config3 8x321x481"
+    lab3 = pl._color_transform(torch.from_numpy(rgb8).to(dev), "lab")
+    bsz, h3, w3, _ = lab3.shape
+    n3 = h3 * w3
+    gh3, gw3, _ = sl.grid_shape(h3, w3, g3.n_superpixels)
+    s3 = gh3 * gw3
+
+    # K11, the least work: in each of the n_iter + 1 assignments, a score per
+    # candidate (5 products and 4 sums for the dot, a product and a
+    # difference, a compare) and |cs|^2 per centroid (2 spatial weights, 5
+    # products, 4 sums); in each update 6 sums per pixel
+    def run_slic(fn):
+        return fn(lab3, g3.n_superpixels, g3.slic_compactness, g3.slic_iters)
+
+    spk, spp = run_slic(sf.slic_batch), run_slic(sl.slic_plain)
+    torch.cuda.synchronize()
+    each = (spk == spp).float().mean(dim=(1, 2))
+    n_cand = int(sl._candidates(h3, w3, gh3, gw3, dev)[1].sum()) * bsz
+    flops = ((g3.slic_iters + 1) * (n_cand * 12 + bsz * s3 * 11)
+             + g3.slic_iters * bsz * n3 * 6)
+    report("slic_batch", f"{tag3} S={s3}, {g3.slic_iters} iterations, labels equal per "
+           f"image min {each.min().item():.6f}", float((spk - spp).abs().max()),
+           1.0 - each.min().item(), "0.001 of each image's pixels", each.min() >= 0.999,
+           lambda: run_slic(sf.slic_batch), lambda: run_slic(sl.slic_plain),
+           (lab3.numel() * 4 + spk.numel() * 4, flops))
+
+    # K14 on K11's output (the main path's input) and on a fragmented map
+    rng = np.random.default_rng(14)
+    base = rng.integers(0, s3, ((h3 + 7) // 8, (w3 + 7) // 8))
+    frag = np.kron(base, np.ones((8, 8), int))[:h3, :w3]
+    frag = np.where(rng.random((h3, w3)) < 0.25, rng.integers(0, s3, (h3, w3)), frag)
+    frag = torch.from_numpy(np.stack([frag] * bsz).astype(np.int32)).to(dev)
+    for src, where, main in ((spk, "on K11's output", True),
+                             (frag, "on a fragmented random map", False)):
+        ck = cn.enforce_connectivity_fused(src, s3)
+        cp = sl.enforce_connectivity_plain(src, s3)
+        torch.cuda.synchronize()
+        ndiff = int((ck != cp).sum())
+        report("enforce_connectivity_fused", f"{tag3} {where}, min_size "
+               f"{sl.connectivity_defaults(h3, w3, s3, None, None)[0]}, {ndiff} pixels "
+               f"differ", float((ck - cp).abs().max()), ndiff, "bit-equal (0 pixels)",
+               ndiff == 0, lambda: cn.enforce_connectivity_fused(src, s3),
+               lambda: sl.enforce_connectivity_plain(src, s3),
+               (2 * src.numel() * 4, 0) if main else None)
+        if main:
+            sp3 = ck.reshape(bsz, n3)
+
+    # K15: region ids of each superpixel broadcast to the pixels
+    table = torch.from_numpy(rng.integers(0, g3.n_regions, (bsz, s3)).astype(np.int32)).to(dev)
+    lk, lp = lookup.table_lookup(sp3, table), lookup.table_lookup_plain(sp3, table)
+    torch.cuda.synchronize()
+    ndiff = int((lk != lp).sum())
+    report("table_lookup", f"{tag3} idx {tuple(sp3.shape)} table {tuple(table.shape)}, "
+           f"{ndiff} pixels differ", float((lk - lp).abs().max()), ndiff,
+           "bit-equal (0 pixels)", ndiff == 0, lambda: lookup.table_lookup(sp3, table),
+           lambda: lookup.table_lookup_plain(sp3, table),
+           (2 * sp3.numel() * 4 + table.numel() * 4, 0))
+    sp3_64 = sp3.long()
+    record["table_lookup"]["library_ms"] = cuda_ms(lambda: torch.gather(table, 1, sp3_64))
+    del lab3, spk, spp, frag, ck, cp, sp3, sp3_64, lk, lp
+
     # ---- phase 4: end to end ----------------------------------------------
     @contextlib.contextmanager
-    def plain_kernels():
-        """Route the pipeline through the plain versions (on the card)."""
+    def plain_kernels(keep=()):
+        """Route the pipeline through the plain versions (on the card), but
+        for the wrappers named in ``keep``."""
         swaps = [(pl, "gabor_energies_fused", fused.gabor_energies_fused_plain),
                  (pl, "kmeans_coarse_centers_xp", kf.kmeans_coarse_centers_xp_plain),
                  (kc, "lloyd_chw_pass", kc.lloyd_chw_pass_plain),
@@ -518,7 +606,11 @@ def main() -> None:
                  (kf, "lloyd_t_pass", kf.lloyd_t_pass_plain),
                  (kf, "maximin_t_pass", kf.maximin_t_pass_plain),
                  (gf, "em_pass", gf.em_pass_plain),
-                 (gf, "precision_chol", chol.precision_chol_plain)]
+                 (gf, "precision_chol", chol.precision_chol_plain),
+                 (pl, "slic_batch", sl.slic_plain),
+                 (pl, "enforce_connectivity_fused", sl.enforce_connectivity_plain),
+                 (pl, "table_lookup", lookup.table_lookup_plain)]
+        swaps = [(mod, name, fn) for mod, name, fn in swaps if name not in keep]
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, fn in swaps:
             setattr(mod, name, fn)
@@ -533,9 +625,15 @@ def main() -> None:
             (cfg0, rgb1, gt1, "config0 batch 1 f32", k1to4 + ["maximin_chw_pass"])]
     gmm_path = ["gabor_energies_fused", "maximin_t_pass", "lloyd_t_pass", "precision_chol",
                 "em_pass"]
+    graph_path = ["gabor_energies_fused", "slic_batch", "enforce_connectivity_fused",
+                  "table_lookup"]
     for dtype in ("bfloat16", "float32"):
         runs.append((cfg2.replace(dtype=dtype), rgb8, gt8,
                      f"config2 batch 8 {'bf16' if dtype == 'bfloat16' else 'f32'}", gmm_path))
+    for dtype in ("bfloat16", "float32"):
+        runs.append((cfg3.replace(dtype=dtype), rgb8, gt8,
+                     f"config3 batch 8 {'bf16' if dtype == 'bfloat16' else 'f32'}",
+                     graph_path))
     totals = {name: 0 for name in kernels}
     outputs = []
     for cfg, rgb, gt, label, path in runs:
@@ -567,20 +665,64 @@ def main() -> None:
         for name in path:
             check(counts[name] > 0, f"{name} was never launched on the {label} path")
             totals[name] += counts[name]
+
+    # the host-side min-cut route, with tests/test_pipeline_configs.py's pins
+    # on its fixture (two 96x128 mosaics of 4 regions, seeds 20 and 21)
+    cfg_mc = cfg3.replace(batch_size=2, graph=GraphConfig(
+        enabled=True, n_superpixels=64, cut="mincut", mincut_k=15.0, mincut_min_size=2))
+    rgb_mc = np.stack([synthetic_mosaic(h=96, w=128, n_regions=4, seed=20 + i)[0]
+                       for i in range(2)])
+    for wrapper, *_ in kernels.values():
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_mc = pl.segment_images(rgb_mc, cfg_mc, device="cuda").cpu()
+    mc_ms = (time.perf_counter() - t0) * 1e3
+    counts = {name: wrapper.launches for name, (wrapper, *_) in kernels.items()}
+    mc_path = ["gabor_energies_fused", "slic_batch", "enforce_connectivity_fused"]
+    with plain_kernels(keep=("gabor_energies_fused",)):
+        ref_mc = pl.segment_images(rgb_mc, cfg_mc, device="cuda").cpu().numpy()
+    each = [float((align_labels(out_mc[i].numpy(), ref_mc[i]) == ref_mc[i]).mean())
+            for i in range(2)]
+    print(f"phase 4: config3 min-cut batch 2 of 96x128 f32 (segment_images): "
+          f"{mc_ms:.2f} ms (first call), launches "
+          f"{ {name: counts[name] for name in mc_path} }, regions per image "
+          f"{[len(np.unique(o)) for o in out_mc.numpy()]}, against the plain graph stage "
+          f"on K1's energies "
+          f"{[round(v, 6) for v in each]} (floor 0.999), {card}", flush=True)
+    check(out_mc.dtype == torch.int32 and tuple(out_mc.shape) == rgb_mc.shape[:3]
+          and int(out_mc.min()) >= 0 and min(each) >= 0.999, "config3 min-cut: bad labels")
+    for name in mc_path:
+        check(counts[name] > 0, f"{name} was never launched on the config3 min-cut path")
+        totals[name] += counts[name]
+
     for cfg, rgb, gt, label, out in outputs:
         check(out.dtype == torch.int32 and tuple(out.shape) == rgb.shape[:3],
               f"{label}: labels {out.dtype} {tuple(out.shape)}")
-        check(int(out.min()) >= 0 and int(out.max()) < cfg.cluster.k,
-              f"{label}: labels outside [0, k)")
-        with plain_kernels():
-            ref, _ = pl.segment_batch(rgb, cfg, device="cuda")
-        ref = ref.cpu().numpy()
+        n_labels = cfg.graph.n_regions if cfg.graph.enabled else cfg.cluster.k
+        check(int(out.min()) >= 0 and int(out.max()) < n_labels,
+              f"{label}: labels outside [0, {n_labels})")
+
+        def agreement(keep=()):
+            with plain_kernels(keep):
+                ref, _ = pl.segment_batch(rgb, cfg, device="cuda")
+            ref = ref.cpu().numpy()
+            return [float((align_labels(out[i].numpy(), ref[i]) == ref[i]).mean())
+                    for i in range(len(ref))]
+
         floor = 0.99 if cfg.dtype == "bfloat16" else 0.999
-        each = [float((align_labels(out[i].numpy(), ref[i]) == ref[i]).mean())
-                for i in range(len(ref))]
+        note = GRAPH_NOTE if cfg.graph.enabled else ""
+        each = agreement()
         print(f"phase 4: {label}: kernel path vs all-plain path on the card, "
-              f"min aligned agreement {min(each):.6f} (floor {floor}; per image "
+              f"min aligned agreement {min(each):.6f} (floor {floor}{note}; per image "
               f"{[round(v, 6) for v in each]})", flush=True)
+        if cfg.graph.enabled:
+            # the gate: both paths from K1's energies, so the comparison
+            # holds K11, K14, K15 and the plain n-cut around them
+            each = agreement(keep=("gabor_energies_fused",))
+            print(f"phase 4: {label}: kernel path vs the plain graph stage on K1's "
+                  f"energies, min aligned agreement {min(each):.6f} (floor {floor}; per "
+                  f"image {[round(v, 6) for v in each]})", flush=True)
         check(min(each) >= floor, f"{label}: kernel path disagrees with the plain path")
         pri = [rand_index(out[i].numpy(), gt[i]) for i in range(len(gt))]
         print(f"phase 4: {label}: Rand index against the mosaics' ground truth, "
@@ -593,7 +735,9 @@ def main() -> None:
 
     os.makedirs(out_dir, exist_ok=True)
     for cfg, rgb, label in ((cfg1, rgb16, "config1 batch 16 bf16"),
-                            (cfg2.replace(dtype="bfloat16"), rgb8, "config2 batch 8 bf16")):
+                            (cfg2.replace(dtype="bfloat16"), rgb8, "config2 batch 8 bf16"),
+                            (cfg3.replace(dtype="bfloat16"), rgb8, "config3 batch 8 bf16"),
+                            (cfg3, rgb8, "config3 batch 8 f32")):
         pl.segment_batch(rgb, cfg, device="cuda")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -604,8 +748,9 @@ def main() -> None:
         device_ms = sum(ev.self_device_time_total for ev in events  # kernels only
                         if ev.device_type == DeviceType.CUDA
                         and not getattr(ev, "is_user_annotation", False)) / 1e3
-        table = events.table(sort_by="self_cuda_time_total", row_limit=25)
-        with open(os.path.join(out_dir, f"profile_{label.split()[0]}.txt"), "w") as f:
+        table = events.table(sort_by="self_cuda_time_total", row_limit=15)
+        name = "_".join(label.split()[::3])  # e.g. config3_bf16
+        with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
             f.write(f"{label} ({card})\n{events.table(sort_by='self_cuda_time_total')}")
         print(f"phase 5: one {label} call under torch.profiler ({card}): device time "
               f"{device_ms:.2f} ms of {wall:.2f} ms host to host, idle share "

@@ -12,7 +12,8 @@ in CUDA C++ for Hopper (``csrc/``, built by ``_kernels.py``), and beside it
 a plain PyTorch version of the same math that serves CPU tensors.
 
 Covered so far: the labels-only paths of ``config0`` and ``config1``
-(k-means) and ``config2`` (per-image GMM), through
-``models/pipeline.py::segment_batch``, which runs on the card unless the
-caller passes ``device="cpu"``.
+(k-means), ``config2`` (per-image GMM) and ``config3`` (SLIC superpixels
+and the spectral n-cut), through ``models/pipeline.py::segment_batch``, and
+the graph stage's host-side min-cut through ``segment_images``; both run on
+the card unless the caller passes ``device="cpu"``.
 """

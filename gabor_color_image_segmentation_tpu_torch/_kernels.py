@@ -37,9 +37,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry point, in csrc/ declaration order
 _SIGNATURES = {
+    "gcis_slic": [_P] * 3 + [_I] * 6 + [_F] * 3 + [_P],
+    "gcis_enforce_connectivity": [_P] * 5 + [_I] * 5 + [_P],
+    "gcis_table_lookup": [_P] * 3 + [_I] * 3 + [_P],
     "gcis_gabor_group": [_P] * 8 + [_I] * 10 + [_P],
     "gcis_lloyd_chw": [_P] * 7 + [_I] * 6 + [_P],
     "gcis_maximin_chw": [_P] * 8 + [_I] * 5 + [_P],

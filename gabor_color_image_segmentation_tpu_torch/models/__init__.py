@@ -1,4 +1,6 @@
-"""Clustering stage and pipeline of the port: the eager k-means reference,
-the CHW Lloyd and maximin kernels (K2, K4), the coarse warm-start kernel
-(K3), the (B, D, N) Lloyd and maximin kernels (K5, K6), the precision
-Cholesky (K9), the GMM's EM pass (K8) and the labels-only pipeline."""
+"""Clustering and graph stages and pipeline of the port: the eager k-means
+reference, the CHW Lloyd and maximin kernels (K2, K4), the coarse
+warm-start kernel (K3), the (B, D, N) Lloyd and maximin kernels (K5, K6),
+the precision Cholesky (K9), the GMM's EM pass (K8), SLIC (K11),
+connectivity enforcement (K14), the n-cut and min-cut graph stage and the
+labels-only pipeline."""

@@ -88,6 +88,49 @@ def kmeans(
     return _assign(x_mm, centers, dtype).to(torch.int32), centers
 
 
+def _maximin_init_batched(x: torch.Tensor, k: int) -> torch.Tensor:
+    """maximin_init over a batch: (B, N, D) float32 -> (B, k, D)."""
+    xsq = x.square().sum(dim=2)
+
+    def dist_to(c):  # c: (B, D)
+        return xsq - 2.0 * (x @ c[:, :, None])[:, :, 0] + c.square().sum(dim=1)[:, None]
+
+    def row(i):  # i: (B,) -> (B, D) rows of x
+        return torch.gather(x, 1, i[:, None, None].expand(-1, 1, x.shape[2]))[:, 0]
+
+    centers = [row(torch.argmax(dist_to(x.mean(dim=1)), dim=1))]
+    dmin = dist_to(centers[0])
+    for _ in range(1, k - 1):
+        c = row(torch.argmax(dmin, dim=1))
+        centers.append(c)
+        dmin = torch.minimum(dmin, dist_to(c))
+    if k > 1:
+        centers.append(row(torch.argmax(dmin, dim=1)))
+    return torch.stack(centers, dim=1)
+
+
+def kmeans_batched(x: torch.Tensor, k: int, n_iter: int = 25) -> torch.Tensor:
+    """``kmeans`` in float32 on each image of a batch, without a host sync:
+    x (B, N, D) -> labels (B, N) int32.
+
+    Runs exactly ``n_iter`` Lloyd passes, then the labels pass. A pass at the
+    Lloyd fixed point gives back its centres bit for bit, so this equals
+    ``kmeans``'s early exit."""
+    x = x.to(torch.float32)
+    centers = _maximin_init_batched(x, k)
+
+    def assign(c):
+        return torch.argmin(c.square().sum(dim=2)[:, None, :] - 2.0 * (x @ c.transpose(1, 2)),
+                            dim=2)
+
+    for _ in range(n_iter):
+        onehot = torch.nn.functional.one_hot(assign(centers), k).to(torch.float32)
+        counts = onehot.sum(dim=1)  # (B, k)
+        new = (onehot.transpose(1, 2) @ x) / torch.clamp(counts, min=1.0)[:, :, None]
+        centers = torch.where(counts[:, :, None] > 0, new, centers)
+    return assign(centers).to(torch.int32)
+
+
 def kmeans_multigrid(
     x: torch.Tensor,
     k: int,

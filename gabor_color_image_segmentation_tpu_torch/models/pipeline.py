@@ -28,6 +28,18 @@ GMM (config2):
      (K9 factors, K8 passes), the full-resolution refine passes (K8) and
      one labels-only pass (K8).
 
+graph (config3; ``segment_batch`` for the n-cut, ``segment_images`` for
+the min-cut too):
+  1. Lab colour transform;
+  2. Gabor energies without the twin (K1);
+  3. the standardised (B, E + 3, N) features in the storage dtype;
+  4. SLIC superpixels on the float32 Lab (K11) and connectivity
+     enforcement (K14);
+  5. n-cut: superpixel means, affinity, spectral embedding and k-means,
+     batched over the images (models/graph.py), then the region ids
+     broadcast to pixels (K15); or min-cut: the greedy merge on the host
+     per image.
+
 Configurations outside these slices raise NotImplementedError naming the
 ROADMAP queue-1 item that will bring them.
 """
@@ -40,8 +52,16 @@ import numpy as np
 import torch
 
 from gabor_color_image_segmentation_tpu_torch.config import PipelineConfig
+from gabor_color_image_segmentation_tpu_torch.models.connectivity import (
+    enforce_connectivity_fused,
+)
 from gabor_color_image_segmentation_tpu_torch.models.gmm import gmm_fit_levels
 from gabor_color_image_segmentation_tpu_torch.models.gmm_fused import gmm_fused_t_xt
+from gabor_color_image_segmentation_tpu_torch.models.graph import (
+    mincut_segment,
+    ncut_regions,
+    resolve_eig_method,
+)
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import (
     _affine_params,
     build_color4,
@@ -50,6 +70,8 @@ from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import (
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import (
     kmeans_coarse_centers_xp,
 )
+from gabor_color_image_segmentation_tpu_torch.models.slic import grid_shape
+from gabor_color_image_segmentation_tpu_torch.models.slic_fused import slic_batch
 from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
 from gabor_color_image_segmentation_tpu_torch.ops.color import rgb_to_lab
 from gabor_color_image_segmentation_tpu_torch.ops.features import (
@@ -57,6 +79,7 @@ from gabor_color_image_segmentation_tpu_torch.ops.features import (
     assemble_xp_from_affine,
 )
 from gabor_color_image_segmentation_tpu_torch.ops.fused import gabor_energies_fused
+from gabor_color_image_segmentation_tpu_torch.ops.lookup import table_lookup
 from gabor_color_image_segmentation_tpu_torch.ops.precision import (
     set_policy,
     storage_dtype,
@@ -64,21 +87,27 @@ from gabor_color_image_segmentation_tpu_torch.ops.precision import (
 
 
 def _check_supported(cfg: PipelineConfig, with_features: bool) -> None:
-    c = cfg.cluster
+    c, g = cfg.cluster, cfg.graph
     nhwc = "queue 1 item 14 (the NHWC / with-features path)"
     features = "queue 1 item 13 (the rest of the feature stage)"
+    config4 = "queue 1 item 11 (config4)"
+    # the graph stage replaces the pixel clustering, so the solver's own
+    # options do not apply to it
+    solver = not g.enabled
     unsupported = [
         (with_features, "with_features=True", nhwc),
-        (cfg.graph.enabled, "graph.enabled (superpixels + cut)",
-         "queue 1 item 10 (config3)"),
-        (c.method not in ("kmeans", "gmm"), f"method={c.method!r}", nhwc),
-        (cfg.tile_hw is not None, "tile_hw (spatial tiling)", "queue 1 item 11 (config4)"),
+        (g.enabled and g.pool > 0, f"graph.pool={g.pool} (the pooled graph stage)",
+         config4),
+        (g.enabled and c.cue_weight != "static",
+         f"the graph stage with cue_weight={c.cue_weight!r}", nhwc),
+        (solver and c.method not in ("kmeans", "gmm"), f"method={c.method!r}", nhwc),
+        (cfg.tile_hw is not None, "tile_hw (spatial tiling)", config4),
         (c.feature_set != "full", f"feature_set={c.feature_set!r}", nhwc),
         # gmm with subsample > 1 is the reference's gmm_predict (NHWC solver)
-        (c.subsample != 1, f"{c.method} with subsample={c.subsample}", nhwc),
+        (solver and c.subsample != 1, f"{c.method} with subsample={c.subsample}", nhwc),
         (cfg.bank.gamma != 1.0, f"bank gamma={cfg.bank.gamma}", features),
-        (c.method == "kmeans" and c.init_stride != 1, f"init_stride={c.init_stride}",
-         nhwc),
+        (solver and c.method == "kmeans" and c.init_stride != 1,
+         f"init_stride={c.init_stride}", nhwc),
         (cfg.feature_impl not in ("auto", "pallas"),
          f"feature_impl={cfg.feature_impl!r}", features),
     ]
@@ -166,8 +195,62 @@ def _segment_gmm(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
     return labels.reshape(b, h, w)
 
 
+def _graph_front(rgb: torch.Tensor, cfg: PipelineConfig, bank):
+    """(B, H, W, 3) sRGB -> ((B, E + 3, N) standardised features in the
+    storage dtype, (B, N) int32 connected superpixels of the float32 Lab,
+    their count S).
+
+    The features are the reference's assemble_features: the colour rounded
+    to the storage dtype before the per-image moments, the sqrt(E/3) colour
+    balance, static cue weights."""
+    b, h, w, _ = rgb.shape
+    dtype = storage_dtype(cfg.dtype)
+    g = cfg.graph
+    color = _color_transform(rgb, cfg.color_space)
+    energies, _ = gabor_energies_fused(color, bank_tensors(bank, rgb.device), dtype,
+                                       pooled=False)
+    c4 = build_color4(color, dtype)
+    a, b_aff = _affine_params(energies, c4, cfg.cluster, 1e-6)
+    feats = assemble_xp_from_affine(energies, c4, a, b_aff, dtype)
+    del energies, c4
+    lab = color if cfg.color_space == "lab" else _color_transform(rgb, "lab")
+    gh, gw, _ = grid_shape(h, w, g.n_superpixels)
+    sp = slic_batch(lab, g.n_superpixels, g.slic_compactness, g.slic_iters)
+    sp = enforce_connectivity_fused(sp, gh * gw)
+    return feats, sp.reshape(b, h * w), gh * gw
+
+
+def _segment_ncut(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
+    """(B, H, W, 3) sRGB -> (B, H, W) int32 region labels of the n-cut."""
+    b, h, w, _ = rgb.shape
+    g = cfg.graph
+    if g.cut != "ncut":
+        raise ValueError(f"cut={g.cut!r} is host-side (see mincut_segment); "
+                         "use pipeline.segment_images")
+    feats, sp, n_sp = _graph_front(rgb, cfg, bank)
+    regions = ncut_regions(feats, sp, n_sp, g.n_regions, g.affinity_sigma,
+                           resolve_eig_method(g, cfg.dtype, rgb.device),
+                           g.affinity_sigma_scale)
+    return table_lookup(sp, regions).reshape(b, h, w)
+
+
+def _segment_mincut(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
+    """(B, H, W, 3) sRGB -> (B, H, W) int32 region labels of the min-cut:
+    the graph front end on the device, the greedy merge on the host."""
+    b, h, w, _ = rgb.shape
+    g = cfg.graph
+    feats, sp, _ = _graph_front(rgb, cfg, bank)
+    feats = feats.to(torch.float32).cpu().numpy()
+    sp = sp.cpu().numpy()
+    out = np.stack([mincut_segment(feats[i].T.reshape(h, w, -1), sp[i].reshape(h, w),
+                                   g.mincut_k, g.mincut_min_size) for i in range(b)])
+    return torch.from_numpy(out).to(rgb.device)
+
+
 def _segment_batch_transposed(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
     """(B, H, W, 3) sRGB -> (B, H, W) int32 labels, the production path."""
+    if cfg.graph.enabled:
+        return _segment_ncut(rgb, cfg, bank)
     if cfg.cluster.method == "gmm":
         return _segment_gmm(rgb, cfg, bank)
     _, h, w, _ = rgb.shape
@@ -221,6 +304,17 @@ def segment_batch(
 def segment_images(rgb: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig, bank=None,
                    device=None) -> torch.Tensor:
     """Batch entry point of eval and serving: (B, H, W, 3) -> (B, H, W) int32
-    on ``device`` (the card unless ``device="cpu"``)."""
-    labels, _ = segment_batch(rgb, cfg, bank, False, device)
-    return labels
+    on ``device`` (the card unless ``device="cpu"``). Also runs the graph
+    stage's host-side min-cut (``graph.cut="mincut"``)."""
+    g = cfg.graph
+    if not (g.enabled and g.cut == "mincut"):
+        labels, _ = segment_batch(rgb, cfg, bank, False, device)
+        return labels
+    _check_supported(cfg, False)
+    dev = _resolve_device(device)
+    set_policy()
+    if bank is None:
+        bank = make_bank(cfg.bank)
+    if isinstance(rgb, np.ndarray):
+        rgb = torch.from_numpy(rgb)
+    return _segment_mincut(rgb.to(dev), cfg, bank)

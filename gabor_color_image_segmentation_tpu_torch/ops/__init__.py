@@ -1,2 +1,3 @@
 """Feature stage of the port: colour transform, Gabor bank, fused energies
-(kernel K1) and the standardisation-affine helpers."""
+(kernel K1), the standardisation-affine helpers and the per-image table
+lookup (kernel K15)."""

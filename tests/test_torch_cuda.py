@@ -15,12 +15,16 @@ import torch
 from gabor_color_image_segmentation_tpu_torch.config import BankConfig, preset
 from gabor_color_image_segmentation_tpu_torch.data import synthetic_mosaic
 from gabor_color_image_segmentation_tpu_torch.models import chol
+from gabor_color_image_segmentation_tpu_torch.models import connectivity as cn
 from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_chw as kc
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_fused as kf
+from gabor_color_image_segmentation_tpu_torch.models import slic as sl
+from gabor_color_image_segmentation_tpu_torch.models import slic_fused as sf
 from gabor_color_image_segmentation_tpu_torch.models.pipeline import segment_batch
-from gabor_color_image_segmentation_tpu_torch.ops import fused
+from gabor_color_image_segmentation_tpu_torch.ops import fused, lookup
 from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
+from gabor_color_image_segmentation_tpu_torch.ops.color import rgb_to_lab
 from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy
 from gabor_color_image_segmentation_tpu_torch.utils.labels import align_labels
 
@@ -188,10 +192,70 @@ def test_precision_chol_kernel(device, d):
     assert torch.count_nonzero(torch.triu(pt, 1)) == 0
 
 
-@pytest.mark.parametrize("name", ["config0", "config1", "config2"])
+def _lab(device, h, w, b=2):
+    rgb = np.stack([synthetic_mosaic(h=h, w=w, n_regions=5, seed=100 + i)[0]
+                    for i in range(b)])
+    return rgb_to_lab(torch.from_numpy(rgb).to(device))
+
+
+@pytest.mark.parametrize("geometry", [(96, 128, 64, 10.0), (64, 96, 800, 5.0),
+                                      (37, 53, 12, 10.0), (321, 481, 900, 5.0)])
+def test_slic_kernel(device, geometry):
+    h, w, n_sp, ruler = geometry
+    lab = _lab(device, h, w)
+    got = sf.slic_batch(lab, n_sp, ruler, 10)
+    ref = sl.slic_plain(lab, n_sp, ruler, 10)
+    torch.cuda.synchronize()
+    gh, gw, _ = sl.grid_shape(h, w, n_sp)
+    assert got.dtype == torch.int32 and int(got.max()) < gh * gw
+    assert (got == ref).float().mean(dim=(1, 2)).min() >= 0.999
+
+
+def _fragmented(device, h, w, n_sp, seed=7):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, n_sp, ((h + 7) // 8, (w + 7) // 8))
+    lab = np.kron(base, np.ones((8, 8), int))[:h, :w]
+    lab = np.where(rng.random((h, w)) < 0.25, rng.integers(0, n_sp, (h, w)), lab)
+    return torch.from_numpy(np.stack([lab, lab[:, ::-1]]).astype(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("case", [(48, 64, 12, 16, None), (33, 47, 20, 4, 7),
+                                  (1, 50, 5, 2, None), (29, 1, 5, 2, None),
+                                  (321, 481, 925, 41, None)])
+def test_connectivity_kernel(device, case):
+    h, w, n_sp, min_size, s_max = case
+    lab = _fragmented(device, h, w, n_sp)
+    got = cn.enforce_connectivity_fused(lab, n_sp, min_size, s_max)
+    ref = sl.enforce_connectivity_plain(lab, n_sp, min_size, s_max)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_connectivity_kernel_on_slic_output(device):
+    lab = _lab(device, 321, 481)
+    sp = sf.slic_batch(lab, 900, 5.0, 10)
+    assert torch.equal(cn.enforce_connectivity_fused(sp, 925),
+                       sl.enforce_connectivity_plain(sp, 925))
+
+
+@pytest.mark.parametrize("shape", [(2, 5000, 37), (3, 1001, 925), (1, 7, 1),
+                                   (8, 154401, 925)])
+def test_lookup_kernel(device, shape):
+    b, n, s = shape
+    g = torch.Generator().manual_seed(n)
+    idx = torch.randint(0, s, (b, n), generator=g, dtype=torch.int32).to(device)
+    table = torch.randint(-2**31, 2**31 - 1, (b, s), generator=g,
+                          dtype=torch.int32).to(device)
+    got = lookup.table_lookup(idx, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lookup.table_lookup_plain(idx, table))
+
+
+@pytest.mark.parametrize("name", ["config0", "config1", "config2", "config3"])
 def test_pipeline_kernels_match_plain_path(device, name):
-    # config2 at 160x224 fits its GMM on the 2x2-pooled grid (one level)
-    h, w = (160, 224) if name == "config2" else (96, 128)
+    # config2 at 160x224 fits its GMM on the 2x2-pooled grid (one level);
+    # config3's preset at 64x96 has S > 512 superpixels
+    h, w = {"config2": (160, 224), "config3": (64, 96)}.get(name, (96, 128))
     rgb = np.stack([synthetic_mosaic(h=h, w=w, n_regions=5, seed=100 + i)[0]
                     for i in range(2)])
     cfg = preset(name).replace(batch_size=2)
