@@ -16,20 +16,30 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    with moments and labels only) and K9 at config2 (batch 8, f32 and bf16);
    K11 (SLIC), K14 (connectivity, on K11's output and on a fragmented
    random map) and K15 (table lookup, with ``torch.gather`` as the library
-   call) at config3 (batch 8);
+   call) at config3 (batch 8); K13 (the banded SLIC loop) at config4's
+   pooled grid (batch 8 of 540x960, S = 405), with K11 there, one K13 pass
+   by column-piece width and one update as readings, and K14 and K15 on
+   K13's output there (config4's min_size, a (8, 405) table); K12 (the
+   one-launch w5 SLIC) at 8x321x481 with 400 superpixels, with
+   K11 and K13 there as readings; tiled K1 at config4 (batch 8 of
+   2160x3840, pool 2) against untiled K1 plus pooling (a reading of the
+   tiling's cost) and against the plain tiled path on batch 1;
 4. ``segment_batch(uint8 -> int32 labels, with_features=False)`` end to end
    at config1 batch 16 bf16, config0 batch 1 f32, config2 batch 8 bf16
-   and f32 and config3 batch 8 bf16 and f32, and one config3 min-cut call
-   of ``segment_images`` (batch 2): ms/batch and MP/s from host uint8 in to
-   host int32 labels out;
+   and f32, config3 batch 8 bf16 and f32 and config4 batch 8 of 2160x3840
+   bf16 and f32, and one config3 min-cut call of ``segment_images`` (batch
+   2): ms/batch and MP/s from host uint8 in to host int32 labels out;
    each path runs with the launch counts set to 0 just before it and read
-   just after, and every kernel of the path must have launched; agreement
-   with the all-plain path on the card (for the graph stage, with both
-   paths handed K1's energies; see GRAPH_NOTE); the Rand index against the
-   mosaics' ground truth (a reading, not a gate);
+   just after, and every kernel of the path must have launched (config4:
+   K13's passes and its updates, and not K11); agreement with the
+   all-plain path on the card (for the graph stage, with both paths handed
+   K1's energies; see GRAPH_NOTE);
+   the Rand index against the mosaics' ground truth (a reading, not a
+   gate); the eight 4K mosaics (bench seeds 100-107) are made on the host
+   in worker processes while the kernels build, outside any timed window;
 5. where the time goes: ``torch.profiler`` tables of one config1, one
-   config2 call and one config3 call in each dtype (the full tables go to
-   ``out_dir``);
+   config2 call, one config3 call in each dtype and one config4 bf16 call
+   (the full tables go to ``out_dir``);
 6. a JSON line of the kernels (time, plain time, bound, library call), then
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -43,7 +53,8 @@ equal on >= 99.99 %, and, held with the plain version against the plain
 version in float64, the log-likelihood within max(rtol 1e-5, twice the
 plain version's error) and the moments within max(1e-4 of each
 component's summed magnitude, twice the plain version's error);
-SLIC labels equal on >= 99.9 % of each image's pixels; connectivity and
+SLIC labels equal on >= 99.9 % of each image's pixels (K11) or on every
+pixel (K12 and K13 against their plain banded loop); connectivity and
 lookup bit-equal; precision Cholesky within 5e-4 relative of cuSOLVER on well-conditioned
 matrices, and on the EM's ill-conditioned covariances, where two float32
 inverses differ entry by entry by up to cond * eps, a backward error
@@ -62,11 +73,13 @@ from __future__ import annotations
 
 import contextlib
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -82,9 +95,11 @@ CHOL_DIAG_TOL = 1e-6
 # (the eigenvectors at a cut with gaps of ~1e-4, k-means on the embedding)
 # turn the ulp-level differences between K1 and its plain version (2e-5 of
 # the bf16 energies, the f32 ones in their last bits) into whole superpixels
-# changing region; experiments/torch_config3_stages.py measures it. K1 is
-# held at config3's shapes in phase 3 (config2's K1 line), and the gate
-# hands both paths K1's energies.
+# changing region; experiments/torch_graph_stages.py measures it. At
+# config4 the cut is not determined at all (connectivity keeps a few of its
+# 405 superpixels, the affinity median is 0 and L_sym's null space is larger
+# than the 5 regions). K1 is held at config3's and config4's shapes in phase
+# 3, and the gate hands both paths K1's energies.
 GRAPH_NOTE = ", a reading for the graph stage: the gate is the next line"
 
 
@@ -149,10 +164,17 @@ def main() -> None:
     from gabor_color_image_segmentation_tpu_torch.models.gmm import gmm_fit_levels
     from gabor_color_image_segmentation_tpu_torch.ops import features as ft
     from gabor_color_image_segmentation_tpu_torch.config import GraphConfig
-    from gabor_color_image_segmentation_tpu_torch.ops import fused, lookup
+    from gabor_color_image_segmentation_tpu_torch.ops import fused, lookup, tiled
     from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
     from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy
-    from gabor_color_image_segmentation_tpu_torch.utils.labels import align_labels
+
+    # config4's eight 4K mosaics take seconds each on the host: made in
+    # worker processes while the kernels build and the earlier phases run
+    cfg4 = preset("config4")  # batch 8 of 2160x3840
+    workers = ProcessPoolExecutor(max_workers=cfg4.batch_size,
+                                  mp_context=multiprocessing.get_context("spawn"))
+    pending4 = [workers.submit(synthetic_mosaic, *cfg4.image_hw, 5, 100 + i)
+                for i in range(cfg4.batch_size)]
 
     t0 = time.perf_counter()
     _kernels.library()
@@ -176,12 +198,18 @@ def main() -> None:
         "em_pass": (gf.em_pass, "em_pass.cu", "models/gmm_pallas.py:90"),
         "precision_chol": (chol.precision_chol, "precision_chol.cu",
                            "models/chol_pallas.py:112"),
-        "slic_batch": (sf.slic_batch, "slic.cu", "models/slic_pallas.py:351"),
+        "slic_w3": (sf.slic_w3, "slic.cu", "models/slic_pallas.py:351"),
+        "slic_band_pass": (sf.slic_band_pass, "slic_banded.cu", "models/slic_pallas.py:241"),
+        "slic_w5": (sf.slic_w5, "slic_banded.cu", "models/slic_pallas.py:265"),
         "enforce_connectivity_fused": (cn.enforce_connectivity_fused, "connectivity.cu",
                                        "models/connectivity_pallas.py:168"),
         "table_lookup": (lookup.table_lookup, "lookup.cu", "ops/lookup.py:24"),
     }
     record = {name: {"library_ms": None} for name in kernels}
+    # every launch counter: the kernels', and K13's update launch, which
+    # belongs to K13's line of the JSON
+    counters = {name: wrapper for name, (wrapper, *_) in kernels.items()}
+    counters["slic_band_update"] = sf.slic_band_update
 
     def cuda_ms(fn, reps=5):
         fn()
@@ -547,16 +575,16 @@ def main() -> None:
     def run_slic(fn):
         return fn(lab3, g3.n_superpixels, g3.slic_compactness, g3.slic_iters)
 
-    spk, spp = run_slic(sf.slic_batch), run_slic(sl.slic_plain)
+    spk, spp = run_slic(sf.slic_w3), run_slic(sl.slic_plain)
     torch.cuda.synchronize()
     each = (spk == spp).float().mean(dim=(1, 2))
     n_cand = int(sl._candidates(h3, w3, gh3, gw3, dev)[1].sum()) * bsz
     flops = ((g3.slic_iters + 1) * (n_cand * 12 + bsz * s3 * 11)
              + g3.slic_iters * bsz * n3 * 6)
-    report("slic_batch", f"{tag3} S={s3}, {g3.slic_iters} iterations, labels equal per "
+    report("slic_w3", f"{tag3} S={s3}, {g3.slic_iters} iterations, labels equal per "
            f"image min {each.min().item():.6f}", float((spk - spp).abs().max()),
            1.0 - each.min().item(), "0.001 of each image's pixels", each.min() >= 0.999,
-           lambda: run_slic(sf.slic_batch), lambda: run_slic(sl.slic_plain),
+           lambda: run_slic(sf.slic_w3), lambda: run_slic(sl.slic_plain),
            (lab3.numel() * 4 + spk.numel() * 4, flops))
 
     # K14 on K11's output (the main path's input) and on a fragmented map
@@ -594,12 +622,153 @@ def main() -> None:
     record["table_lookup"]["library_ms"] = cuda_ms(lambda: torch.gather(table, 1, sp3_64))
     del lab3, spk, spp, frag, ck, cp, sp3, sp3_64, lk, lp
 
+    # K13 at config4's pooled grid, the main path's SLIC; K12 at 8x321x481
+    # with 400 superpixels (a frame under the whole-image gate, where
+    # plan="w5" selects it); K11, and K13 at K12's frame, as readings
+    pairs4 = [f.result() for f in pending4]
+    workers.shutdown()
+    rgb4, gt4 = np.stack([p[0] for p in pairs4]), np.stack([p[1] for p in pairs4])
+    del pairs4
+    g4 = cfg4.graph
+    tag4 = "config4 8x2160x3840"
+    color4 = pl._color_transform(torch.from_numpy(rgb4).to(dev), "lab")
+    lab4 = color4
+    for _ in range(g4.pool):
+        lab4 = tiled.pool2x2_mean(lab4, 1)
+
+    def compare_banded(name, fn, lab, n_sp, tag, readings):
+        """``fn`` (K13's loop or K12) against the plain banded loop: labels
+        equal on every pixel. The least work is K11's (see run_slic)."""
+        args = (lab, n_sp, g4.slic_compactness, g4.slic_iters)
+        got, ref = fn(*args), sf.slic_banded_plain(*args)
+        torch.cuda.synchronize()
+        ndiff = int((got != ref).sum())
+        bsz, h, w, _ = lab.shape
+        gh, gw, _ = sl.grid_shape(h, w, n_sp)
+        n_cand = int(sl._candidates(h, w, gh, gw, dev)[1].sum()) * bsz
+        flops = ((g4.slic_iters + 1) * (n_cand * 12 + bsz * gh * gw * 11)
+                 + g4.slic_iters * bsz * h * w * 6)
+        report(name, f"{tag} S={gh * gw}, {g4.slic_iters} iterations, {ndiff} pixels "
+               f"differ", float((got - ref).abs().max()), ndiff,
+               "labels equal on every pixel", ndiff == 0, lambda: fn(*args),
+               lambda: sf.slic_banded_plain(*args), (lab.numel() * 4 + got.numel() * 4, flops))
+        for other, ofn in readings:
+            same = (ofn(*args) == got).float().mean(dim=(1, 2)).min().item()
+            other_ms = cuda_ms(lambda: ofn(*args))
+            print(f"phase 3: {other} [{tag} S={gh * gw}] (a reading) {other_ms:.3f} ms, labels "
+                  f"equal to {name}'s per image min {same:.6f} ({card})", flush=True)
+        return got
+
+    check(sf.slic_route(*lab4.shape[1:3], g4.n_superpixels) == "banded",
+          "config4's pooled grid does not take the banded SLIC")
+    h4, w4 = lab4.shape[1:3]
+    tag4p = f"config4 pooled 8x{h4}x{w4}"
+    sp4 = compare_banded("slic_band_pass", sf.slic_banded, lab4, g4.n_superpixels,
+                         f"{tag4p}, banded loop, 11 pass launches",
+                         [("slic_w3 (K11)", sf.slic_w3)])
+    # where K13's loop spends its time (readings): one pass with partials
+    # at several column-piece widths (the frame's width is one piece per
+    # band), and one update after the default pass
+    bp4 = sf._band_plan(h4, w4, g4.n_superpixels)
+    sw4 = sl.slic_geometry(h4, w4, g4.n_superpixels, g4.slic_compactness)[2]
+    cent4 = sl.slic_init_centroids(lab4, bp4["gh"], bp4["gw"])
+    by_cols = {c: round(cuda_ms(lambda: sf.slic_band_pass(lab4, cent4, bp4, sw4, cols=c)), 4)
+               for c in (w4, 256, sf._BAND_COLS, 64)}
+    parts4 = sf.slic_band_pass(lab4, cent4, bp4, sw4)[1]
+    t_update = cuda_ms(lambda: sf.slic_band_update(cent4.clone(), parts4, bp4, h4))
+    print(f"phase 3: slic_band_pass [{tag4p}] (readings) one pass with partials by column "
+          f"width {by_cols} ms, one update {t_update:.4f} ms ({card})", flush=True)
+    del parts4, cent4
+
+    # K14 and K15 on K13's output, at config4's shapes: 3.4x config3's
+    # pixels a frame, with config4's min_size and a table of its S rows
+    gh4, gw4, _ = sl.grid_shape(h4, w4, g4.n_superpixels)
+    s4 = gh4 * gw4
+    ck = cn.enforce_connectivity_fused(sp4, s4)
+    cp = sl.enforce_connectivity_plain(sp4, s4)
+    torch.cuda.synchronize()
+    ndiff = int((ck != cp).sum())
+    report("enforce_connectivity_fused", f"{tag4p} on K13's output, S={s4}, min_size "
+           f"{sl.connectivity_defaults(h4, w4, s4, None, None)[0]}, {ndiff} pixels differ",
+           float((ck - cp).abs().max()), ndiff, "bit-equal (0 pixels)", ndiff == 0,
+           lambda: cn.enforce_connectivity_fused(sp4, s4),
+           lambda: sl.enforce_connectivity_plain(sp4, s4))
+    idx4 = ck.reshape(ck.shape[0], h4 * w4)
+    table4 = torch.from_numpy(rng.integers(0, g4.n_regions, (ck.shape[0], s4))
+                              .astype(np.int32)).to(dev)
+    lk, lp = lookup.table_lookup(idx4, table4), lookup.table_lookup_plain(idx4, table4)
+    torch.cuda.synchronize()
+    ndiff = int((lk != lp).sum())
+    report("table_lookup", f"{tag4p} idx {tuple(idx4.shape)} table {tuple(table4.shape)}, "
+           f"{ndiff} pixels differ", float((lk - lp).abs().max()), ndiff,
+           "bit-equal (0 pixels)", ndiff == 0, lambda: lookup.table_lookup(idx4, table4),
+           lambda: lookup.table_lookup_plain(idx4, table4))
+    del sp4, ck, cp, idx4, table4, lk, lp
+    lab5 = pl._color_transform(torch.from_numpy(rgb8).to(dev), "lab")
+    check(sf.slic_route(321, 481, 400, "w5") == "w5", "8x321x481 at 400 superpixels is not w5")
+    compare_banded("slic_w5", sf.slic_w5, lab5, 400, "8x321x481, one cooperative launch",
+                   [("slic_w3 (K11)", sf.slic_w3), ("slic_banded (K13)", sf.slic_banded)])
+    del lab4, lab5
+
+    # tiled K1 at config4: against K1 on the whole frames plus pooling (a
+    # reading of what the tiling costs), and against the plain tiled path on
+    # one frame (the plain K1 at batch 8 of 4K takes seconds a call)
+    groups4 = bank_tensors(make_bank(cfg4.bank), dev)
+    halo4 = cfg4.bank.max_halo
+
+    def tiled_k1(color, dt):
+        return tiled.gabor_energies_tiled(color, groups4, dt, cfg4.tile_hw, halo4, g4.pool)
+
+    def untiled_k1(color, dt):
+        e, _ = fused.gabor_energies_fused(color, groups4, dt, pooled=False)
+        for _ in range(g4.pool):
+            e = tiled.pool2x2_mean(e, 2)
+        return e
+
+    def tiled_plain(color, dt):
+        saved = tiled.gabor_energies_fused
+        tiled.gabor_energies_fused = fused.gabor_energies_fused_plain
+        try:
+            return tiled_k1(color, dt)
+        finally:
+            tiled.gabor_energies_fused = saved
+
+    _, _, ys4, xs4 = tiled.tile_offsets(*cfg4.image_hw, cfg4.tile_hw)
+    n_win = len(ys4) * len(xs4)
+    et, eu = tiled_k1(color4, torch.bfloat16), untiled_k1(color4, torch.bfloat16)
+    torch.cuda.synchronize()
+    peak = eu.float().abs().max().item()
+    rel = (et.float() - eu.float()).abs().max().item() / peak
+    del et, eu
+    t_tiled = cuda_ms(lambda: tiled_k1(color4, torch.bfloat16))
+    t_whole = cuda_ms(lambda: untiled_k1(color4, torch.bfloat16))
+    print(f"phase 3: gabor_energies_fused [{tag4} bf16, {n_win} windows, pool {g4.pool}] "
+          f"tiled against untiled plus pooling (a reading of the tiling's cost): err "
+          f"{rel:.3e} of the peak (K1's bound 2e-2), tiled {t_tiled:.3f} ms, untiled "
+          f"{t_whole:.3f} ms ({card})", flush=True)
+    check(rel <= 2e-2, "tiled K1 disagrees with untiled K1 at config4")
+    torch.cuda.empty_cache()
+    for dt in (torch.bfloat16, torch.float32):
+        c1 = color4[:1]
+        ek, ep = tiled_k1(c1, dt), tiled_plain(c1, dt)
+        torch.cuda.synchronize()
+        peak = ep.float().abs().max().item()
+        abs_err = (ek.float() - ep.float()).abs().max().item()
+        tol, dname = (1e-4, "f32") if dt == torch.float32 else (2e-2, "bf16")
+        report("gabor_energies_fused", f"config4 1x2160x3840 {dname} tiled, {n_win} "
+               f"windows, pool {g4.pool}, against the plain tiled path",
+               abs_err, abs_err / peak, f"{tol}*peak={tol * peak:.4g}", abs_err <= tol * peak,
+               lambda: tiled_k1(c1, dt), lambda: tiled_plain(c1, dt))
+    del color4, ek, ep
+    torch.cuda.empty_cache()
+
     # ---- phase 4: end to end ----------------------------------------------
     @contextlib.contextmanager
     def plain_kernels(keep=()):
         """Route the pipeline through the plain versions (on the card), but
         for the wrappers named in ``keep``."""
         swaps = [(pl, "gabor_energies_fused", fused.gabor_energies_fused_plain),
+                 (tiled, "gabor_energies_fused", fused.gabor_energies_fused_plain),
                  (pl, "kmeans_coarse_centers_xp", kf.kmeans_coarse_centers_xp_plain),
                  (kc, "lloyd_chw_pass", kc.lloyd_chw_pass_plain),
                  (kc, "maximin_chw_pass", kc.maximin_chw_pass_plain),
@@ -620,28 +789,50 @@ def main() -> None:
             for mod, name, fn in saved:
                 setattr(mod, name, fn)
 
+    def aligned_agreement(pred: np.ndarray, ref: np.ndarray) -> float:
+        """Share of pixels where ``pred``, its ids permuted to match ``ref``
+        best (Hungarian, as utils.labels.align_labels), equals ``ref``; the
+        contingency from one bincount, which keeps 4K frames quick."""
+        from scipy.optimize import linear_sum_assignment
+
+        p, r = pred.reshape(-1).astype(np.int64), ref.reshape(-1).astype(np.int64)
+        k = int(max(p.max(), r.max())) + 1
+        cont = np.bincount(p * k + r, minlength=k * k).reshape(k, k)
+        row, col = linear_sum_assignment(-cont)
+        return float(cont[row, col].sum() / p.size)
+
+    # (config, images, ground truth, label, kernels that must launch,
+    # kernels that must not)
     k1to4 = ["gabor_energies_fused", "lloyd_chw_pass"]
-    runs = [(cfg1, rgb16, gt16, "config1 batch 16 bf16", k1to4 + ["kmeans_coarse_centers_xp"]),
-            (cfg0, rgb1, gt1, "config0 batch 1 f32", k1to4 + ["maximin_chw_pass"])]
+    runs = [(cfg1, rgb16, gt16, "config1 batch 16 bf16", k1to4 + ["kmeans_coarse_centers_xp"],
+             []),
+            (cfg0, rgb1, gt1, "config0 batch 1 f32", k1to4 + ["maximin_chw_pass"], [])]
     gmm_path = ["gabor_energies_fused", "maximin_t_pass", "lloyd_t_pass", "precision_chol",
                 "em_pass"]
-    graph_path = ["gabor_energies_fused", "slic_batch", "enforce_connectivity_fused",
+    graph_path = ["gabor_energies_fused", "slic_w3", "enforce_connectivity_fused",
                   "table_lookup"]
+    banded_path = ["gabor_energies_fused", "slic_band_pass", "slic_band_update",
+                   "enforce_connectivity_fused", "table_lookup"]
     for dtype in ("bfloat16", "float32"):
         runs.append((cfg2.replace(dtype=dtype), rgb8, gt8,
-                     f"config2 batch 8 {'bf16' if dtype == 'bfloat16' else 'f32'}", gmm_path))
+                     f"config2 batch 8 {'bf16' if dtype == 'bfloat16' else 'f32'}", gmm_path,
+                     []))
     for dtype in ("bfloat16", "float32"):
         runs.append((cfg3.replace(dtype=dtype), rgb8, gt8,
                      f"config3 batch 8 {'bf16' if dtype == 'bfloat16' else 'f32'}",
-                     graph_path))
-    totals = {name: 0 for name in kernels}
+                     graph_path, []))
+    for dtype in ("bfloat16", "float32"):
+        runs.append((cfg4.replace(dtype=dtype), rgb4, gt4,
+                     f"config4 batch 8 of 2160x3840 {'bf16' if dtype == 'bfloat16' else 'f32'}",
+                     banded_path, ["slic_w3"]))
+    totals = {name: 0 for name in counters}
     outputs = []
-    for cfg, rgb, gt, label, path in runs:
+    for cfg, rgb, gt, label, path, absent in runs:
         def run():
             labels, _ = pl.segment_batch(rgb, cfg, with_features=False, device="cuda")
             return labels.cpu()
 
-        for wrapper, *_ in kernels.values():
+        for wrapper in counters.values():
             wrapper.launches = 0
         t0 = time.perf_counter()
         first = run()
@@ -652,7 +843,7 @@ def main() -> None:
             t0 = time.perf_counter()
             out = run()
             times.append(time.perf_counter() - t0)
-        counts = {name: wrapper.launches for name, (wrapper, *_) in kernels.items()}
+        counts = {name: wrapper.launches for name, wrapper in counters.items()}
         ms = statistics.median(times) * 1e3
         mp = rgb.shape[0] * rgb.shape[1] * rgb.shape[2] / 1e6 / (ms / 1e3)
         check(torch.equal(out, first), f"{label}: labels differ between runs")
@@ -661,10 +852,12 @@ def main() -> None:
               f"{warm:.2f} s), {mp:.2f} MP/s, host uint8 in -> host int32 labels "
               f"out, {card}", flush=True)
         print(f"phase 4: {label}: launches in its 6 calls "
-              f"{ {name: counts[name] for name in path} }", flush=True)
+              f"{ {name: counts[name] for name in path + absent} }", flush=True)
         for name in path:
             check(counts[name] > 0, f"{name} was never launched on the {label} path")
             totals[name] += counts[name]
+        for name in absent:
+            check(counts[name] == 0, f"{name} was launched on the {label} path")
 
     # the host-side min-cut route, with tests/test_pipeline_configs.py's pins
     # on its fixture (two 96x128 mosaics of 4 regions, seeds 20 and 21)
@@ -672,18 +865,17 @@ def main() -> None:
         enabled=True, n_superpixels=64, cut="mincut", mincut_k=15.0, mincut_min_size=2))
     rgb_mc = np.stack([synthetic_mosaic(h=96, w=128, n_regions=4, seed=20 + i)[0]
                        for i in range(2)])
-    for wrapper, *_ in kernels.values():
+    for wrapper in counters.values():
         wrapper.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_mc = pl.segment_images(rgb_mc, cfg_mc, device="cuda").cpu()
     mc_ms = (time.perf_counter() - t0) * 1e3
-    counts = {name: wrapper.launches for name, (wrapper, *_) in kernels.items()}
-    mc_path = ["gabor_energies_fused", "slic_batch", "enforce_connectivity_fused"]
+    counts = {name: wrapper.launches for name, wrapper in counters.items()}
+    mc_path = ["gabor_energies_fused", "slic_w3", "enforce_connectivity_fused"]
     with plain_kernels(keep=("gabor_energies_fused",)):
         ref_mc = pl.segment_images(rgb_mc, cfg_mc, device="cuda").cpu().numpy()
-    each = [float((align_labels(out_mc[i].numpy(), ref_mc[i]) == ref_mc[i]).mean())
-            for i in range(2)]
+    each = [aligned_agreement(out_mc[i].numpy(), ref_mc[i]) for i in range(2)]
     print(f"phase 4: config3 min-cut batch 2 of 96x128 f32 (segment_images): "
           f"{mc_ms:.2f} ms (first call), launches "
           f"{ {name: counts[name] for name in mc_path} }, regions per image "
@@ -707,8 +899,7 @@ def main() -> None:
             with plain_kernels(keep):
                 ref, _ = pl.segment_batch(rgb, cfg, device="cuda")
             ref = ref.cpu().numpy()
-            return [float((align_labels(out[i].numpy(), ref[i]) == ref[i]).mean())
-                    for i in range(len(ref))]
+            return [aligned_agreement(out[i].numpy(), ref[i]) for i in range(len(ref))]
 
         floor = 0.99 if cfg.dtype == "bfloat16" else 0.999
         note = GRAPH_NOTE if cfg.graph.enabled else ""
@@ -718,7 +909,7 @@ def main() -> None:
               f"{[round(v, 6) for v in each]})", flush=True)
         if cfg.graph.enabled:
             # the gate: both paths from K1's energies, so the comparison
-            # holds K11, K14, K15 and the plain n-cut around them
+            # holds K11 or K13, K14, K15 and the plain n-cut around them
             each = agreement(keep=("gabor_energies_fused",))
             print(f"phase 4: {label}: kernel path vs the plain graph stage on K1's "
                   f"energies, min aligned agreement {min(each):.6f} (floor {floor}; per "
@@ -737,7 +928,8 @@ def main() -> None:
     for cfg, rgb, label in ((cfg1, rgb16, "config1 batch 16 bf16"),
                             (cfg2.replace(dtype="bfloat16"), rgb8, "config2 batch 8 bf16"),
                             (cfg3.replace(dtype="bfloat16"), rgb8, "config3 batch 8 bf16"),
-                            (cfg3, rgb8, "config3 batch 8 f32")):
+                            (cfg3, rgb8, "config3 batch 8 f32"),
+                            (cfg4.replace(dtype="bfloat16"), rgb4, "config4 batch 8 bf16")):
         pl.segment_batch(rgb, cfg, device="cuda")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

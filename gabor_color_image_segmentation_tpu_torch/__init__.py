@@ -12,8 +12,10 @@ in CUDA C++ for Hopper (``csrc/``, built by ``_kernels.py``), and beside it
 a plain PyTorch version of the same math that serves CPU tensors.
 
 Covered so far: the labels-only paths of ``config0`` and ``config1``
-(k-means), ``config2`` (per-image GMM) and ``config3`` (SLIC superpixels
-and the spectral n-cut), through ``models/pipeline.py::segment_batch``, and
+(k-means), ``config2`` (per-image GMM), ``config3`` (SLIC superpixels
+and the spectral n-cut) and ``config4`` (tiled 4K features pooled per
+window, the graph stage on the pooled grid), through
+``models/pipeline.py::segment_batch``, and
 the graph stage's host-side min-cut through ``segment_images``; both run on
 the card unless the caller passes ``device="cpu"``.
 """

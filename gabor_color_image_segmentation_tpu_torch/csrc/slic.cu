@@ -11,7 +11,8 @@
 //           or stays where it was when it has none;
 //
 // then one last assignment. The arithmetic is models/slic.py::slic_plain's,
-// term by term: csq and the dot are summed left to right with no fused
+// term by term (the per-pixel part in slic_common.cuh, shared with K12 and
+// K13): csq and the dot are summed left to right with no fused
 // multiply-add (__fmul_rn, __fadd_rn), the cell of a pixel is
 // int(f32(y) * f32(gh / h)) clipped to the grid, and the moments are summed
 // in float64 and rounded to float32 once. The TPU kernel's bf16x3 split,
@@ -34,18 +35,12 @@
 //     shared memory adds the threads' sums: no atomics, the same centroids
 //     on every run, which matters because the centroids decide the labels.
 
-#include "common.cuh"
+#include "slic_common.cuh"
 
 namespace {
 
 constexpr int NT_ASSIGN = 256;
 constexpr int NT_UPDATE = 256;
-constexpr int MARGIN = 2;  // pixels added on each side of a superpixel's window
-
-__device__ __forceinline__ int cell_of(int i, float scale, int g) {
-  const int c = (int)__fmul_rn((float)i, scale);
-  return c < 0 ? 0 : (c > g - 1 ? g - 1 : c);
-}
 
 __global__ void __launch_bounds__(NT_ASSIGN) slic_assign_kernel(
     const float* __restrict__ lab, const float* __restrict__ cent, int* __restrict__ labels,
@@ -55,42 +50,8 @@ __global__ void __launch_bounds__(NT_ASSIGN) slic_assign_kernel(
   if (p >= n) return;
   const long b = blockIdx.y;
   const int y = p / w, x = p - y * w;
-  const float* px = lab + (b * n + p) * 3;
-  const float z0 = px[0], z1 = px[1], z2 = px[2];
-  const float z3 = __fmul_rn(sw, (float)y), z4 = __fmul_rn(sw, (float)x);
-  const int cy = cell_of(y, fy, gh), cx = cell_of(x, fx, gw);
-  const float* c = cent + b * gh * gw * 5;
-  float best = 0.f;
-  int arg = -1;
-  for (int gy = max(cy - 1, 0); gy <= min(cy + 1, gh - 1); ++gy) {
-    for (int gx = max(cx - 1, 0); gx <= min(cx + 1, gw - 1); ++gx) {
-      const int s = gy * gw + gx;
-      const float* cs = c + s * 5;
-      const float c0 = cs[0], c1 = cs[1], c2 = cs[2];
-      const float c3 = __fmul_rn(sw, cs[3]), c4 = __fmul_rn(sw, cs[4]);
-      float csq = __fmul_rn(c0, c0);
-      csq = __fadd_rn(csq, __fmul_rn(c1, c1));
-      csq = __fadd_rn(csq, __fmul_rn(c2, c2));
-      csq = __fadd_rn(csq, __fmul_rn(c3, c3));
-      csq = __fadd_rn(csq, __fmul_rn(c4, c4));
-      float dot = __fmul_rn(z0, c0);
-      dot = __fadd_rn(dot, __fmul_rn(z1, c1));
-      dot = __fadd_rn(dot, __fmul_rn(z2, c2));
-      dot = __fadd_rn(dot, __fmul_rn(z3, c3));
-      dot = __fadd_rn(dot, __fmul_rn(z4, c4));
-      const float score = __fsub_rn(csq, __fmul_rn(2.f, dot));
-      if (arg < 0 || score < best) {  // ascending ids: the first minimum wins
-        best = score;
-        arg = s;
-      }
-    }
-  }
-  labels[b * n + p] = arg;
-}
-
-// First pixel row (or column) whose cell is >= g, from the exact ratio.
-__device__ __forceinline__ int first_in_cell(int g, int n, int cells) {
-  return (int)(((long)g * n + cells - 1) / cells);
+  labels[b * n + p] = gcis::slic_assign_pixel(lab + (b * n + p) * 3, y, x,
+                                              cent + b * gh * gw * 5, gh, gw, fy, fx, sw);
 }
 
 __global__ void __launch_bounds__(NT_UPDATE) slic_update_kernel(
@@ -102,10 +63,10 @@ __global__ void __launch_bounds__(NT_UPDATE) slic_update_kernel(
   const long b = blockIdx.y;
   const int n = h * w;
   const int gy = s / gw, gx = s - gy * gw;
-  const int y0 = max(0, first_in_cell(gy - 1, h, gh) - MARGIN);
-  const int y1 = min(h, first_in_cell(gy + 2, h, gh) + MARGIN);
-  const int x0 = max(0, first_in_cell(gx - 1, w, gw) - MARGIN);
-  const int x1 = min(w, first_in_cell(gx + 2, w, gw) + MARGIN);
+  const int y0 = max(0, gcis::slic_first_in_cell(gy - 1, h, gh) - gcis::SLIC_MARGIN);
+  const int y1 = min(h, gcis::slic_first_in_cell(gy + 2, h, gh) + gcis::SLIC_MARGIN);
+  const int x0 = max(0, gcis::slic_first_in_cell(gx - 1, w, gw) - gcis::SLIC_MARGIN);
+  const int x1 = min(w, gcis::slic_first_in_cell(gx + 2, w, gw) + gcis::SLIC_MARGIN);
   const int ww = x1 - x0, total = (y1 - y0) * ww;
   const int* lb = labels + b * n;
   const float* lp = lab + b * n * 3;

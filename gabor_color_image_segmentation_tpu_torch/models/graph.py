@@ -126,8 +126,11 @@ def smallest_eigvecs_subspace(l_sym: torch.Tensor, k: int, n_iter: int = 80,
             q = bmat @ q
         q = torch.linalg.qr(q).Q
     t = q.transpose(1, 2) @ l_sym @ q  # (B, m, m)
-    _, v = torch.linalg.eigh(_sym(t))
-    return (q @ v)[:, :, :k]
+    # in float64: on the card the batched small eigh is cuSOLVER's Jacobi,
+    # which in float32 can stop unconverged (and raise) on the clustered
+    # spectra of config4's pooled mosaics
+    _, v = torch.linalg.eigh(_sym(t).double())
+    return (q @ v.to(q.dtype))[:, :, :k]
 
 
 def spectral_labels(w: torch.Tensor, n_regions: int, n_iter: int = 30,

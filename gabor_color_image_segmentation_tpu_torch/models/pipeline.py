@@ -28,17 +28,23 @@ GMM (config2):
      (K9 factors, K8 passes), the full-resolution refine passes (K8) and
      one labels-only pass (K8).
 
-graph (config3; ``segment_batch`` for the n-cut, ``segment_images`` for
-the min-cut too):
+graph (config3, config4; ``segment_batch`` for the n-cut,
+``segment_images`` for the min-cut too):
   1. Lab colour transform;
-  2. Gabor energies without the twin (K1);
+  2. Gabor energies without the twin (K1), window by window when the frame
+     exceeds ``tile_hw`` (ops/tiled.py), pooled ``graph.pool`` times by
+     exact 2x2 means (per window on the tiled path), so the graph stage
+     runs on the (H >> pool, W >> pool) grid with the colour and the Lab
+     pooled alike;
   3. the standardised (B, E + 3, N) features in the storage dtype;
-  4. SLIC superpixels on the float32 Lab (K11) and connectivity
-     enforcement (K14);
+  4. SLIC superpixels on the float32 Lab (K11 under the reference's
+     whole-image gate, the banded K13 above it, as models/slic_fused.py
+     routes) and connectivity enforcement (K14);
   5. n-cut: superpixel means, affinity, spectral embedding and k-means,
      batched over the images (models/graph.py), then the region ids
      broadcast to pixels (K15); or min-cut: the greedy merge on the host
-     per image.
+     per image;
+  6. with pooling, each label repeated 2^pool times along both axes.
 
 Configurations outside these slices raise NotImplementedError naming the
 ROADMAP queue-1 item that will bring them.
@@ -84,24 +90,31 @@ from gabor_color_image_segmentation_tpu_torch.ops.precision import (
     set_policy,
     storage_dtype,
 )
+from gabor_color_image_segmentation_tpu_torch.ops.tiled import (
+    gabor_energies_tiled,
+    pool2x2_mean,
+)
 
 
-def _check_supported(cfg: PipelineConfig, with_features: bool) -> None:
+def _check_supported(cfg: PipelineConfig, with_features: bool, hw: Tuple[int, int]) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for what the port
+    does not run yet; ``hw`` is the frame's (H, W)."""
     c, g = cfg.cluster, cfg.graph
+    tile = cfg.tile_hw
     nhwc = "queue 1 item 14 (the NHWC / with-features path)"
     features = "queue 1 item 13 (the rest of the feature stage)"
-    config4 = "queue 1 item 11 (config4)"
     # the graph stage replaces the pixel clustering, so the solver's own
     # options do not apply to it
     solver = not g.enabled
     unsupported = [
         (with_features, "with_features=True", nhwc),
-        (g.enabled and g.pool > 0, f"graph.pool={g.pool} (the pooled graph stage)",
-         config4),
         (g.enabled and c.cue_weight != "static",
          f"the graph stage with cue_weight={c.cue_weight!r}", nhwc),
         (solver and c.method not in ("kmeans", "gmm"), f"method={c.method!r}", nhwc),
-        (cfg.tile_hw is not None, "tile_hw (spatial tiling)", config4),
+        # a frame larger than the tile leaves the reference's transposed
+        # clustering path for its NHWC one
+        (solver and tile is not None and (hw[0] > tile[0] or hw[1] > tile[1]),
+         "the pixel clustering on a frame larger than tile_hw (the NHWC path)", nhwc),
         (c.feature_set != "full", f"feature_set={c.feature_set!r}", nhwc),
         # gmm with subsample > 1 is the reference's gmm_predict (NHWC solver)
         (solver and c.subsample != 1, f"{c.method} with subsample={c.subsample}", nhwc),
@@ -195,29 +208,62 @@ def _segment_gmm(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
     return labels.reshape(b, h, w)
 
 
-def _graph_front(rgb: torch.Tensor, cfg: PipelineConfig, bank):
-    """(B, H, W, 3) sRGB -> ((B, E + 3, N) standardised features in the
-    storage dtype, (B, N) int32 connected superpixels of the float32 Lab,
-    their count S).
+def compute_energies(rgb: torch.Tensor, cfg: PipelineConfig, bank, pool: int = 0):
+    """(B, H, W, 3) sRGB -> ((B, E, H >> pool, W >> pool) K1 energies in the
+    storage dtype, (B, H, W, 3) float32 colour). Frames larger than
+    ``cfg.tile_hw`` run window by window and pool per window; others run
+    K1 whole and pool the stored energies after."""
+    dtype = storage_dtype(cfg.dtype)
+    color = _color_transform(rgb, cfg.color_space)
+    groups = bank_tensors(bank, rgb.device)
+    _, h, w, _ = color.shape
+    tile = cfg.tile_hw
+    if tile is not None and (h > tile[0] or w > tile[1]):
+        return gabor_energies_tiled(color, groups, dtype, tile, bank.config.max_halo,
+                                    pool), color
+    energies, _ = gabor_energies_fused(color, groups, dtype, pooled=False)
+    for _ in range(pool):
+        energies = pool2x2_mean(energies, 2)
+    return energies, color
 
-    The features are the reference's assemble_features: the colour rounded
-    to the storage dtype before the per-image moments, the sqrt(E/3) colour
+
+def _graph_front(rgb: torch.Tensor, cfg: PipelineConfig, bank):
+    """(B, H, W, 3) sRGB -> ((B, E + 3, n) standardised features in the
+    storage dtype, (B, n) int32 connected superpixels of the float32 Lab,
+    their count S), n the pixels of the grid pooled ``graph.pool`` times.
+
+    The features are the reference's assemble_features on the pooled
+    energies and the pooled float32 colour: the colour rounded to the
+    storage dtype before the per-image moments, the sqrt(E/3) colour
     balance, static cue weights."""
     b, h, w, _ = rgb.shape
     dtype = storage_dtype(cfg.dtype)
     g = cfg.graph
-    color = _color_transform(rgb, cfg.color_space)
-    energies, _ = gabor_energies_fused(color, bank_tensors(bank, rgb.device), dtype,
-                                       pooled=False)
+    p = g.pool
+    if p and (h % (1 << p) or w % (1 << p)):
+        raise ValueError(f"graph.pool={p} needs H, W divisible by {1 << p}, got {h}x{w}")
+    energies, color = compute_energies(rgb, cfg, bank, p)
+    same = cfg.color_space == "lab"
+    lab = color if same else _color_transform(rgb, "lab")
+    for _ in range(p):
+        color = pool2x2_mean(color, 1)
+        lab = color if same else pool2x2_mean(lab, 1)
     c4 = build_color4(color, dtype)
     a, b_aff = _affine_params(energies, c4, cfg.cluster, 1e-6)
     feats = assemble_xp_from_affine(energies, c4, a, b_aff, dtype)
     del energies, c4
-    lab = color if cfg.color_space == "lab" else _color_transform(rgb, "lab")
-    gh, gw, _ = grid_shape(h, w, g.n_superpixels)
+    hp, wp = h >> p, w >> p
+    gh, gw, _ = grid_shape(hp, wp, g.n_superpixels)
     sp = slic_batch(lab, g.n_superpixels, g.slic_compactness, g.slic_iters)
     sp = enforce_connectivity_fused(sp, gh * gw)
-    return feats, sp.reshape(b, h * w), gh * gw
+    return feats, sp.reshape(b, hp * wp), gh * gw
+
+
+def _unpool(labels: torch.Tensor, pool: int) -> torch.Tensor:
+    """(B, h, w) labels of the pooled grid -> each repeated 2^pool times
+    along both axes."""
+    f = 1 << pool
+    return labels.repeat_interleave(f, dim=1).repeat_interleave(f, dim=2) if pool else labels
 
 
 def _segment_ncut(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
@@ -231,7 +277,7 @@ def _segment_ncut(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
     regions = ncut_regions(feats, sp, n_sp, g.n_regions, g.affinity_sigma,
                            resolve_eig_method(g, cfg.dtype, rgb.device),
                            g.affinity_sigma_scale)
-    return table_lookup(sp, regions).reshape(b, h, w)
+    return _unpool(table_lookup(sp, regions).reshape(b, h >> g.pool, w >> g.pool), g.pool)
 
 
 def _segment_mincut(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
@@ -239,12 +285,13 @@ def _segment_mincut(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tenso
     the graph front end on the device, the greedy merge on the host."""
     b, h, w, _ = rgb.shape
     g = cfg.graph
+    hp, wp = h >> g.pool, w >> g.pool
     feats, sp, _ = _graph_front(rgb, cfg, bank)
     feats = feats.to(torch.float32).cpu().numpy()
     sp = sp.cpu().numpy()
-    out = np.stack([mincut_segment(feats[i].T.reshape(h, w, -1), sp[i].reshape(h, w),
+    out = np.stack([mincut_segment(feats[i].T.reshape(hp, wp, -1), sp[i].reshape(hp, wp),
                                    g.mincut_k, g.mincut_min_size) for i in range(b)])
-    return torch.from_numpy(out).to(rgb.device)
+    return _unpool(torch.from_numpy(out).to(rgb.device), g.pool)
 
 
 def _segment_batch_transposed(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
@@ -291,7 +338,7 @@ def segment_batch(
     for the CPU. ``bank``: the port's or the JAX package's GaborBank for
     cfg.bank (built when None). Only the labels-only paths are ported
     (with_features=False)."""
-    _check_supported(cfg, with_features)
+    _check_supported(cfg, with_features, tuple(rgb.shape[1:3]))
     dev = _resolve_device(device)
     set_policy()
     if bank is None:
@@ -310,7 +357,7 @@ def segment_images(rgb: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig, ba
     if not (g.enabled and g.cut == "mincut"):
         labels, _ = segment_batch(rgb, cfg, bank, False, device)
         return labels
-    _check_supported(cfg, False)
+    _check_supported(cfg, False, tuple(rgb.shape[1:3]))
     dev = _resolve_device(device)
     set_policy()
     if bank is None:

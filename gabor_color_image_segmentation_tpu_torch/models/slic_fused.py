@@ -1,36 +1,203 @@
-"""SLIC superpixels on the card, kernel K11 (counterpart of the JAX
-package's models/slic_pallas.py::slic_batch).
+"""SLIC superpixels on the card: kernels K11, K12 and K13 (counterpart of the
+JAX package's models/slic_pallas.py: _plan, slic_fused_eligible, the fuse
+gate, slic_fused and slic_batch).
 
-K11 ``slic_batch`` (csrc/slic.cu) replaces
-``models/slic_pallas.py::_slic_all_kernel_w3``: every Lloyd iteration and
-the final assignment of a batch, 2 * n_iter + 1 launches from one C call,
-no host sync. It computes the exact-float32 SLIC of ``slic_plain``
-(models/slic.py), in the same order of operations, where the TPU kernel
-scored in bf16x3 with a penalty dot over a 128-lane candidate window: those
-answer Mosaic's missing float32 dot and the TPU's tiling, not the problem.
-The wrapper launches K11 for CUDA tensors and runs ``slic_plain`` for CPU
-tensors.
+All three compute the exact-float32 SLIC of ``slic_plain`` (models/slic.py)
+and give the same labels; the reference's band plan decides which one runs,
+so each frame runs the counterpart of the kernel the reference runs there
+(``slic_route``):
+
+- K11 ``slic_w3`` (csrc/slic.cu) replaces ``_slic_all_kernel_w3``, the
+  reference's default under its 8.5 MB whole-image gate: every iteration
+  of a batch from one C call, 2 * n_iter + 1 launches.
+- K12 ``slic_w5`` (csrc/slic_banded.cu) replaces ``_slic_all_kernel``, the
+  whole-image kernel on uniform ``w_rows`` bands that ``plan="w5"``
+  selects under the gate: one cooperative launch for every iteration.
+- K13 ``slic_band_pass`` (csrc/slic_banded.cu) replaces ``_slic_kernel``,
+  one banded pass per launch, which the reference runs above the gate
+  (config4's pooled 540x960 grid): ``slic_banded`` drives n_iter + 1
+  passes and a centroid update after each but the last.
+
+A band is ``band_rows`` pixel rows; its pixels' candidates lie in the
+``w_rows`` grid rows from the band's first candidate row ``rb``. The kernels
+split each band further into column pieces of ``_BAND_COLS`` pixel columns
+(so that config4's 136 (image, band) pieces become enough blocks to fill
+the card), so a pass writes, per band, per column piece and per candidate
+of the band's window, the float64 sums [L, a, b, y, x, count] of the pixels
+that took it: the (B, n_bands, n_col_pieces, w_rows * gw, 6) partials, the
+reference's psums split along the columns. The update adds the partials of
+the bands whose window holds a superpixel, in band order and within a band
+in column order, rounds once to float32 and keeps an empty superpixel's
+centroid. On the
+Lab of uint8 images (and its 2x2 means) every value lies on a 2^-31 grid,
+so these float64 sums are exact at the sizes the presets run and any
+summation order gives the same bits; the kernels sum in a fixed order all
+the same, since the centroids decide the labels. The TPU kernels' bf16x3
+scores, penalty dot and 128-lane window answered Mosaic, not the problem;
+only the band plan is kept.
+
+The wrappers launch the kernels for CUDA tensors and run the plain
+versions for CPU tensors: ``slic_plain`` for K11, ``slic_band_pass_plain``
+and ``slic_band_update_plain`` for K13, and ``slic_banded_plain``, the
+banded loop on those, for K12 (whose one launch runs the same loop).
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from gabor_color_image_segmentation_tpu_torch import _kernels
 from gabor_color_image_segmentation_tpu_torch.models.slic import (
+    _assign,
+    _candidates,
+    _f32,
+    _pixel_rows,
+    _weighted,
+    cell_index,
+    grid_shape,
     slic_geometry,
     slic_init_centroids,
     slic_plain,
+    slic_update,
 )
 
+_C = 8  # the reference's packed z channels (its gate is sized on them)
+_CAND = 128  # the reference's candidate window, one lane tile
+# The reference's whole-image gate (slic_pallas.py:456): frames whose
+# packed bf16x3 image 3 * _C * hp * wp * 2 bytes exceeds it take the
+# banded launch-per-pass loop.
+_SLIC_FUSE_BYTES = int(8.5 * 2**20)
+_BAND_COLS = 128  # pixel columns of a K12/K13 column piece (csrc/slic_banded.cu)
 
-def slic_batch(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
-               n_iter: int = 10) -> torch.Tensor:
-    """(B, H, W, 3) float32 Lab -> (B, H, W) int32 superpixel labels in
-    [0, gh * gw)."""
+
+def slic_plan(h: int, w: int, n_superpixels: int) -> Optional[dict]:
+    """The reference's static band plan (slic_pallas.py::_plan), or None
+    when no plan fits its 128-candidate window. ``w_rows`` 0 marks the
+    w3-only geometry (no uniform bands)."""
+    gh, gw, s = grid_shape(h, w, n_superpixels)
+    w_rows = band_rows = None
+    for wr in (5, 4):
+        wr = min(wr, gh)
+        if wr * gw > _CAND:
+            continue
+        if gh > wr:
+            # every pixel's cell row +- 1 inside the window:
+            # (band_rows - 1) * gh < (wr - 3) * h
+            br = 32
+            while br > 1 and (br - 1) * gh >= (wr - 3) * h:
+                br -= 1
+        else:
+            br = 32  # the window covers the whole grid
+        w_rows, band_rows = wr, br
+        break
+    if w_rows is None:
+        if min(3, gh) * gw <= _CAND:
+            w_rows, band_rows = 0, 1
+        else:
+            return None
+    wp = -(-w // 128) * 128
+    n_bands = -(-h // band_rows)
+    hp = n_bands * band_rows
+    rb = [max(0, min(int(t * band_rows * gh / h) - 1, gh - w_rows)) for t in range(n_bands)]
+    w3 = min(3, gh)
+    cy = np.minimum(gh - 1, (np.arange(hp, dtype=np.float32)
+                             * np.float32(gh / h)).astype(np.int32))
+    ys3 = [0] * (gh + 1)
+    for g in range(1, gh):
+        ys3[g] = int(np.searchsorted(cy, g, side="left"))
+    ys3[gh] = hp
+    rb3 = [max(0, min(g - 1, gh - w3)) for g in range(gh)]
+    return dict(gh=gh, gw=gw, s=s, w_rows=w_rows, band_rows=band_rows, wp=wp, hp=hp,
+                n_bands=n_bands, rb=np.asarray(rb, np.int32), n_sp=gh * gw, w3=w3,
+                ys3=tuple(ys3), rb3=tuple(rb3))
+
+
+def _fits_gate(bp: dict) -> bool:
+    return 3 * _C * bp["hp"] * bp["wp"] * 2 <= _SLIC_FUSE_BYTES
+
+
+def slic_fused_eligible(h: int, w: int, n_superpixels: int) -> bool:
+    """Whether the reference runs one of its SLIC kernels on this frame
+    (slic_pallas.py::slic_fused_eligible); otherwise its XLA ``slic``."""
+    bp = slic_plan(h, w, n_superpixels)
+    if bp is None:
+        return False
+    return bp["w_rows"] > 0 or _fits_gate(bp)
+
+
+def slic_route(h: int, w: int, n_superpixels: int, plan: str = "auto") -> str:
+    """Which kernel runs this frame: "w3" (K11), "w5" (K12) or "banded"
+    (K13), as the reference's slic_fused chooses between its kernels.
+
+    Under the gate ``plan`` "auto" or "w3" is K11 and "w5" K12; above it a
+    uniform-band plan is K13, and an explicit plan raises (the banded loop
+    is plan-free). Where the reference has no kernel (a w3-only frame above
+    the gate, a grid too wide for any window) it runs its XLA ``slic``,
+    and K11, which has the same semantics and no window, runs here.
+
+    The choice mirrors the reference's kernel choice; it is not a policy
+    for the GPU. The gate is sized on the TPU's packed bf16x3 image in
+    VMEM, which says nothing of this card, and all three kernels give the
+    same labels: the route only keeps each preset on the counterpart of
+    the kernel the reference runs there."""
+    if plan not in ("auto", "w3", "w5"):
+        raise ValueError(f"unknown SLIC plan {plan!r}")
+    if not slic_fused_eligible(h, w, n_superpixels):
+        return "w3"
+    bp = slic_plan(h, w, n_superpixels)
+    if bp["w_rows"] == 0:
+        if plan == "w5":
+            raise ValueError(f"plan='w5' ineligible at this geometry (5*{bp['gw']} grid "
+                             "cols exceed the 128-candidate window; w3-only plan)")
+        return "w3"
+    if _fits_gate(bp):
+        return "w5" if plan == "w5" else "w3"
+    if plan != "auto":
+        raise ValueError(f"plan={plan!r} requested but image ({h}x{w}) exceeds the "
+                         "whole-image fuse gate; the banded loop is plan-free: pass "
+                         "plan='auto'")
+    return "banded"
+
+
+def _band_plan(h: int, w: int, n_superpixels: int) -> dict:
+    """The uniform-band plan of K12 and K13, checked: every pixel's
+    candidate rows (its float32 cell row +- 1) lie in its band's window."""
+    bp = slic_plan(h, w, n_superpixels)
+    _kernels.check(bp is not None and bp["w_rows"] > 0,
+                   f"no uniform-band SLIC plan at {h}x{w} with {n_superpixels} superpixels")
+    gh, wr, br = bp["gh"], bp["w_rows"], bp["band_rows"]
+    cy = cell_index(h, gh, "cpu").numpy()
+    for t, rb in enumerate(bp["rb"]):
+        rows = cy[t * br:(t + 1) * br]
+        _kernels.check(max(int(rows.min()) - 1, 0) >= rb and min(int(rows.max()) + 1, gh - 1)
+                       < rb + wr, f"band {t} of the SLIC plan misses candidate rows")
+    return bp
+
+
+def _check_lab(lab: torch.Tensor) -> None:
     _kernels.check(lab.dim() == 4 and lab.shape[3] == 3, "lab must be (B, H, W, 3)")
     _kernels.check(lab.dtype == torch.float32, f"lab must be float32, got {lab.dtype}")
+
+
+def _scales(h: int, w: int, bp: dict, sw: float):
+    """The kernels' float32 cell scales gh / h, gw / w and spatial weight."""
+    return (float(np.float32(bp["gh"] / h)), float(np.float32(bp["gw"] / w)),
+            float(np.float32(sw)))
+
+
+# ---------------------------------------------------------------------------
+# K11: cell-aligned whole-image SLIC
+# ---------------------------------------------------------------------------
+
+
+def slic_w3(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
+            n_iter: int = 10) -> torch.Tensor:
+    """K11: (B, H, W, 3) float32 Lab -> (B, H, W) int32 superpixel labels in
+    [0, gh * gw)."""
+    _check_lab(lab)
     _kernels.check(n_iter >= 0, f"n_iter must be >= 0, got {n_iter}")
     if _kernels.use_plain(lab):
         return slic_plain(lab, n_superpixels, ruler, n_iter)
@@ -42,8 +209,186 @@ def slic_batch(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
     _kernels.launch("gcis_slic", lab.data_ptr(), cent.data_ptr(), labels.data_ptr(),
                     b, h, w, gh, gw, n_iter, float(np.float32(gh / h)),
                     float(np.float32(gw / w)), float(np.float32(sw)))
-    slic_batch.launches += 1
+    slic_w3.launches += 1
     return labels
 
 
-slic_batch.launches = 0
+slic_w3.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K13: one banded pass per launch, and the loop around it
+# ---------------------------------------------------------------------------
+
+
+def _n_col_pieces(w: int, cols: int) -> int:
+    _kernels.check(cols >= 1, f"cols must be >= 1, got {cols}")
+    return -(-w // cols)
+
+
+def slic_band_pass_plain(lab: torch.Tensor, cent: torch.Tensor, bp: dict, sw: float,
+                         partials: bool = True, cols: int = _BAND_COLS):
+    """Plain version of K13: (labels (B, H, W) int32 of one assignment
+    under ``cent`` (B, S, 5), partials (B, n_bands, ceil(W / cols),
+    w_rows * gw, 6) float64 or None)."""
+    b, h, w, _ = lab.shape
+    gh, gw, dev = bp["gh"], bp["gw"], lab.device
+    swt = _f32(sw, dev)
+    rows = _pixel_rows(lab)
+    cand, ok = _candidates(h, w, gh, gw, dev)
+    labels = _assign(_weighted(rows, swt), cent, cand, ok, swt)  # (B, N) int64
+    out = labels.to(torch.int32).reshape(b, h, w)
+    if not partials:
+        return out, None
+    nb, ncp, ncr = bp["n_bands"], _n_col_pieces(w, cols), bp["w_rows"] * gw
+    band = (torch.arange(h, device=dev) // bp["band_rows"]).repeat_interleave(w)  # (N,)
+    piece = (torch.arange(w, device=dev) // cols).repeat(h)  # (N,)
+    rb = torch.from_numpy(bp["rb"]).to(dev).long()
+    slot = (((torch.arange(b, device=dev)[:, None] * nb + band) * ncp + piece) * ncr
+            + labels - rb[band] * gw)
+    vals = torch.cat([rows.to(torch.float64),
+                      torch.ones((b, h * w, 1), dtype=torch.float64, device=dev)], dim=2)
+    sums = torch.zeros((b * nb * ncp * ncr, 6), dtype=torch.float64, device=dev)
+    sums.index_add_(0, slot.reshape(-1), vals.reshape(-1, 6))
+    return out, sums.reshape(b, nb, ncp, ncr, 6)
+
+
+def slic_band_update_plain(cent: torch.Tensor, parts: torch.Tensor, bp: dict) -> torch.Tensor:
+    """Plain version of K13's update: the partials added per superpixel in
+    band order, and within a band in column order (float64), then the
+    centroid step."""
+    b, nb, ncp, ncr, _ = parts.shape
+    gw = bp["gw"]
+    g = torch.zeros((b, bp["n_sp"], 6), dtype=torch.float64, device=parts.device)
+    for t in range(nb):
+        lo = int(bp["rb"][t]) * gw
+        for c in range(ncp):
+            g[:, lo:lo + ncr] += parts[:, t, c]
+    return slic_update(cent, g[..., :5], g[..., 5])
+
+
+def slic_band_pass(lab: torch.Tensor, cent: torch.Tensor, bp: dict, sw: float,
+                   partials: bool = True, cols: int = _BAND_COLS):
+    """K13, one banded pass: (B, H, W, 3) float32 Lab and (B, S, 5) float32
+    centroids [L, a, b, y, x] -> ((B, H, W) int32 labels, (B, n_bands,
+    ceil(W / cols), w_rows * gw, 6) float64 partials or None). ``bp``: the
+    uniform-band plan (slic_plan); ``sw``: the spatial weight's square
+    root; ``cols``: the column pieces' width."""
+    _check_lab(lab)
+    b, h, w, _ = lab.shape
+    _kernels.check(tuple(cent.shape) == (b, bp["n_sp"], 5) and cent.dtype == torch.float32,
+                   f"cent must be ({b}, {bp['n_sp']}, 5) float32")
+    if _kernels.use_plain(lab, cent):
+        return slic_band_pass_plain(lab, cent, bp, sw, partials, cols)
+    lab, cent = lab.contiguous(), cent.contiguous()
+    labels = torch.empty((b, h, w), dtype=torch.int32, device=lab.device)
+    parts = (torch.empty((b, bp["n_bands"], _n_col_pieces(w, cols), bp["w_rows"] * bp["gw"],
+                          6), dtype=torch.float64, device=lab.device) if partials else None)
+    _kernels.launch("gcis_slic_band_pass", lab.data_ptr(), cent.data_ptr(),
+                    labels.data_ptr(), parts.data_ptr() if partials else None,
+                    b, h, w, bp["gh"], bp["gw"], bp["w_rows"], bp["band_rows"], cols,
+                    *_scales(h, w, bp, sw))
+    slic_band_pass.launches += 1
+    return labels, parts
+
+
+slic_band_pass.launches = 0
+
+
+def slic_band_update(cent: torch.Tensor, parts: torch.Tensor, bp: dict, h: int) -> torch.Tensor:
+    """K13's update (one thread per superpixel, launched after each pass
+    but the last; its own launch counter): the new (B, S, 5) centroids. On
+    the card ``cent`` is updated in place and returned."""
+    b = cent.shape[0]
+    _kernels.check(tuple(cent.shape) == (b, bp["n_sp"], 5) and cent.dtype == torch.float32,
+                   f"cent must be ({b}, {bp['n_sp']}, 5) float32")
+    _kernels.check(parts.dim() == 5 and tuple(parts.shape[:2]) == (b, bp["n_bands"])
+                   and tuple(parts.shape[3:]) == (bp["w_rows"] * bp["gw"], 6)
+                   and parts.dtype == torch.float64, "parts must be the pass's partials")
+    if _kernels.use_plain(cent, parts):
+        return slic_band_update_plain(cent, parts, bp)
+    _kernels.check(cent.is_contiguous() and parts.is_contiguous(),
+                   "cent and parts must be contiguous")
+    _kernels.launch("gcis_slic_band_update", parts.data_ptr(), cent.data_ptr(), b, h,
+                    bp["gh"], bp["gw"], bp["w_rows"], bp["band_rows"], parts.shape[2])
+    slic_band_update.launches += 1
+    return cent
+
+
+slic_band_update.launches = 0
+
+
+def _banded_loop(lab, n_superpixels, ruler, n_iter, band_pass, band_update):
+    b, h, w, _ = lab.shape
+    bp = _band_plan(h, w, n_superpixels)
+    _, _, sw = slic_geometry(h, w, n_superpixels, ruler)
+    cent = slic_init_centroids(lab, bp["gh"], bp["gw"])
+    for _ in range(n_iter):
+        _, parts = band_pass(lab, cent, bp, sw)
+        cent = band_update(cent, parts, bp, h)
+    return band_pass(lab, cent, bp, sw, partials=False)[0]
+
+
+def slic_banded_plain(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
+                      n_iter: int = 10) -> torch.Tensor:
+    """Plain version of the banded loop (K13's passes) and of K12: n_iter
+    passes and updates, then a last assignment; labels as slic_plain's."""
+    return _banded_loop(lab, n_superpixels, ruler, n_iter, slic_band_pass_plain,
+                        lambda cent, parts, bp, h: slic_band_update_plain(cent, parts, bp))
+
+
+def slic_banded(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
+                n_iter: int = 10) -> torch.Tensor:
+    """The reference's launch-per-pass banded loop (slic_pallas.py:704-768)
+    on K13: n_iter + 1 pass launches and n_iter updates, no host sync."""
+    _check_lab(lab)
+    _kernels.check(n_iter >= 0, f"n_iter must be >= 0, got {n_iter}")
+    return _banded_loop(lab, n_superpixels, ruler, n_iter, slic_band_pass,
+                        slic_band_update)
+
+
+# ---------------------------------------------------------------------------
+# K12: every iteration on uniform bands in one cooperative launch
+# ---------------------------------------------------------------------------
+
+
+def slic_w5(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
+            n_iter: int = 10) -> torch.Tensor:
+    """K12: the banded loop in one persistent launch, its blocks striding
+    over the (image, band) pieces with a grid-wide barrier between the
+    passes and the updates. Labels bit-equal to slic_banded's."""
+    _check_lab(lab)
+    _kernels.check(n_iter >= 0, f"n_iter must be >= 0, got {n_iter}")
+    if _kernels.use_plain(lab):
+        return slic_banded_plain(lab, n_superpixels, ruler, n_iter)
+    b, h, w, _ = lab.shape
+    bp = _band_plan(h, w, n_superpixels)
+    _, _, sw = slic_geometry(h, w, n_superpixels, ruler)
+    lab = lab.contiguous()
+    cent = slic_init_centroids(lab, bp["gh"], bp["gw"])  # updated in place
+    labels = torch.empty((b, h, w), dtype=torch.int32, device=lab.device)
+    parts = torch.empty((b, bp["n_bands"], _n_col_pieces(w, _BAND_COLS),
+                         bp["w_rows"] * bp["gw"], 6), dtype=torch.float64, device=lab.device)
+    _kernels.launch("gcis_slic_w5", lab.data_ptr(), cent.data_ptr(), labels.data_ptr(),
+                    parts.data_ptr(), b, h, w, bp["gh"], bp["gw"], bp["w_rows"],
+                    bp["band_rows"], _BAND_COLS, n_iter, *_scales(h, w, bp, sw))
+    slic_w5.launches += 1
+    return labels
+
+
+slic_w5.launches = 0
+
+
+def slic_batch(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
+               n_iter: int = 10, plan: str = "auto") -> torch.Tensor:
+    """(B, H, W, 3) float32 Lab -> (B, H, W) int32 superpixel labels in
+    [0, gh * gw), through the kernel ``slic_route`` picks; ``plan`` as the
+    reference's slic_fused takes it."""
+    _check_lab(lab)
+    _, h, w, _ = lab.shape
+    route = slic_route(h, w, n_superpixels, plan)
+    if route == "banded":
+        return slic_banded(lab, n_superpixels, ruler, n_iter)
+    if route == "w5":
+        return slic_w5(lab, n_superpixels, ruler, n_iter)
+    return slic_w3(lab, n_superpixels, ruler, n_iter)

@@ -8,6 +8,8 @@ Marked ``cuda``: the tests skip without an NVIDIA card (decided inside the
 file imports only the port, so the card's machine needs no JAX).
 Tolerances as in chip_smoke.py."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,10 +21,11 @@ from gabor_color_image_segmentation_tpu_torch.models import connectivity as cn
 from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_chw as kc
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_fused as kf
+from gabor_color_image_segmentation_tpu_torch.models import pipeline
 from gabor_color_image_segmentation_tpu_torch.models import slic as sl
 from gabor_color_image_segmentation_tpu_torch.models import slic_fused as sf
 from gabor_color_image_segmentation_tpu_torch.models.pipeline import segment_batch
-from gabor_color_image_segmentation_tpu_torch.ops import fused, lookup
+from gabor_color_image_segmentation_tpu_torch.ops import fused, lookup, tiled
 from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
 from gabor_color_image_segmentation_tpu_torch.ops.color import rgb_to_lab
 from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy
@@ -211,6 +214,63 @@ def test_slic_kernel(device, geometry):
     assert (got == ref).float().mean(dim=(1, 2)).min() >= 0.999
 
 
+@pytest.mark.parametrize("geometry", [(96, 128, 64), (37, 53, 10), (64, 96, 30),
+                                      (540, 960, 400)])
+def test_slic_band_pass_kernel(device, geometry):
+    """K13's pass and update bit-equal to their plain versions (labels and
+    float64 partials: on the Lab of uint8 images the sums are exact, so the
+    plain version's atomics give the same bits), with the default column
+    pieces and with 32-column ones (ragged at 53 and 960 - 32k columns),
+    and the banded loop."""
+    h, w, n_sp = geometry
+    lab = _lab(device, h, w)
+    bp = sf.slic_plan(h, w, n_sp)
+    _, _, sw = sl.slic_geometry(h, w, n_sp, 10.0)
+    cent = sl.slic_init_centroids(lab, bp["gh"], bp["gw"])
+    for _ in range(3):  # move the centroids off the grid first
+        _, parts = sf.slic_band_pass_plain(lab, cent, bp, sw)
+        cent = sf.slic_band_update_plain(cent, parts, bp)
+    for cols in (sf._BAND_COLS, 32):
+        lk, pk = sf.slic_band_pass(lab, cent, bp, sw, cols=cols)
+        lp, pp = sf.slic_band_pass_plain(lab, cent, bp, sw, cols=cols)
+        only, none = sf.slic_band_pass(lab, cent, bp, sw, partials=False, cols=cols)
+        torch.cuda.synchronize()
+        assert none is None and torch.equal(only, lk)
+        assert torch.equal(lk, lp) and torch.equal(pk, pp)
+        assert torch.equal(sf.slic_band_update(cent.clone(), pk, bp, h),
+                           sf.slic_band_update_plain(cent, pp, bp))
+    got = sf.slic_banded(lab, n_sp, 10.0, 10)
+    assert torch.equal(got, sf.slic_banded_plain(lab, n_sp, 10.0, 10))
+    assert (got == sl.slic_plain(lab, n_sp, 10.0, 10)).float().mean(dim=(1, 2)).min() >= 0.999
+
+
+@pytest.mark.parametrize("geometry", [(96, 128, 64), (37, 53, 10), (321, 481, 400)])
+def test_slic_w5_kernel(device, geometry):
+    """K12's one launch bit-equal to the plain banded loop and to K13's."""
+    h, w, n_sp = geometry
+    lab = _lab(device, h, w)
+    got = sf.slic_w5(lab, n_sp, 10.0, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sf.slic_banded_plain(lab, n_sp, 10.0, 10))
+    assert torch.equal(got, sf.slic_banded(lab, n_sp, 10.0, 10))
+    assert torch.equal(sf.slic_batch(lab, n_sp, 10.0, 10, plan="w5"), got)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_tiled_energies_kernel(device, dtype, monkeypatch):
+    """Tiled K1 (pool 2) against the same windows through the plain K1."""
+    dt = DTYPES[dtype]
+    bank = make_bank(preset("config4").bank)
+    groups = bank_tensors(bank, device)
+    lab = _lab(device, 96, 128)
+    got = tiled.gabor_energies_tiled(lab, groups, dt, (48, 64), bank.config.max_halo, 2)
+    monkeypatch.setattr(tiled, "gabor_energies_fused", fused.gabor_energies_fused_plain)
+    ref = tiled.gabor_energies_tiled(lab, groups, dt, (48, 64), bank.config.max_halo, 2)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    assert (got.float() - ref.float()).abs().max() <= tol * ref.float().abs().max()
+
+
 def _fragmented(device, h, w, n_sp, seed=7):
     rng = np.random.default_rng(seed)
     base = rng.integers(0, n_sp, ((h + 7) // 8, (w + 7) // 8))
@@ -221,8 +281,10 @@ def _fragmented(device, h, w, n_sp, seed=7):
 
 @pytest.mark.parametrize("case", [(48, 64, 12, 16, None), (33, 47, 20, 4, 7),
                                   (1, 50, 5, 2, None), (29, 1, 5, 2, None),
-                                  (321, 481, 925, 41, None)])
+                                  (321, 481, 925, 41, None), (540, 960, 405, 320, None)])
 def test_connectivity_kernel(device, case):
+    """(321, 481, 925) and (540, 960, 405) are config3's and config4's SLIC
+    grids with their default min_size."""
     h, w, n_sp, min_size, s_max = case
     lab = _fragmented(device, h, w, n_sp)
     got = cn.enforce_connectivity_fused(lab, n_sp, min_size, s_max)
@@ -239,7 +301,7 @@ def test_connectivity_kernel_on_slic_output(device):
 
 
 @pytest.mark.parametrize("shape", [(2, 5000, 37), (3, 1001, 925), (1, 7, 1),
-                                   (8, 154401, 925)])
+                                   (8, 154401, 925), (8, 518400, 405)])
 def test_lookup_kernel(device, shape):
     b, n, s = shape
     g = torch.Generator().manual_seed(n)
@@ -251,18 +313,36 @@ def test_lookup_kernel(device, shape):
     assert torch.equal(got, lookup.table_lookup_plain(idx, table))
 
 
-@pytest.mark.parametrize("name", ["config0", "config1", "config2", "config3"])
-def test_pipeline_kernels_match_plain_path(device, name):
+@pytest.mark.parametrize("name", ["config0", "config1", "config2", "config3", "config4"])
+def test_pipeline_kernels_match_plain_path(device, name, monkeypatch):
     # config2 at 160x224 fits its GMM on the 2x2-pooled grid (one level);
-    # config3's preset at 64x96 has S > 512 superpixels
-    h, w = {"config2": (160, 224), "config3": (64, 96)}.get(name, (96, 128))
+    # config3's preset at 64x96 has S > 512 superpixels; config4 runs 2 x 2
+    # windows, and its 48x64 pooled grid takes the banded SLIC (K13) with
+    # the whole-image gate at 0
+    h, w = {"config2": (160, 224), "config3": (64, 96),
+            "config4": (192, 256)}.get(name, (96, 128))
     rgb = np.stack([synthetic_mosaic(h=h, w=w, n_regions=5, seed=100 + i)[0]
                     for i in range(2)])
     cfg = preset(name).replace(batch_size=2)
+    if name == "config4":
+        cfg = cfg.replace(tile_hw=(96, 128),
+                          graph=dataclasses.replace(cfg.graph, n_superpixels=48))
+        monkeypatch.setattr(sf, "_SLIC_FUSE_BYTES", 0)
+        assert sf.slic_route(48, 64, 48) == "banded"
     gpu, _ = segment_batch(rgb, cfg)
-    cpu, _ = segment_batch(rgb, cfg, device="cpu")
     assert gpu.device.type == "cuda"
-    gpu = gpu.cpu().numpy()
+    if name == "config4":
+        # the cut is not determined on image 1 (14 live superpixels, all
+        # isolated: PERF.md §7), so K1's last-bit differences from its plain
+        # version move its labels; the graph stage's kernels are held with
+        # both paths on K1's energies
+        for attr, plain in (("slic_batch", sl.slic_plain),
+                            ("enforce_connectivity_fused", sl.enforce_connectivity_plain),
+                            ("table_lookup", lookup.table_lookup_plain)):
+            monkeypatch.setattr(pipeline, attr, plain)
+        ref, _ = segment_batch(rgb, cfg)
+    else:
+        ref, _ = segment_batch(rgb, cfg, device="cpu")
+    gpu, ref = gpu.cpu().numpy(), ref.cpu().numpy()
     for i in range(2):
-        ref = cpu[i].numpy()
-        assert (align_labels(gpu[i], ref) == ref).mean() >= 0.999
+        assert (align_labels(gpu[i], ref[i]) == ref[i]).mean() >= 0.999

@@ -80,7 +80,8 @@ def test_slice_matches_jax(batch, reference, dtype):
 
 def test_bank_forms_and_entry_points_agree(batch):
     """The port's own bank, the JAX bank and segment_images give the same
-    labels; float input in [0, 1] equals uint8 input."""
+    labels; float input in [0, 1] equals uint8 input; a tile_hw the frame
+    fits in changes nothing (the reference's transposed path ignores it)."""
     cfg = preset(PRESET).replace(batch_size=2)
     x = torch.from_numpy(batch)
     own, _ = segment_batch(x, cfg, device="cpu")
@@ -91,6 +92,8 @@ def test_bank_forms_and_entry_points_agree(batch):
     assert torch.equal(as_float, own)
     from_numpy, _ = segment_batch(batch, cfg, device="cpu")
     assert torch.equal(from_numpy, own)
+    fits, _ = segment_batch(x, cfg.replace(tile_hw=(64, 96)), device="cpu")
+    assert torch.equal(fits, own)
 
 
 def test_entry_points_default_to_the_card(batch):
@@ -113,13 +116,16 @@ def test_constant_image_gives_valid_labels():
 
 UNSUPPORTED = {
     "with_features": (preset(PRESET), True),
-    # the pooled graph stage (config4's); config3's is ported
-    "graph": (preset("config3").replace(graph=dataclasses.replace(
-        preset("config3").graph, pool=1)), False),
+    # the graph stage with the coherence cue weights (the NHWC path);
+    # config3's and config4's static weights are ported
+    "graph": (preset("config3").replace(cluster=dataclasses.replace(
+        preset("config3").cluster, cue_weight="coherence")), False),
     # gmm's subsample > 1 is the reference's NHWC gmm_predict
     "gmm": (preset("config2").replace(cluster=dataclasses.replace(
         preset("config2").cluster, subsample=2)), False),
-    "tiling": (preset("config4"), False),
+    # a tiled frame takes the reference's NHWC clustering path; config4's
+    # tiled graph path is ported
+    "tiling": (preset(PRESET).replace(tile_hw=(8, 8)), False),
     "feature_set": (preset(PRESET).replace(cluster=dataclasses.replace(
         preset(PRESET).cluster, feature_set="color")), False),
     "subsample": (preset(PRESET).replace(cluster=dataclasses.replace(
