@@ -12,8 +12,12 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    paths' shapes, with the error against its stated bound and the median
    time of each over a few runs (CUDA events):
    K1-K4 at config1 (batch 16 of 321x481, bf16) and config0 (batch 1, f32
-   and bf16); K1 (no twin), K5, K6, K8 (the fit grid and full resolution,
-   with moments and labels only) and K9 at config2 (batch 8, f32 and bf16);
+   and bf16); K7 (one pass and the whole ``kmeans_fused``, whose run with
+   the counts set to 0 just before it and read just after is K7's path) on
+   config1's standardised features laid out (16, 154401, 243) in bf16; K1
+   (no twin), K5, K6, K8 (the fit grid and full resolution, with moments
+   and labels only), K9 and K10 (on the first EM pass's moments and on
+   well-conditioned ones) at config2 (batch 8, f32 and bf16);
    K11 (SLIC), K14 (connectivity, on K11's output and on a fragmented
    random map) and K15 (table lookup, with ``torch.gather`` as the library
    call) at config3 (batch 8); K13 (the banded SLIC loop) at config4's
@@ -21,19 +25,24 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    by column-piece width and one update as readings, and K14 and K15 on
    K13's output there (config4's min_size, a (8, 405) table); K12 (the
    one-launch w5 SLIC) at 8x321x481 with 400 superpixels, with
-   K11 and K13 there as readings; tiled K1 at config4 (batch 8 of
+   K11 and K13 there as readings; K16-K18 (superpixel sums and counts, with
+   one ``index_add_`` as the library call) on the graph stage's own
+   features and connected superpixels at config3 (S = 925) and config4's
+   pooled grid (S = 405), bf16 and f32; tiled K1 at config4 (batch 8 of
    2160x3840, pool 2) against untiled K1 plus pooling (a reading of the
    tiling's cost) and against the plain tiled path on batch 1;
 4. ``segment_batch(uint8 -> int32 labels, with_features=False)`` end to end
    at config1 batch 16 bf16, config0 batch 1 f32, config2 batch 8 bf16
-   and f32, config3 batch 8 bf16 and f32 and config4 batch 8 of 2160x3840
+   and f32 (with ``gmm_fused._FUSED_PREP`` off, the default, and on),
+   config3 batch 8 bf16 and f32 and config4 batch 8 of 2160x3840
    bf16 and f32, and one config3 min-cut call of ``segment_images`` (batch
    2): ms/batch and MP/s from host uint8 in to host int32 labels out;
    each path runs with the launch counts set to 0 just before it and read
    just after, and every kernel of the path must have launched (config4:
-   K13's passes and its updates, and not K11); agreement with the
-   all-plain path on the card (for the graph stage, with both paths handed
-   K1's energies; see GRAPH_NOTE);
+   K13's passes and its updates, and not K11; config2 with the switch on:
+   K10 and not K9); agreement with the all-plain path on the card (for the
+   graph stage, with both paths handed K1's energies, see GRAPH_NOTE; for
+   config2 with the switch on, with the switch off);
    the Rand index against the mosaics' ground truth (a reading, not a
    gate); the eight 4K mosaics (bench seeds 100-107) are made on the host
    in worker processes while the kernels build, outside any timed window;
@@ -60,8 +69,15 @@ matrices, and on the EM's ill-conditioned covariances, where two float32
 inverses differ entry by entry by up to cond * eps, a backward error
 ||L L^T - C||_F / ||C||_F <= 2e-5 (L the float64 inverse of P^T) and
 |diag * P^T_ii - 1| <= 1e-6, a gate the run checks rejects a P^T perturbed
-by 1e-5 or zeroed; end-to-end labels after alignment >= 0.999 (f32) /
->= 0.99 (bf16).
+by 1e-5 or zeroed; K10 the same on its P^T, and against float64 on its own
+P^T: bias within 1e-5 of sum |P^T_ij mu_j|, const within 1e-5 of the sum
+of its terms' magnitudes (entry by entry within 5e-4, 2e-4 and 1e-4 of the
+plain version on well-conditioned moments); K7's pass labels equal on
+>= 99.99 %, sums within rtol 1e-3 of their largest value, the whole
+``kmeans_fused`` >= 0.99 of each image's labels equal to the solver on the
+plain pass; K16-K18 every value equal to the plain version in bf16 (float64
+sums of bf16 values are exact), within one ulp in f32; end-to-end labels
+after alignment >= 0.999 (f32) / >= 0.99 (bf16).
 
 Bounds (``bound_ms``): the larger of the bytes the function must move (each
 input read once, each output written once) over 3.35 TB/s and its
@@ -156,6 +172,8 @@ def main() -> None:
     from gabor_color_image_segmentation_tpu_torch.models import chol
     from gabor_color_image_segmentation_tpu_torch.models import connectivity as cn
     from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
+    from gabor_color_image_segmentation_tpu_torch.models import graph as gr
+    from gabor_color_image_segmentation_tpu_torch.models import graph_fused as gm
     from gabor_color_image_segmentation_tpu_torch.models import kmeans_chw as kc
     from gabor_color_image_segmentation_tpu_torch.models import kmeans_fused as kf
     from gabor_color_image_segmentation_tpu_torch.models import pipeline as pl
@@ -195,15 +213,25 @@ def main() -> None:
         "lloyd_t_pass": (kf.lloyd_t_pass, "lloyd_t.cu", "models/kmeans_pallas.py:171"),
         "maximin_t_pass": (kf.maximin_t_pass, "maximin_t.cu",
                            "models/kmeans_pallas.py:304"),
+        "lloyd_pass": (kf.lloyd_pass, "lloyd_rows.cu", "models/kmeans_pallas.py:68"),
         "em_pass": (gf.em_pass, "em_pass.cu", "models/gmm_pallas.py:90"),
         "precision_chol": (chol.precision_chol, "precision_chol.cu",
                            "models/chol_pallas.py:112"),
+        "precision_chol_params": (chol.precision_chol_params, "precision_chol.cu",
+                                  "models/chol_pallas.py:118"),
         "slic_w3": (sf.slic_w3, "slic.cu", "models/slic_pallas.py:351"),
         "slic_band_pass": (sf.slic_band_pass, "slic_banded.cu", "models/slic_pallas.py:241"),
         "slic_w5": (sf.slic_w5, "slic_banded.cu", "models/slic_pallas.py:265"),
         "enforce_connectivity_fused": (cn.enforce_connectivity_fused, "connectivity.cu",
                                        "models/connectivity_pallas.py:168"),
         "table_lookup": (lookup.table_lookup, "lookup.cu", "ops/lookup.py:24"),
+        "superpixel_moments_fused": (gm.superpixel_moments_fused, "superpixel_moments.cu",
+                                     "models/graph_pallas.py:52"),
+        "superpixel_moments_fused_t": (gm.superpixel_moments_fused_t,
+                                       "superpixel_moments.cu", "models/graph_pallas.py:143"),
+        "superpixel_moments_fused_nhwc": (gm.superpixel_moments_fused_nhwc,
+                                          "superpixel_moments.cu",
+                                          "models/graph_pallas.py:221"),
     }
     record = {name: {"library_ms": None} for name in kernels}
     # every launch counter: the kernels', and K13's update launch, which
@@ -372,7 +400,52 @@ def main() -> None:
            (xp.numel() * 2, nb * m * (5 * 3 * d + iters * (2 * 5 * d + d))))
     compare_lloyd(e, xc4, affine, ck, torch.bfloat16, f"{tag} full resolution", True)
     compare_lloyd(tw, pc0, affine, ck, torch.bfloat16, f"{tag} 2x2 twin", False)
+
+    # K7 on config1's standardised features laid out row-major: one pass
+    # from K3's centres, then the whole kmeans_fused (K7's path)
+    rows = ft.assemble_xp_from_affine(e, xc4, affine[0], affine[1], torch.bfloat16)
+    rows = rows.transpose(1, 2).contiguous()  # (16, 154401, 243) bf16
     del color, e, tw, xc4, pc0, xp
+    nb, n1, d1 = rows.shape
+    tag7 = f"config1 standardised features {tuple(rows.shape)} bf16, k=5"
+    lk, sk, nk = kf.lloyd_pass(rows, ck, 5)
+    lp, sp, np_ = kf.lloyd_pass_plain(rows, ck, 5)
+    torch.cuda.synchronize()
+    ndiff = int((lk != lp).sum())
+    scale = sp.abs().max().item()
+    err = (sk - sp).abs().max().item()
+    report("lloyd_pass", f"{tag7}, one pass from K3's centres, {ndiff} labels differ", err,
+           err, f"labels 0.9999, sums 1e-3*{scale:.4g}",
+           ndiff <= 1e-4 * nb * n1 and err <= 1e-3 * scale
+           and (nk - np_).abs().sum().item() <= 2 * ndiff,
+           lambda: kf.lloyd_pass(rows, ck, 5), lambda: kf.lloyd_pass_plain(rows, ck, 5),
+           (rows.numel() * 2 + nb * n1 * 4, nb * n1 * (2 * 5 * d1 + d1)))
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l7, _ = kf.kmeans_fused(rows, 5, 25, torch.bfloat16)
+    torch.cuda.synchronize()
+    t7 = (time.perf_counter() - t0) * 1e3
+    k7_launches = kf.lloyd_pass.launches
+    check(k7_launches > 0, "lloyd_pass was never launched on the kmeans_fused path")
+    saved_pass = kf.lloyd_pass
+    kf.lloyd_pass = kf.lloyd_pass_plain
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r7, _ = kf.kmeans_fused(rows, 5, 25, torch.bfloat16)
+        torch.cuda.synchronize()
+        t7p = (time.perf_counter() - t0) * 1e3
+    finally:
+        kf.lloyd_pass = saved_pass
+    same7 = (l7 == r7).float().mean(dim=1).min().item()
+    print(f"phase 3: kmeans_fused [{tag7}, n_iter 25] K7's path (counts set to 0 before it, "
+          f"read after): {k7_launches} lloyd_pass launches, {t7:.2f} ms host to host; "
+          f"through the plain pass {t7p:.2f} ms; labels equal per image min {same7:.6f} "
+          f"(floor 0.99) ({card})", flush=True)
+    check(same7 >= 0.99, "kmeans_fused through K7 disagrees with its plain pass")
+    del rows, lk, lp, sk, sp, l7, r7
 
     cfg0 = preset("config0").replace(batch_size=1)
     rgb1, gt1 = mosaics(1)
@@ -509,6 +582,82 @@ def main() -> None:
             record["precision_chol"]["library_ms"] = record["precision_chol"]["plain_ms"]
 
         inputs = gf._params_to_kernel_inputs(*params)
+
+        # K10 on the moments of the first EM pass (what the EM loop hands it
+        # with the _FUSED_PREP switch on) and on well-conditioned moments
+        reg = c2.gmm_reg_covar
+        moments = gf.em_pass(fit, *inputs)[2:]
+        if main2:
+            rng = np.random.default_rng(10)
+            xw = rng.normal(size=(bsz, k, 4 * d, d)) * rng.uniform(0.5, 2.0, (bsz, k, 1, d))
+            rw = rng.uniform(0.2, 1.0, size=(bsz, k, 4 * d))
+            well = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+                rw.sum(axis=2), np.einsum("bkn,bkni->bki", rw, xw),
+                np.einsum("bkn,bkni,bknj->bkij", rw, xw, xw))]
+            (pw, bw, cw), (pr, br, cr) = (chol.precision_chol_params(*well, m, reg),
+                                          chol.precision_chol_params_plain(*well, m, reg))
+            rel = ((pw - pr).abs() / (pr.abs() + 1e-3)).max().item()
+            brel = ((bw - br).abs() / (br.abs() + br.abs().max())).max().item()
+            cabs = (cw - cr).abs().max().item()
+            print(f"phase 3: precision_chol_params [well-conditioned M={nmat} d={d}] against "
+                  f"the plain chain: P^T max rel {rel:.3e} (bound 5e-4), bias {brel:.3e} "
+                  f"(bound 2e-4), const max abs {cabs:.3e} (bound 1e-4)", flush=True)
+            check(rel < 5e-4 and brel <= 2e-4 and cabs <= 1e-4,
+                  "precision_chol_params disagrees with the plain chain on well-conditioned "
+                  "moments")
+        pk10, bk10, ck10 = chol.precision_chol_params(*moments, m, reg)
+        pp10, bp10, cp10 = chol.precision_chol_params_plain(*moments, m, reg)
+        torch.cuda.synchronize()
+        # P^T by its backward error against the float32 covariance the plain
+        # chain forms (the kernel forms the same bits); bias and const against
+        # float64 evaluated on the kernel's own P^T, bounded by the magnitudes
+        # they sum; against the float64 chain as a reading (cond * eps)
+        _, mu32, cov32 = gf._moments_to_params(*moments, m, reg)
+        covs10 = cov32.reshape(nmat, d, d)
+        pt10 = pk10.reshape(nmat, d, d)
+        back10, _ = chol_errors(covs10, pt10, 1.0 / torch.diagonal(pt10, dim1=1, dim2=2))
+        p64, mu64 = pk10.double(), mu32.double()
+        b_err = ((bk10.double() - (p64 @ mu64[..., None])[..., 0]).abs()
+                 / (p64.abs() @ mu64.abs()[..., None])[..., 0].clamp(min=1e-30)).max().item()
+        logw = torch.log((moments[0].double() + 10.0 * torch.finfo(torch.float32).eps) / m)
+        logp = torch.log(torch.diagonal(p64, dim1=2, dim2=3))
+        c_ref = logw + logp.sum(dim=2) - 0.5 * d * 1.8378770664093453
+        c_mag = logw.abs() + logp.abs().sum(dim=2) + 0.5 * d * 1.8378770664093453
+        c_err = ((ck10.double() - c_ref).abs() / c_mag).max().item()
+        m64 = [t.double() for t in moments]
+        w64, mu_64, cov64 = gf._moments_to_params(*m64, m, reg)
+        l64 = torch.linalg.cholesky(cov64)
+        pt64 = torch.linalg.solve_triangular(
+            l64, torch.eye(d, dtype=torch.float64, device=dev).expand_as(cov64), upper=False)
+        bias64 = (pt64 @ mu_64[..., None])[..., 0]
+        const64 = (torch.log(w64) - torch.log(torch.diagonal(l64, dim1=2, dim2=3)).sum(dim=2)
+                   - 0.5 * d * 1.8378770664093453)
+
+        def vs64(b_, c_):
+            return ((b_.double() - bias64).abs().max().item(),
+                    (c_.double() - const64).abs().max().item())
+
+        (bk64, ck64), (bp64, cp64) = vs64(bk10, ck10), vs64(bp10, cp10)
+        print(f"phase 3: precision_chol_params [{tag2} first EM pass's moments] backward "
+              f"error {back10.max().item():.3e} (bound {CHOL_BACKWARD_TOL:g}); on its own "
+              f"P^T in float64: bias {b_err:.3e} (bound 1e-5), const {c_err:.3e} (bound "
+              f"1e-5); against the float64 chain (a reading, cond * eps): bias max abs "
+              f"kernel {bk64:.3e}, plain {bp64:.3e}; const kernel {ck64:.3e}, plain "
+              f"{cp64:.3e}", flush=True)
+        ok10 = bool(torch.isfinite(back10).all() and back10.max() <= CHOL_BACKWARD_TOL
+                    and torch.count_nonzero(torch.triu(pk10, 1)) == 0
+                    and b_err <= 1e-5 and c_err <= 1e-5)
+        report("precision_chol_params", f"{tag2} M={nmat} d={d}",
+               max((a - r).abs().max().item() for a, r in ((pk10, pp10), (bk10, bp10),
+                                                           (ck10, cp10))),
+               back10.max().item(), f"backward error {CHOL_BACKWARD_TOL:g}; bias and const "
+               "1e-5 of their magnitudes; upper triangle zero", ok10,
+               lambda: chol.precision_chol_params(*moments, m, reg),
+               lambda: chol.precision_chol_params_plain(*moments, m, reg),
+               (nmat * 2 * (d * d + d + 1) * 4, nmat * (d ** 3 + 3 * d * d))
+               if main2 else None)
+        del moments, pk10, pp10
+
         for buf, where, moments, main in ((fit, "fit grid", True, main2),
                                           (x, "full resolution", True, False),
                                           (x, "full resolution labels only", False, False)):
@@ -704,6 +853,57 @@ def main() -> None:
            "bit-equal (0 pixels)", ndiff == 0, lambda: lookup.table_lookup(idx4, table4),
            lambda: lookup.table_lookup_plain(idx4, table4))
     del sp4, ck, cp, idx4, table4, lk, lp
+
+    # K16-K18 on the graph stage's own inputs: the standardised features and
+    # the connected superpixels of config3 and of config4's pooled grid
+    def within_one_ulp(got, ref):
+        ulp = torch.nextafter(ref.abs(), torch.full_like(ref, float("inf"))) - ref.abs()
+        return bool(((got - ref).abs() <= ulp).all())
+
+    def compare_moments(name, kern_fn, plain_fn, dt, tag, main):
+        (sk_, ck_), (sp_, cp_) = kern_fn(), plain_fn()
+        torch.cuda.synchronize()
+        ndiff = int((sk_ != sp_).sum()) + int((ck_ != cp_).sum())
+        ok = torch.equal(ck_, cp_) and (ndiff == 0 if dt == torch.bfloat16
+                                        else within_one_ulp(sk_, sp_))
+        report(name, f"{tag}, {ndiff} values differ", (sk_ - sp_).abs().max().item(), ndiff,
+               "bf16 every value equal, f32 within one ulp", ok, kern_fn, plain_fn, main)
+
+    for cfg_m, rgb_m, where in ((cfg3, rgb8, tag3), (cfg4, rgb4, tag4p)):
+        for dt in (torch.bfloat16, torch.float32):
+            dname = "bf16" if dt == torch.bfloat16 else "f32"
+            feats, spm, n_sp = pl._graph_front(
+                torch.from_numpy(rgb_m).to(dev),
+                cfg_m.replace(dtype="bfloat16" if dt == torch.bfloat16 else "float32"),
+                make_bank(cfg_m.bank))
+            rows_m = feats.transpose(1, 2).contiguous()
+            bsz, dm, nm = feats.shape
+            main = (feats.numel() * size(dt) + spm.numel() * 4 + bsz * n_sp * (dm + 1) * 4,
+                    bsz * nm * (dm + 1)) if cfg_m is cfg3 and dt == torch.bfloat16 else None
+            tagm = f"{where} {dname} graph features {tuple(feats.shape)}, S={n_sp}"
+            compare_moments("superpixel_moments_fused_t",
+                            lambda: gm.superpixel_moments_fused_t(spm, feats, n_sp, dtype=dt),
+                            lambda: gm.superpixel_moments_plain(spm, feats, n_sp, True), dt,
+                            f"{tagm}, channel-major in {dname} (the graph stage's call)", main)
+            for name in ("superpixel_moments_fused", "superpixel_moments_fused_nhwc"):
+                fn = getattr(gm, name)
+                compare_moments(name, lambda: fn(spm, rows_m, n_sp),
+                                lambda: gm.superpixel_moments_plain(
+                                    spm, rows_m.to(torch.bfloat16), n_sp),
+                                torch.bfloat16, f"{tagm}, row-major in bf16", main)
+            if main:  # one index_add_ of the same values as float32 rows
+                flat = (spm.long() + n_sp * torch.arange(bsz, device=dev)[:, None]).reshape(-1)
+                src = rows_m.float().reshape(-1, dm)
+                lib = cuda_ms(lambda: torch.zeros((bsz * n_sp, dm), device=dev)
+                              .index_add_(0, flat, src))
+                for name in ("superpixel_moments_fused", "superpixel_moments_fused_t",
+                             "superpixel_moments_fused_nhwc"):
+                    record[name]["library_ms"] = lib
+                print(f"phase 3: superpixel moments [{tagm}] library call, one float32 "
+                      f"index_add_ of the sums: {lib:.3f} ms ({card})", flush=True)
+                del flat, src
+            del feats, spm, rows_m
+    torch.cuda.empty_cache()
     lab5 = pl._color_transform(torch.from_numpy(rgb8).to(dev), "lab")
     check(sf.slic_route(321, 481, 400, "w5") == "w5", "8x321x481 at 400 superpixels is not w5")
     compare_banded("slic_w5", sf.slic_w5, lab5, 400, "8x321x481, one cooperative launch",
@@ -763,6 +963,19 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- phase 4: end to end ----------------------------------------------
+    def moments_t_plain(idx, feats_t, n_sp, dtype=torch.bfloat16):
+        return gm.superpixel_moments_plain(idx, feats_t.to(dtype), n_sp, True)
+
+    @contextlib.contextmanager
+    def fused_prep(on):
+        """models/gmm_fused.py's _FUSED_PREP switch set to ``on``."""
+        saved = gf._FUSED_PREP
+        gf._FUSED_PREP = on
+        try:
+            yield
+        finally:
+            gf._FUSED_PREP = saved
+
     @contextlib.contextmanager
     def plain_kernels(keep=()):
         """Route the pipeline through the plain versions (on the card), but
@@ -775,10 +988,12 @@ def main() -> None:
                  (kf, "lloyd_t_pass", kf.lloyd_t_pass_plain),
                  (kf, "maximin_t_pass", kf.maximin_t_pass_plain),
                  (gf, "em_pass", gf.em_pass_plain),
-                 (gf, "precision_chol", chol.precision_chol_plain),
+                 (chol, "precision_chol", chol.precision_chol_plain),
+                 (gf, "precision_chol_params", chol.precision_chol_params_plain),
                  (pl, "slic_batch", sl.slic_plain),
                  (pl, "enforce_connectivity_fused", sl.enforce_connectivity_plain),
-                 (pl, "table_lookup", lookup.table_lookup_plain)]
+                 (pl, "table_lookup", lookup.table_lookup_plain),
+                 (gr, "superpixel_moments_fused_t", moments_t_plain)]
         swaps = [(mod, name, fn) for mod, name, fn in swaps if name not in keep]
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, fn in swaps:
@@ -802,34 +1017,39 @@ def main() -> None:
         return float(cont[row, col].sum() / p.size)
 
     # (config, images, ground truth, label, kernels that must launch,
-    # kernels that must not)
+    # kernels that must not, the _FUSED_PREP switch)
     k1to4 = ["gabor_energies_fused", "lloyd_chw_pass"]
     runs = [(cfg1, rgb16, gt16, "config1 batch 16 bf16", k1to4 + ["kmeans_coarse_centers_xp"],
-             []),
-            (cfg0, rgb1, gt1, "config0 batch 1 f32", k1to4 + ["maximin_chw_pass"], [])]
-    gmm_path = ["gabor_energies_fused", "maximin_t_pass", "lloyd_t_pass", "precision_chol",
-                "em_pass"]
+             [], False),
+            (cfg0, rgb1, gt1, "config0 batch 1 f32", k1to4 + ["maximin_chw_pass"], [], False)]
+    gmm_path = ["gabor_energies_fused", "maximin_t_pass", "lloyd_t_pass", "em_pass"]
+    moments_off = ["superpixel_moments_fused", "superpixel_moments_fused_nhwc"]
     graph_path = ["gabor_energies_fused", "slic_w3", "enforce_connectivity_fused",
-                  "table_lookup"]
+                  "superpixel_moments_fused_t", "table_lookup"]
     banded_path = ["gabor_energies_fused", "slic_band_pass", "slic_band_update",
-                   "enforce_connectivity_fused", "table_lookup"]
-    for dtype in ("bfloat16", "float32"):
-        runs.append((cfg2.replace(dtype=dtype), rgb8, gt8,
-                     f"config2 batch 8 {'bf16' if dtype == 'bfloat16' else 'f32'}", gmm_path,
-                     []))
+                   "enforce_connectivity_fused", "superpixel_moments_fused_t", "table_lookup"]
+    for prep in (False, True):
+        for dtype in ("bfloat16", "float32"):
+            runs.append((cfg2.replace(dtype=dtype), rgb8, gt8,
+                         f"config2 batch 8 {'bf16' if dtype == 'bfloat16' else 'f32'}"
+                         + (" _FUSED_PREP on" if prep else ""),
+                         gmm_path + ["precision_chol_params" if prep else "precision_chol"],
+                         ["precision_chol" if prep else "precision_chol_params"], prep))
     for dtype in ("bfloat16", "float32"):
         runs.append((cfg3.replace(dtype=dtype), rgb8, gt8,
                      f"config3 batch 8 {'bf16' if dtype == 'bfloat16' else 'f32'}",
-                     graph_path, []))
+                     graph_path, moments_off, False))
     for dtype in ("bfloat16", "float32"):
         runs.append((cfg4.replace(dtype=dtype), rgb4, gt4,
                      f"config4 batch 8 of 2160x3840 {'bf16' if dtype == 'bfloat16' else 'f32'}",
-                     banded_path, ["slic_w3"]))
+                     banded_path, ["slic_w3"] + moments_off, False))
     totals = {name: 0 for name in counters}
+    totals["lloyd_pass"] += k7_launches  # K7's path ran in phase 3
     outputs = []
-    for cfg, rgb, gt, label, path, absent in runs:
+    for cfg, rgb, gt, label, path, absent, prep in runs:
         def run():
-            labels, _ = pl.segment_batch(rgb, cfg, with_features=False, device="cuda")
+            with fused_prep(prep):
+                labels, _ = pl.segment_batch(rgb, cfg, with_features=False, device="cuda")
             return labels.cpu()
 
         for wrapper in counters.values():
@@ -847,7 +1067,7 @@ def main() -> None:
         ms = statistics.median(times) * 1e3
         mp = rgb.shape[0] * rgb.shape[1] * rgb.shape[2] / 1e6 / (ms / 1e3)
         check(torch.equal(out, first), f"{label}: labels differ between runs")
-        outputs.append((cfg, rgb, gt, label, out))
+        outputs.append((cfg, rgb, gt, label, out, prep, ms))
         print(f"phase 4: {label}: {ms:.2f} ms/batch (median of 5, first call "
               f"{warm:.2f} s), {mp:.2f} MP/s, host uint8 in -> host int32 labels "
               f"out, {card}", flush=True)
@@ -888,12 +1108,25 @@ def main() -> None:
         check(counts[name] > 0, f"{name} was never launched on the config3 min-cut path")
         totals[name] += counts[name]
 
-    for cfg, rgb, gt, label, out in outputs:
+    switch_off = {(cfg.cluster.method, cfg.dtype): (o, t)
+                  for cfg, _, _, _, o, prep, t in outputs if not cfg.graph.enabled and not prep}
+    for cfg, rgb, gt, label, out, prep, ms in outputs:
         check(out.dtype == torch.int32 and tuple(out.shape) == rgb.shape[:3],
               f"{label}: labels {out.dtype} {tuple(out.shape)}")
         n_labels = cfg.graph.n_regions if cfg.graph.enabled else cfg.cluster.k
         check(int(out.min()) >= 0 and int(out.max()) < n_labels,
               f"{label}: labels outside [0, {n_labels})")
+        floor = 0.99 if cfg.dtype == "bfloat16" else 0.999
+        if prep:
+            # the gate: the switch on against the switch off, both through
+            # the kernels; the times both ways are a reading
+            ref, ms_off = switch_off[(cfg.cluster.method, cfg.dtype)]
+            each = [aligned_agreement(out[i].numpy(), ref[i].numpy()) for i in range(len(ref))]
+            print(f"phase 4: {label}: against _FUSED_PREP off, min aligned agreement "
+                  f"{min(each):.6f} (floor {floor}; per image {[round(v, 6) for v in each]}); "
+                  f"{ms:.2f} ms/batch on, {ms_off:.2f} off (a reading), {card}", flush=True)
+            check(min(each) >= floor, f"{label}: disagrees with _FUSED_PREP off")
+            continue
 
         def agreement(keep=()):
             with plain_kernels(keep):
@@ -901,7 +1134,6 @@ def main() -> None:
             ref = ref.cpu().numpy()
             return [aligned_agreement(out[i].numpy(), ref[i]) for i in range(len(ref))]
 
-        floor = 0.99 if cfg.dtype == "bfloat16" else 0.999
         note = GRAPH_NOTE if cfg.graph.enabled else ""
         each = agreement()
         print(f"phase 4: {label}: kernel path vs all-plain path on the card, "

@@ -1,6 +1,7 @@
-// K9: batched Cholesky factor and its inverse, one thread block per matrix.
+// K9: batched Cholesky factor and its inverse, one thread block per matrix;
+// K10: the same factorisation behind the GMM's moments -> parameters step.
 //
-// Replaces models/chol_pallas.py::_kernel (wrapper precision_chol_pallas):
+// K9 replaces models/chol_pallas.py::_kernel (wrapper precision_chol_pallas):
 // for each SPD float32 matrix C (d x d, d <= 64)
 //
 //   L    = cholesky(C)            (lower; only the lower triangle of C is read)
@@ -16,11 +17,29 @@
 // sits in shared memory (39 x 39 float32 is 6 KB, with X 12 KB) and the
 // block's threads share each step's row, column or trailing update.
 //
+// K10 replaces models/chol_pallas.py::_params_kernel (wrapper
+// precision_chol_params_pallas), which the reference runs only behind
+// gmm_pallas.py's _FUSED_PREP switch: from one EM pass's moments of a
+// component (count n, sums s, scatter Q = sum r x x^T) it forms sklearn's
+// parameters and K8's inputs in one launch,
+//
+//   nk = n + 10 eps,  mu = s / nk,  C = Q / nk - mu mu^T + reg I,
+//   P^T = L^-1 (K9's factorisation),  bias = P^T mu,
+//   const = log(nk / m) - sum log diag L - d/2 log 2 pi.
+//
+// The TPU kernel read the moments from a ones-extended (dp x dp) scatter;
+// here they come as EM's (count, sums, scatter) outputs. C is formed with
+// explicitly rounded operations in the plain version's order, so it is
+// bit-equal to the plain version's C; bias and const differ from it by the
+// order of their sums.
+//
 // Bound on the H100: latency. A matrix takes 2 d dependent steps, each a
 // __syncthreads away from the next, and the GMM factors M = B k = 40
 // matrices of d = 39 per EM iteration: ~12 MFLOP, nothing for 132 SMs, so
 // the time is the launch and the 2 d step latencies. The design keeps each
 // step in shared memory and runs all M matrices in one launch.
+
+#include <cfloat>
 
 #include "common.cuh"
 
@@ -28,21 +47,13 @@ namespace {
 
 constexpr int NT = 256;
 constexpr int DMAX = 64;
+constexpr double LOG2PI = 1.8378770664093453;
 
-__global__ void __launch_bounds__(NT) precision_chol_kernel(
-    const float* __restrict__ covs, float* __restrict__ pt, float* __restrict__ diag,
-    int d) {
-  __shared__ float S[DMAX * DMAX];  // the trailing matrix, becoming L (lower)
-  __shared__ float X[DMAX * DMAX];  // L^-1 (lower)
+// S (d x d, its lower triangle SPD) in shared memory becomes L (lower); X
+// (zeroed by the caller) becomes L^-1 (lower); dl[j] = L_jj. Every thread
+// of the block calls it.
+__device__ void factorize(float* S, float* X, float* dl, int d) {
   const int tid = threadIdx.x;
-  const long m = blockIdx.x;
-  const float* A = covs + m * d * d;
-  for (int e = tid; e < d * d; e += NT) {
-    S[e] = A[e];
-    X[e] = 0.f;
-  }
-  __syncthreads();
-
   // right-looking Cholesky on the lower triangle
   for (int j = 0; j < d; ++j) {
     const float dsq = S[j * d + j];
@@ -50,7 +61,7 @@ __global__ void __launch_bounds__(NT) precision_chol_kernel(
     const float inv = 1.f / dj;
     __syncthreads();  // every thread has read the pivot before column j changes
     for (int i = j + tid; i < d; i += NT) S[i * d + j] *= inv;
-    if (tid == 0) diag[m * d + j] = dj;
+    if (tid == 0) dl[j] = dj;
     __syncthreads();
     const int r = d - 1 - j;  // trailing order
     for (int e = tid; e < r * r; e += NT) {
@@ -70,8 +81,63 @@ __global__ void __launch_bounds__(NT) precision_chol_kernel(
     }
     __syncthreads();
   }
+}
+
+__global__ void __launch_bounds__(NT) precision_chol_kernel(
+    const float* __restrict__ covs, float* __restrict__ pt, float* __restrict__ diag,
+    int d) {
+  __shared__ float S[DMAX * DMAX];  // the trailing matrix, becoming L (lower)
+  __shared__ float X[DMAX * DMAX];  // L^-1 (lower)
+  __shared__ float dl[DMAX];
+  const int tid = threadIdx.x;
+  const long m = blockIdx.x;
+  const float* A = covs + m * d * d;
+  for (int e = tid; e < d * d; e += NT) {
+    S[e] = A[e];
+    X[e] = 0.f;
+  }
+  __syncthreads();
+  factorize(S, X, dl, d);
   float* out = pt + m * d * d;
   for (int e = tid; e < d * d; e += NT) out[e] = X[e];
+  for (int j = tid; j < d; j += NT) diag[m * d + j] = dl[j];
+}
+
+__global__ void __launch_bounds__(NT) params_kernel(
+    const float* __restrict__ counts, const float* __restrict__ sums,
+    const float* __restrict__ scatter, float* __restrict__ pt, float* __restrict__ bias,
+    float* __restrict__ cnst, int d, float m_rows, float reg) {
+  __shared__ float S[DMAX * DMAX];
+  __shared__ float X[DMAX * DMAX];
+  __shared__ float dl[DMAX];
+  __shared__ float mu[DMAX];
+  const int tid = threadIdx.x;
+  const long m = blockIdx.x;
+  const float nk = __fadd_rn(counts[m], 10.f * FLT_EPSILON);
+  for (int i = tid; i < d; i += NT) mu[i] = __fdiv_rn(sums[m * d + i], nk);
+  __syncthreads();
+  const float* Q = scatter + m * d * d;
+  for (int e = tid; e < d * d; e += NT) {
+    const int i = e / d, j = e % d;
+    const float c = __fsub_rn(__fdiv_rn(Q[e], nk), __fmul_rn(mu[i], mu[j]));
+    S[e] = i == j ? __fadd_rn(c, reg) : c;
+    X[e] = 0.f;
+  }
+  __syncthreads();
+  factorize(S, X, dl, d);
+
+  float* out = pt + m * d * d;
+  for (int e = tid; e < d * d; e += NT) out[e] = X[e];
+  for (int i = tid; i < d; i += NT) {
+    float acc = 0.f;
+    for (int j = 0; j <= i; ++j) acc += X[i * d + j] * mu[j];
+    bias[m * d + i] = acc;
+  }
+  if (tid == 0) {
+    float logdet = 0.f;
+    for (int j = 0; j < d; ++j) logdet += logf(dl[j]);
+    cnst[m] = (logf(__fdiv_rn(nk, m_rows)) - logdet) - (float)(0.5 * d * LOG2PI);
+  }
 }
 
 }  // namespace
@@ -82,5 +148,19 @@ GCIS_API int gcis_precision_chol(const float* covs, float* pt, float* diag, int 
                                  int d, void* stream) {
   if (d < 1 || d > DMAX || M < 1) return (int)cudaErrorInvalidValue;
   precision_chol_kernel<<<M, NT, 0, (cudaStream_t)stream>>>(covs, pt, diag, d);
+  return (int)cudaGetLastError();
+}
+
+// counts: (M,), sums: (M, d), scatter: (M, d, d) float32, one EM pass's
+// moments per component. pt: (M, d, d), bias: (M, d), cnst: (M,) float32
+// out. m_rows: the pixels the moments were taken over (the weights are
+// nk / m_rows); reg: reg_covar.
+GCIS_API int gcis_precision_chol_params(const float* counts, const float* sums,
+                                        const float* scatter, float* pt, float* bias,
+                                        float* cnst, int M, int d, float m_rows,
+                                        float reg, void* stream) {
+  if (d < 1 || d > DMAX || M < 1 || !(m_rows > 0.f)) return (int)cudaErrorInvalidValue;
+  params_kernel<<<M, NT, 0, (cudaStream_t)stream>>>(counts, sums, scatter, pt, bias, cnst,
+                                                    d, m_rows, reg);
   return (int)cudaGetLastError();
 }

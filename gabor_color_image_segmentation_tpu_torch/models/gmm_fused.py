@@ -18,6 +18,14 @@ labels-only pass. Each iteration factors the covariances with K9
 (models/chol.py). The loop runs a fixed count with the freeze done by
 ``torch.where`` on the device, as the reference's ``fori_loop`` does, so the
 host never waits on the card inside the solver.
+
+``_FUSED_PREP`` mirrors the reference's switch of the same name (off, as
+there): when on, the solver carries EM's moments (counts, sums, scatter)
+instead of sklearn's parameters, and every K8 pass takes its inputs from
+one K10 launch (models/chol.py) instead of K9 and the plain parameter
+glue; the reference's refine and labels passes went back to K9, which
+computes the same inputs. The reference also required its TPU backend;
+the port has no such condition, the switch alone decides.
 """
 
 from __future__ import annotations
@@ -28,12 +36,20 @@ from typing import Optional
 import torch
 
 from gabor_color_image_segmentation_tpu_torch import _kernels
-from gabor_color_image_segmentation_tpu_torch.models.chol import precision_chol
-from gabor_color_image_segmentation_tpu_torch.models.gmm import _LOG2PI
+from gabor_color_image_segmentation_tpu_torch.models.chol import (
+    _moments_to_params,
+    _params_to_kernel_inputs,
+    precision_chol_params,
+)
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import _TILE, K_MAX
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import kmeans_fused_t_xt
 
 D_MAX = 40  # feature rows the kernel holds per pixel (config2: 39)
+_FUSED_PREP = False  # the EM loop's moments -> K8 inputs step as one K10 launch
+
+
+def _use_fused_prep() -> bool:
+    return _FUSED_PREP
 
 
 @functools.lru_cache(maxsize=16)
@@ -119,27 +135,6 @@ def em_pass(x, pt, bias, const, moments: bool = True):
 em_pass.launches = 0
 
 
-def _moments_to_params(counts, sums, scatter, n: int, reg_covar: float):
-    """Moments -> (weights (B, k), means (B, k, D), covariances (B, k, D, D))
-    with sklearn's formulas (counts + 10 eps, E[x x^T] - mu mu^T + reg I)."""
-    nk = counts + 10.0 * torch.finfo(torch.float32).eps
-    means = sums / nk[:, :, None]
-    cov = scatter / nk[:, :, None, None] - means[:, :, :, None] * means[:, :, None, :]
-    eye = torch.eye(sums.shape[2], dtype=torch.float32, device=sums.device)
-    return nk / n, means, cov + reg_covar * eye
-
-
-def _params_to_kernel_inputs(weights, means, covs):
-    """(weights, means, covariances) -> K8's (P^T, bias, const). P^T comes
-    from K9 on a CUDA tensor; log det P = -sum log diag L."""
-    b, k, d = means.shape
-    pt, diag = precision_chol(covs.reshape(b * k, d, d))
-    pt, diag = pt.reshape(b, k, d, d), diag.reshape(b, k, d)
-    bias = torch.matmul(pt, means[..., None])[..., 0]
-    const = torch.log(weights) - torch.log(diag).sum(dim=2) - 0.5 * d * _LOG2PI
-    return pt, bias, const
-
-
 def _init_moments(x, labels, k: int):
     """Hard one-hot moments of the k-means init: (counts, sums, scatter)."""
     xf = x.to(torch.float32)
@@ -164,34 +159,49 @@ def gmm_fused_t_xt(
 
     The mixture is fitted on ``fit_x`` (B, D, m) when given (the pooled fit
     grid, normalised with x's affine), else on x: k-means init (K6, K5),
-    hard moments, ``n_iter`` EM iterations (K9, K8). tol > 0 applies
-    sklearn's rule per image: an image whose mean log-likelihood moved by
-    less than tol keeps its parameters from then on. Then ``refine_iters``
+    hard moments, ``n_iter`` EM iterations (K9, K8; K10, K8 with
+    ``_FUSED_PREP``). tol > 0 applies sklearn's rule per image: an image
+    whose mean log-likelihood moved by less than tol keeps its parameters
+    (its moments, with ``_FUSED_PREP``) from then on. Then ``refine_iters``
     EM passes on x and one labels-only pass on x."""
     if not 1 <= k <= K_MAX:
         raise ValueError(f"fused EM supports k <= {K_MAX}, got {k}")
     fit = x if fit_x is None else fit_x
     b, _, m = fit.shape
     init_labels, _ = kmeans_fused_t_xt(fit, k, kmeans_iters)
-    params = _moments_to_params(*_init_moments(fit, init_labels, k), m, reg_covar)
+    fused = _use_fused_prep()
 
-    def em(params, buf):
-        _, ll, counts, sums, scatter = em_pass(buf, *_params_to_kernel_inputs(*params))
-        return _moments_to_params(counts, sums, scatter, buf.shape[2], reg_covar), ll
+    def inputs(state, rows):
+        """K8's inputs from the loop's state, taken over ``rows`` pixels."""
+        if fused:
+            return precision_chol_params(*state, rows, reg_covar)
+        return _params_to_kernel_inputs(*state)
 
+    def em(state, rows, buf):
+        _, ll, *moments = em_pass(buf, *inputs(state, rows))
+        if fused:
+            return tuple(moments), ll
+        return _moments_to_params(*moments, buf.shape[2], reg_covar), ll
+
+    # the state: EM's moments with the fused prep, else sklearn's parameters
+    state = _init_moments(fit, init_labels, k)
+    if not fused:
+        state = _moments_to_params(*state, m, reg_covar)
     prev_ll = torch.full((b,), float("-inf"), device=x.device)
     go = torch.full((b,), n_iter > 0, dtype=torch.bool, device=x.device)
     for _ in range(n_iter):
-        new, ll = em(params, fit)
+        new, ll = em(state, m, fit)
         ll = ll / m
         if tol == 0.0:
-            params = new
+            state = new
             continue
-        params = tuple(torch.where(go.reshape((b,) + (1,) * (p.dim() - 1)), p, q)
-                       for p, q in zip(new, params))
+        state = tuple(torch.where(go.reshape((b,) + (1,) * (p.dim() - 1)), p, q)
+                      for p, q in zip(new, state))
         ll = torch.where(go, ll, prev_ll)
         go = go & ((ll - prev_ll).abs() >= tol)
         prev_ll = ll
+    rows = m
     for _ in range(refine_iters):
-        params, _ = em(params, x)
-    return em_pass(x, *_params_to_kernel_inputs(*params), moments=False)
+        state, _ = em(state, rows, x)
+        rows = x.shape[2]
+    return em_pass(x, *inputs(state, rows), moments=False)

@@ -8,10 +8,13 @@ images (counterpart of the JAX package's models/graph.py).
     -> Ng-Jordan-Weiss row normalisation -> k-means -> a region id per
        superpixel.
 
-Plain PyTorch, as the reference leaves this stage to XLA (its Pallas
-moments kernels K16-K18 are off its path). Everything runs on the device
-of its inputs with no host sync of its own; the graph-stage launches that
-are kernels of the port are K11, K14 and K15, called by the pipeline.
+Plain PyTorch, as the reference leaves this stage to XLA, but for the
+superpixel sums and counts: the reference takes them with a one-hot
+matmul (its Pallas moments kernels K16-K18 are off its path), the port
+with K17's segmented sum (models/graph_fused.py), which reads the features
+once. Everything runs on the device of its inputs with no host sync of its
+own; the other graph-stage kernels (K11 or K13, K14, K15) are called by
+the pipeline.
 
 Where the two libraries differ the port follows the reference:
 ``jnp.median`` of an even count is the mean of the two middle values
@@ -31,9 +34,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gabor_color_image_segmentation_tpu_torch.models.graph_fused import (
+    superpixel_moments_fused_t,
+)
 from gabor_color_image_segmentation_tpu_torch.models.kmeans import kmeans_batched
-
-_N_ONEHOT_PIXELS = 1 << 16  # pixel rows per one-hot chunk of superpixel_means
 
 
 def resolve_eig_method(g, dtype: str, device: torch.device) -> str:
@@ -49,26 +53,15 @@ def resolve_eig_method(g, dtype: str, device: torch.device) -> str:
 
 def superpixel_means(features: torch.Tensor, labels: torch.Tensor,
                      n_sp: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, D, N) features + (B, N) superpixel labels -> ((B, S, D) float32
-    means, (B, S) float32 counts).
+    """(B, D, N) features + (B, N) int32 superpixel labels -> ((B, S, D)
+    float32 means, (B, S) float32 counts).
 
-    The reference's one-hot matmul in float32 (the products of 0/1 with a
-    bfloat16 or float32 feature are exact), over fixed chunks of pixels
-    summed in order: deterministic, and the one-hot never exceeds
-    65,536 x S."""
-    b, d, n = features.shape
-    sums = torch.zeros((b, d, n_sp), dtype=torch.float32, device=features.device)
-    counts = torch.zeros((b, n_sp), dtype=torch.float32, device=features.device)
-    for i in range(b):
-        for p0 in range(0, n, _N_ONEHOT_PIXELS):
-            lb = labels[i, p0:p0 + _N_ONEHOT_PIXELS].long()
-            onehot = torch.zeros((lb.shape[0], n_sp), dtype=torch.float32,
-                                 device=features.device)
-            onehot.scatter_(1, lb[:, None], 1.0)
-            sums[i] += features[i, :, p0:p0 + _N_ONEHOT_PIXELS].to(torch.float32) @ onehot
-            counts[i] += onehot.sum(dim=0)
-    means = sums.transpose(1, 2) / torch.clamp(counts, min=1.0)[:, :, None]
-    return means, counts
+    The sums and counts come from K17 in the features' own dtype (no
+    bfloat16 rounding of float32 features), summed in float64 and rounded
+    once: the reference's one-hot matmul sums the same exact products in
+    float32."""
+    sums, counts = superpixel_moments_fused_t(labels, features, n_sp, dtype=features.dtype)
+    return sums / torch.clamp(counts, min=1.0)[:, :, None], counts
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:

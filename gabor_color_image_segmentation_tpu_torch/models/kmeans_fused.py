@@ -1,5 +1,6 @@
 """Lloyd k-means on the normalised (B, D, N) solver buffer (counterpart of
-the JAX package's models/kmeans_pallas.py), with kernels K3, K5 and K6.
+the JAX package's models/kmeans_pallas.py), with kernels K3, K5 and K6,
+and on a row-major (B, N, D) buffer with K7.
 
 The buffer holds D normalised feature rows of N pixels in the storage dtype
 (float32 or bfloat16). The reference's transposed ``xt`` layout also
@@ -18,6 +19,11 @@ is built.
 - K6 ``maximin_t_pass`` (csrc/maximin_t.cu) replaces ``_maximin_kernel``:
   one farthest-point step, per-block (max, first index) partials and a
   select launch that reads the winning column.
+- K7 ``lloyd_pass`` (csrc/lloyd_rows.cu) replaces ``_lloyd_kernel``: one
+  Lloyd pass on a row-major (B, N, D) buffer, a warp per pixel row, with
+  the member counts counted (the reference's ones column and 128-lane
+  padding of D are not built). It serves ``kmeans_fused``, the reference's
+  drop-in for a batched ``kmeans``, which no pipeline path calls.
 
 Scores follow the reference: ||c||^2 - 2 c . x with c in float32 for the
 norm and rounded to the storage dtype for the cross term, first minimum
@@ -30,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from gabor_color_image_segmentation_tpu_torch import _kernels
+from gabor_color_image_segmentation_tpu_torch.models.kmeans import maximin_init
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import _TILE, K_MAX
 
 
@@ -207,6 +214,53 @@ maximin_t_pass.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K7: Lloyd pass on a row-major buffer
+# ---------------------------------------------------------------------------
+
+_ROWS_BLOCK = 1024  # pixels per block of K7 (8 warps of 128)
+D_ROWS_MAX = 512  # row values K7 holds in registers
+
+
+def lloyd_pass_plain(x, centers, k: int):
+    """Plain PyTorch version of K7 (same contract as lloyd_pass)."""
+    xf = x.to(torch.float32)
+    csq = centers.square().sum(dim=2)
+    scores = csq[:, None, :] - 2.0 * torch.bmm(xf, _rounded(centers, x.dtype).transpose(1, 2))
+    labels = torch.argmin(scores, dim=2)  # first minimum
+    onehot = torch.nn.functional.one_hot(labels, k).to(torch.float32)  # (B, N, k)
+    return labels.to(torch.int32), torch.bmm(onehot.transpose(1, 2), xf), onehot.sum(dim=1)
+
+
+def lloyd_pass(x, centers, k: int):
+    """One Lloyd pass over a row-major buffer.
+
+    x: (B, N, D) float32 or bfloat16; centers: (B, k, D) float32. Returns
+    labels (B, N) int32, member sums (B, k, D) and counts (B, k) float32."""
+    _kernels.check(x.dim() == 3, f"x must be (B, N, D), got {tuple(x.shape)}")
+    _kernels.storage_code(x.dtype)
+    b, n, d = x.shape
+    _kernels.check(1 <= k <= K_MAX, f"k must be in [1, {K_MAX}], got {k}")
+    _kernels.check(tuple(centers.shape) == (b, k, d) and centers.dtype == torch.float32,
+                   f"centers must be float32 {(b, k, d)}")
+    if _kernels.use_plain(x, centers):
+        return lloyd_pass_plain(x, centers, k)
+    _kernels.check(d <= D_ROWS_MAX, f"the CUDA kernel takes D <= {D_ROWS_MAX}, got {d}")
+    x, centers = x.contiguous(), centers.contiguous()
+    nblk = -(-n // _ROWS_BLOCK)
+    labels = torch.empty((b, n), dtype=torch.int32, device=x.device)
+    partial = torch.empty((b, nblk, k, d + 1), dtype=torch.float32, device=x.device)
+    sums = torch.empty((b, k, d + 1), dtype=torch.float32, device=x.device)
+    _kernels.launch("gcis_lloyd_rows", x.data_ptr(), centers.data_ptr(), labels.data_ptr(),
+                    partial.data_ptr(), sums.data_ptr(), b, d, n, k,
+                    _kernels.storage_code(x.dtype))
+    lloyd_pass.launches += 1
+    return labels, sums[:, :, :d], sums[:, :, d]
+
+
+lloyd_pass.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # solvers
 # ---------------------------------------------------------------------------
 
@@ -253,3 +307,34 @@ def kmeans_fused_t_xt(x: torch.Tensor, k: int, n_iter: int = 25, coarse_iters: i
         )
     _kernels.check(1 <= k <= K_MAX, f"fused Lloyd supports k <= {K_MAX}, got {k}")
     return _solve_t(x, _maximin_init_t_fused(x, k), n_iter)
+
+
+def kmeans_fused(x: torch.Tensor, k: int, n_iter: int = 25,
+                 dtype: torch.dtype = torch.float32, init_stride: int = 1):
+    """Lloyd k-means of each image of x (B, N, D) (or one image (N, D)) with
+    K7, the reference's drop-in for a batched ``kmeans``. Returns (labels
+    (B, N) int32, centres (B, k, D) float32).
+
+    The features are rounded to ``dtype``; each image seeds with
+    ``maximin_init`` on every ``init_stride``-th row. Each pass assigns with
+    the current centres and updates them (an empty cluster keeps its
+    centre) until a pass leaves every centre of the batch unchanged or
+    ``n_iter`` updates have run; the last pass gives the labels. The test
+    for the fixed point reads the centres back to the host once a pass."""
+    if x.dim() == 2:
+        labels, centers = kmeans_fused(x[None], k, n_iter, dtype, init_stride)
+        return labels[0], centers[0]
+    _kernels.check(1 <= k <= K_MAX, f"fused Lloyd supports k <= {K_MAX}, got {k}")
+    x = x.to(dtype)
+    centers = torch.stack([maximin_init(xi, k, init_stride) for xi in x]).to(torch.float32)
+    t = 0
+    while True:
+        labels, sums, counts = lloyd_pass(x, centers, k)
+        new = centers
+        if t < n_iter:
+            upd = sums / torch.clamp(counts, min=1.0)[:, :, None]
+            new = torch.where(counts[:, :, None] > 0, upd, centers)
+        t += 1
+        if t > n_iter or torch.equal(new, centers):
+            return labels, new
+        centers = new

@@ -19,6 +19,7 @@ from gabor_color_image_segmentation_tpu_torch.data import synthetic_mosaic
 from gabor_color_image_segmentation_tpu_torch.models import chol
 from gabor_color_image_segmentation_tpu_torch.models import connectivity as cn
 from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
+from gabor_color_image_segmentation_tpu_torch.models import graph_fused as gm
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_chw as kc
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_fused as kf
 from gabor_color_image_segmentation_tpu_torch.models import pipeline
@@ -311,6 +312,110 @@ def test_lookup_kernel(device, shape):
     got = lookup.table_lookup(idx, table)
     torch.cuda.synchronize()
     assert torch.equal(got, lookup.table_lookup_plain(idx, table))
+
+
+def _within_one_ulp(got, ref):
+    """float32 values equal up to one unit in the last place of ``ref``."""
+    ulp = torch.nextafter(ref.abs(), torch.full_like(ref, float("inf"))) - ref.abs()
+    return bool(((got - ref).abs() <= ulp).all())
+
+
+MOMENTS = {"fused": (gm.superpixel_moments_fused, False),
+           "fused_t": (gm.superpixel_moments_fused_t, True),
+           "fused_nhwc": (gm.superpixel_moments_fused_nhwc, False)}
+
+
+@pytest.mark.parametrize("name", sorted(MOMENTS))
+@pytest.mark.parametrize("shape", [(2, 61, 97, 39, 925), (3, 17, 33, 5, 40),
+                                   (2, 540, 960, 39, 405)])
+def test_superpixel_moments_kernel(device, name, shape):
+    """K16-K18 against their plain version: every value equal with bfloat16
+    features (float64 sums of them are exact); K17 with float32 features
+    within one ulp. Labels hold superpixel blocks of 8x8 pixels, a quarter
+    of them noise, and some -1 and S (no bucket). (540, 960, 405) is
+    config4's pooled grid."""
+    fn, channel_major = MOMENTS[name]
+    b, h, w, d, n_sp = shape
+    rng = np.random.default_rng(h)
+    lab = _fragmented("cpu", h, w, n_sp, seed=w).reshape(2, -1)[np.arange(b) % 2].numpy()
+    lab = np.where(rng.random(lab.shape) < 0.01, rng.choice([-1, n_sp], lab.shape), lab)
+    idx = torch.from_numpy(lab.astype(np.int32)).to(device)
+    f = torch.from_numpy(rng.normal(size=(b, h * w, d)).astype(np.float32)).to(device)
+    if channel_major:
+        f = f.transpose(1, 2).contiguous()
+    for dt in ([torch.bfloat16, torch.float32] if channel_major else [torch.bfloat16]):
+        kw = {"dtype": dt} if channel_major else {}
+        sums, counts = fn(idx, f, n_sp, **kw)
+        rs, rc = gm.superpixel_moments_plain(idx, f.to(dt), n_sp, channel_major)
+        torch.cuda.synchronize()
+        assert torch.equal(counts, rc)
+        assert torch.equal(sums, rs) if dt == torch.bfloat16 else _within_one_ulp(sums, rs)
+
+
+@pytest.mark.parametrize("d", [3, 39, 64])
+def test_precision_chol_params_kernel(device, d):
+    """K10 on moments of well-conditioned data (cond of the covariance near
+    the K9 test's): P^T within 5e-4 relative of the plain version, bias and
+    const within float32 rounding of different sum orders."""
+    rng = np.random.default_rng(d)
+    b, k, n = 2, 5, 4 * d
+    x = rng.normal(size=(b, k, n, d)) * rng.uniform(0.5, 2.0, size=(b, k, 1, d)) + 0.3
+    r = rng.uniform(0.2, 1.0, size=(b, k, n, 1))
+    moments = [torch.from_numpy(a.astype(np.float32)).to(device)
+               for a in ((r[..., 0]).sum(axis=2), (r * x).sum(axis=2),
+                         np.einsum("bknc,bkni,bknj->bkij", r, x, x))]
+    pt, bias, const = chol.precision_chol_params(*moments, 3000, 1e-4)
+    rp, rb, rc = chol.precision_chol_params_plain(*moments, 3000, 1e-4)
+    torch.cuda.synchronize()
+    assert ((pt - rp).abs() / (rp.abs() + 1e-3)).max().item() < 5e-4
+    assert torch.count_nonzero(torch.triu(pt, 1)) == 0
+    assert torch.allclose(bias, rb, rtol=2e-4, atol=2e-4 * rb.abs().max().item())
+    assert torch.allclose(const, rc, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(2, 5000, 243, 5), (3, 1001, 37, 8), (1, 7, 1, 1)])
+def test_lloyd_pass_kernel(device, dtype, shape):
+    b, n, d, k = shape
+    x = _buffer(device, DTYPES[dtype], b=b, d=d, n=n, seed=9).transpose(1, 2).contiguous()
+    c = x[:, :k].float() + 0.1
+    labels, sums, counts = kf.lloyd_pass(x, c, k)
+    rl, rs, rc = kf.lloyd_pass_plain(x, c, k)
+    torch.cuda.synchronize()
+    assert torch.equal(labels, rl) and torch.equal(counts, rc)
+    assert torch.allclose(sums, rs, rtol=1e-4, atol=1e-4 * rs.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_kmeans_fused_kernel(device, dtype, monkeypatch):
+    """K7's solver against the same solver through K7's plain version."""
+    dt = DTYPES[dtype]
+    x = _buffer(device, torch.float32, b=3, d=24, n=4000, seed=10).transpose(1, 2)
+    kf.lloyd_pass.launches = 0
+    labels, centers = kf.kmeans_fused(x, 4, 20, dt)
+    assert kf.lloyd_pass.launches > 0
+    monkeypatch.setattr(kf, "lloyd_pass", kf.lloyd_pass_plain)
+    ref, ref_c = kf.kmeans_fused(x, 4, 20, dt)
+    assert (labels == ref).float().mean(dim=1).min().item() >= 0.999
+    assert torch.allclose(centers, ref_c, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_gmm_fused_prep_kernel(device, dtype, monkeypatch):
+    """With _FUSED_PREP on, every K8 pass takes its inputs from K10 (15 EM
+    iterations and the labels pass) and K9 never runs; the labels agree with
+    the switch off."""
+    x = _buffer(device, DTYPES[dtype], d=12, n=6000, seed=11)
+    off = gf.gmm_fused_t_xt(x, 4, 15, 1e-4, 10, 1e-3)
+    monkeypatch.setattr(gf, "_FUSED_PREP", True)
+    for fn in (chol.precision_chol, chol.precision_chol_params, gf.em_pass):
+        fn.launches = 0
+    on = gf.gmm_fused_t_xt(x, 4, 15, 1e-4, 10, 1e-3)
+    assert chol.precision_chol_params.launches == gf.em_pass.launches == 16
+    assert chol.precision_chol.launches == 0
+    for i in range(x.shape[0]):
+        got, ref = on[i].cpu().numpy(), off[i].cpu().numpy()
+        assert (align_labels(got, ref) == ref).mean() >= 0.999
 
 
 @pytest.mark.parametrize("name", ["config0", "config1", "config2", "config3", "config4"])

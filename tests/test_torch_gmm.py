@@ -1,7 +1,8 @@
 """PyTorch port, config2's kernels and solvers against the JAX package on the
 CPU (its Pallas kernels in interpret mode): K5 (Lloyd pass), K6 (maximin
-step and seeding), K8 (E+M pass), K9 (precision Cholesky), and the solvers
-kmeans_fused_t_xt and gmm_fused_t_xt.
+step and seeding), K8 (E+M pass), K9 (precision Cholesky), K10 (moments ->
+parameters -> factorisation), and the solvers kmeans_fused_t_xt and
+gmm_fused_t_xt, the latter also with the ``_FUSED_PREP`` switch on.
 
 The same numpy inputs go to both: the JAX side in its padded transposed
 layout (ones-row, TPU padding), the port in its (B, D, N) layout.
@@ -9,8 +10,9 @@ Tolerances: K5 labels equal on >= 99.99 % of pixels, sums within rtol 1e-4
 (f32) / 1e-3 (bf16); K6 picks the same pixels, running minima within rtol
 1e-5; K8 labels on >= 99.99 %, the log-likelihood within rtol 1e-5, sums,
 counts and scatter within rtol 1e-4; K9 within 5e-4 relative
-(tests/test_chol_pallas.py's bound); the solvers' labels agree on >= 99.9 %
-after alignment."""
+(tests/test_chol_pallas.py's bound), and K10's bias within 2e-4 and its
+const within 1e-5 relative (that test's bounds); the solvers' labels agree
+on >= 99.9 % after alignment."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,10 @@ import torch
 
 from gabor_color_image_segmentation_tpu.models import gmm_pallas as jgmm
 from gabor_color_image_segmentation_tpu.models import kmeans_pallas as jkp
-from gabor_color_image_segmentation_tpu.models.chol_pallas import precision_chol_pallas
+from gabor_color_image_segmentation_tpu.models.chol_pallas import (
+    precision_chol_pallas,
+    precision_chol_params_pallas,
+)
 from gabor_color_image_segmentation_tpu.utils.labels import align_labels
 from gabor_color_image_segmentation_tpu_torch.models import chol
 from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
@@ -188,4 +193,74 @@ def test_gmm_fused_t_xt_matches_jax(pooled):
         ref = jgmm.gmm_fused_t_xt(xt, k, d, n, 15, 1e-4, 10, 1e-3)
         labels = gf.gmm_fused_t_xt(xb, k, 15, 1e-4, 10, 1e-3)
     assert labels.dtype == torch.int32 and tuple(labels.shape) == (b, n)
+    assert _aligned(labels.numpy(), np.asarray(ref)) >= 0.999
+
+
+def test_precision_chol_params_matches_kernel():
+    """K10's plain version against the Pallas kernel on
+    tests/test_chol_pallas.py's moments at config2's order: B = 2, k = 5,
+    d = 39, 9801 pixels, the ones-extended scatter split into EM's
+    (counts, sums, scatter)."""
+    rng = np.random.default_rng(3)
+    b, k, d, dp, m_rows = 2, 5, 39, 48, 9801
+    xe = np.zeros((b, m_rows, dp))
+    xe[:, :, :d] = rng.normal(size=(b, m_rows, d))
+    xe[:, :, d] = 1.0
+    resp = rng.random((b, k, m_rows)) + 0.05
+    covs_m = np.einsum("bkn,bni,bnj->bkij", resp, xe, xe).astype(np.float32)
+    ref_pt, _, ref_bias, ref_const = precision_chol_params_pallas(
+        jnp.asarray(covs_m), d, m_rows, 1e-4)
+    counts, sums, scatter = (torch.from_numpy(a.copy()) for a in (
+        covs_m[:, :, d, d], covs_m[:, :, d, :d], covs_m[:, :, :d, :d]))
+    pt, bias, const = chol.precision_chol_params(counts, sums, scatter, m_rows, 1e-4)
+    assert pt.shape == (b, k, d, d) and bias.shape == (b, k, d) and const.shape == (b, k)
+    want = _np(ref_pt).reshape(b, k, dp, 128)[:, :, :d, :d]
+    rel = np.abs(pt.numpy() - want) / (np.abs(want) + 1e-3)
+    assert rel.max() < 5e-4, rel.max()
+    np.testing.assert_allclose(bias.numpy(), _np(ref_bias).reshape(b, k, dp)[:, :, :d],
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(const.numpy(), _np(ref_const)[:, 0].reshape(b, k),
+                               rtol=1e-5, atol=1e-4)
+    # the plain version is the solver's own chain, bit for bit
+    chain = gf._params_to_kernel_inputs(*gf._moments_to_params(counts, sums, scatter,
+                                                                m_rows, 1e-4))
+    assert all(torch.equal(a, r) for a, r in zip((pt, bias, const), chain))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_gmm_fused_prep_matches_standard_loop(dtype, monkeypatch):
+    """The port's solver with ``_FUSED_PREP`` on (the moments carried, K8's
+    inputs from K10) against the switch off, with the tol freeze, fitted on
+    the 2x2-pooled grid with one refine pass."""
+    h, w, d, k = 96, 96, 8, 4
+    x = _blobs(n=h * w, d=d, k=k, seed=8)
+    _, xb = _both(x, dtype)
+    _, fit = _both(_pool(x, h, w), dtype)
+    off = gf.gmm_fused_t_xt(xb, k, 12, 1e-4, 10, 1e-3, fit, 1)
+    monkeypatch.setattr(gf, "_FUSED_PREP", True)
+    on = gf.gmm_fused_t_xt(xb, k, 12, 1e-4, 10, 1e-3, fit, 1)
+    assert _aligned(on.numpy(), off.numpy()) >= 0.999
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_gmm_fused_prep_matches_jax(dtype, monkeypatch):
+    """Both packages with the switch on (the JAX package's forced as
+    tests/test_gmm.py::test_fused_prep_matches_standard_loop forces it, its
+    K10 in interpret mode): tests/test_gmm.py's three blobs, 8 EM
+    iterations, tol 1e-3."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.normal(size=(500, 6)) + np.array([3, 0, 0, 0, 0, 0.0]),
+                        rng.normal(size=(500, 6)) + np.array([0, 3, 0, 0, 0, 0.0]),
+                        rng.normal(size=(500, 6)) - 2.0]).astype(np.float32)
+    xs = np.stack([x, x[::-1]])
+    b, n, d = xs.shape
+    xt, xb = _both(xs, dtype)
+    monkeypatch.setattr(jgmm, "_use_fused_prep", lambda: True)
+    jgmm.gmm_fused_t_xt.clear_cache()
+    try:
+        ref = jgmm.gmm_fused_t_xt(xt, 3, d, n, 8, 1e-4, 10, 1e-3)
+    finally:
+        jgmm.gmm_fused_t_xt.clear_cache()
+    monkeypatch.setattr(gf, "_FUSED_PREP", True)
+    labels = gf.gmm_fused_t_xt(xb, 3, 8, 1e-4, 10, 1e-3)
     assert _aligned(labels.numpy(), np.asarray(ref)) >= 0.999
