@@ -9,8 +9,10 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
 2. build the Hopper kernels from ``csrc/`` with nvcc (one process per
    source, all started together);
 3. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes, with the error against its stated bound and the median
-   time of each over a few runs (CUDA events):
+   paths' shapes, with the error against its stated bound and the time of
+   each (CUDA events: the median of 5 single calls, or, for a call whose
+   single launch reads under 1 ms, the median of 5 means over 50
+   back-to-back calls, the single-launch reading printed beside it):
    K1-K4 at config1 (batch 16 of 321x481, bf16) and config0 (batch 1, f32
    and bf16); K7 (one pass and the whole ``kmeans_fused``, whose run with
    the counts set to 0 just before it and read just after is K7's path) on
@@ -20,17 +22,20 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    well-conditioned ones) at config2 (batch 8, f32 and bf16);
    K11 (SLIC), K14 (connectivity, on K11's output and on a fragmented
    random map) and K15 (table lookup, with ``torch.gather`` as the library
-   call) at config3 (batch 8); K13 (the banded SLIC loop) at config4's
-   pooled grid (batch 8 of 540x960, S = 405), with K11 there, one K13 pass
-   by column-piece width and one update as readings, and K14 and K15 on
-   K13's output there (config4's min_size, a (8, 405) table); K12 (the
-   one-launch w5 SLIC) at 8x321x481 with 400 superpixels, with
-   K11 and K13 there as readings; K16-K18 (superpixel sums and counts, with
-   one ``index_add_`` as the library call) on the graph stage's own
-   features and connected superpixels at config3 (S = 925) and config4's
-   pooled grid (S = 405), bf16 and f32; tiled K1 at config4 (batch 8 of
-   2160x3840, pool 2) against untiled K1 plus pooling (a reading of the
-   tiling's cost) and against the plain tiled path on batch 1;
+   call; and with a table of 50,000 entries) at config3 (batch 8); K13
+   (the banded SLIC loop) at config4's pooled grid (batch 8 of 540x960,
+   S = 405), with K11 there, one K13 pass by column-piece width and one
+   update as readings, and K14 and K15 on K13's output there (config4's
+   min_size, a (8, 405) table); K12 (the one-launch w5 SLIC) at 8x321x481
+   with 400 superpixels, with K11 and K13 there as readings; K16-K18
+   (superpixel sums and counts, with one ``index_add_`` as the library
+   call) on the graph stage's own features and connected superpixels at
+   config3 (S = 925) and config4's pooled grid (S = 405), and on config3's
+   features with S = 8,192 (a raster block map and uniform random labels
+   in [-1, S]), bf16 and f32, each launched twice, with the kernel's chunk
+   ranges; tiled K1 at config4 (batch 8 of 2160x3840, pool 2) against
+   untiled K1 plus pooling (a reading of the tiling's cost) and against
+   the plain tiled path on batch 1;
 4. ``segment_batch(uint8 -> int32 labels, with_features=False)`` end to end
    at config1 batch 16 bf16, config0 batch 1 f32, config2 batch 8 bf16
    and f32 (with ``gmm_fused._FUSED_PREP`` off, the default, and on),
@@ -76,7 +81,8 @@ plain version on well-conditioned moments); K7's pass labels equal on
 >= 99.99 %, sums within rtol 1e-3 of their largest value, the whole
 ``kmeans_fused`` >= 0.99 of each image's labels equal to the solver on the
 plain pass; K16-K18 every value equal to the plain version in bf16 (float64
-sums of bf16 values are exact), within one ulp in f32; end-to-end labels
+sums of bf16 values are exact), within one ulp in f32, counts equal, and two
+launches bit-equal; end-to-end labels
 after alignment >= 0.999 (f32) / >= 0.99 (bf16).
 
 Bounds (``bound_ms``): the larger of the bytes the function must move (each
@@ -101,6 +107,14 @@ import numpy as np
 
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM HBM3, 3.35 TB/s
 F32_FLOP_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores, 67 TFLOP/s
+# A call whose single launch reads under SHORT_MS ms is timed as the mean
+# over INNER back-to-back calls between one pair of events (median of 5
+# pairs): a lone launch between two events times the launch latency too.
+# A sleep kernel (CYCLES_PER_MS cycles a ms, the H100's 1.98 GHz boost
+# clock rounded up) holds the card while the host queues the calls.
+SHORT_MS = 1.0
+INNER = 50
+CYCLES_PER_MS = 2.0e6
 # K9's gates on the EM's covariances. P^T must be the exact precision factor
 # of a covariance within 2e-5 of C, normwise (a backward-stable float32
 # factorisation gives about d * eps = 2.3e-6 at d = 39), and diag must be
@@ -239,33 +253,56 @@ def main() -> None:
     counters = {name: wrapper for name, (wrapper, *_) in kernels.items()}
     counters["slic_band_update"] = sf.slic_band_update
 
-    def cuda_ms(fn, reps=5):
+    def cuda_ms(fn, reps=5, inner=1, hold_ms=0.0):
+        """Median over ``reps`` pairs of CUDA events of the mean time of
+        ``inner`` back-to-back calls of ``fn``, after one warm-up call. With
+        ``hold_ms`` a sleep kernel of that length is queued before each
+        pair, so the host has queued the calls before the card reaches them
+        and its time per call does not enter the reading."""
         fn()
         times = []
         for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            if hold_ms:
+                torch.cuda._sleep(int(hold_ms * CYCLES_PER_MS))
             start.record()
-            fn()
+            for _ in range(inner):
+                fn()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end))
+            times.append(start.elapsed_time(end) / inner)
         return statistics.median(times)
+
+    def timed(fn):
+        """(ms, the single-launch reading): a call whose single launch
+        reads under SHORT_MS is timed again as the mean over INNER
+        back-to-back calls, where one pair of events no longer times the
+        launch's latency with it."""
+        single = cuda_ms(fn)
+        if single >= SHORT_MS:
+            return single, single
+        return cuda_ms(fn, inner=INNER, hold_ms=INNER * single), single
+
+    def timing_note(single):
+        return (f"mean of {INNER} back-to-back calls, median of 5" if single < SHORT_MS
+                else "median of 5 single calls")
 
     def report(name, shape, abs_err, err, bound_txt, ok, kern_fn, plain_fn, main=None):
         """``err`` is measured in the bound's units; ``abs_err`` is the max
         absolute difference of the outputs, for the JSON line. ``main`` =
         (bytes, flops) of the call when this is the shape the JSON line
         reports."""
-        ms, plain_ms = cuda_ms(kern_fn), cuda_ms(plain_fn)
+        (ms, single), (plain_ms, _) = timed(kern_fn), timed(plain_fn)
         print(f"phase 3: {name} [{shape}] max abs err {abs_err:.3e}, err {err:.3e} "
-              f"(bound {bound_txt}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms ({card})",
-              flush=True)
+              f"(bound {bound_txt}) kernel {ms:.4f} ms (single launch {single:.4f}; "
+              f"{timing_note(single)}) plain {plain_ms:.4f} ms ({card})", flush=True)
         check(ok, f"{name} [{shape}] disagrees with its plain version: {err} vs {bound_txt}")
         if main is not None:
             b_ms, b_by = bound(*main)
             record[name].update(max_abs_err=float(abs_err), ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by)
+                                bound_ms=b_ms, bound_by=b_by, timing=timing_note(single),
+                                ms_single_launch=single)
 
     def chol_errors(covs, pt, diag):
         """Per matrix of a precision Cholesky: (backward error
@@ -768,8 +805,22 @@ def main() -> None:
            lambda: lookup.table_lookup_plain(sp3, table),
            (2 * sp3.numel() * 4 + table.numel() * 4, 0))
     sp3_64 = sp3.long()
-    record["table_lookup"]["library_ms"] = cuda_ms(lambda: torch.gather(table, 1, sp3_64))
-    del lab3, spk, spp, frag, ck, cp, sp3, sp3_64, lk, lp
+    record["table_lookup"]["library_ms"] = timed(lambda: torch.gather(table, 1, sp3_64))[0]
+    # K15 past its old 12,288-entry cap: S = 50,000, uniform random indices
+    # over config3's pixels (odd N, so rows 1.. are not 16-byte aligned)
+    s_big = 50000
+    idx_big = torch.from_numpy(rng.integers(0, s_big, tuple(sp3.shape)).astype(np.int32)).to(dev)
+    table_big = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (bsz, s_big))
+                                 .astype(np.int32)).to(dev)
+    lk, lp = lookup.table_lookup(idx_big, table_big), lookup.table_lookup_plain(idx_big, table_big)
+    torch.cuda.synchronize()
+    ndiff = int((lk != lp).sum())
+    report("table_lookup", f"{tag3} idx {tuple(idx_big.shape)} uniform random, table "
+           f"{tuple(table_big.shape)}, {ndiff} pixels differ", float((lk - lp).abs().max()),
+           ndiff, "bit-equal (0 pixels)", ndiff == 0,
+           lambda: lookup.table_lookup(idx_big, table_big),
+           lambda: lookup.table_lookup_plain(idx_big, table_big))
+    del lab3, spk, spp, frag, ck, cp, sp3, sp3_64, lk, lp, idx_big, table_big
 
     # K13 at config4's pooled grid, the main path's SLIC; K12 at 8x321x481
     # with 400 superpixels (a frame under the whole-image gate, where
@@ -803,7 +854,7 @@ def main() -> None:
                lambda: sf.slic_banded_plain(*args), (lab.numel() * 4 + got.numel() * 4, flops))
         for other, ofn in readings:
             same = (ofn(*args) == got).float().mean(dim=(1, 2)).min().item()
-            other_ms = cuda_ms(lambda: ofn(*args))
+            other_ms = timed(lambda: ofn(*args))[0]
             print(f"phase 3: {other} [{tag} S={gh * gw}] (a reading) {other_ms:.3f} ms, labels "
                   f"equal to {name}'s per image min {same:.6f} ({card})", flush=True)
         return got
@@ -821,10 +872,10 @@ def main() -> None:
     bp4 = sf._band_plan(h4, w4, g4.n_superpixels)
     sw4 = sl.slic_geometry(h4, w4, g4.n_superpixels, g4.slic_compactness)[2]
     cent4 = sl.slic_init_centroids(lab4, bp4["gh"], bp4["gw"])
-    by_cols = {c: round(cuda_ms(lambda: sf.slic_band_pass(lab4, cent4, bp4, sw4, cols=c)), 4)
+    by_cols = {c: round(timed(lambda: sf.slic_band_pass(lab4, cent4, bp4, sw4, cols=c))[0], 4)
                for c in (w4, 256, sf._BAND_COLS, 64)}
     parts4 = sf.slic_band_pass(lab4, cent4, bp4, sw4)[1]
-    t_update = cuda_ms(lambda: sf.slic_band_update(cent4.clone(), parts4, bp4, h4))
+    t_update = timed(lambda: sf.slic_band_update(cent4.clone(), parts4, bp4, h4))[0]
     print(f"phase 3: slic_band_pass [{tag4p}] (readings) one pass with partials by column "
           f"width {by_cols} ms, one update {t_update:.4f} ms ({card})", flush=True)
     del parts4, cent4
@@ -855,19 +906,53 @@ def main() -> None:
     del sp4, ck, cp, idx4, table4, lk, lp
 
     # K16-K18 on the graph stage's own inputs: the standardised features and
-    # the connected superpixels of config3 and of config4's pooled grid
+    # the connected superpixels of config3 and of config4's pooled grid; at
+    # config3 also past the old 3,632 cap, S = 8,192, on a raster block map
+    # (narrow chunk ranges) and on uniform random labels in [-1, S] (the
+    # widest ranges, labels outside [0, S) in every chunk)
     def within_one_ulp(got, ref):
         ulp = torch.nextafter(ref.abs(), torch.full_like(ref, float("inf"))) - ref.abs()
         return bool(((got - ref).abs() <= ulp).all())
 
     def compare_moments(name, kern_fn, plain_fn, dt, tag, main):
-        (sk_, ck_), (sp_, cp_) = kern_fn(), plain_fn()
+        (sk_, ck_), (sk2, ck2), (sp_, cp_) = kern_fn(), kern_fn(), plain_fn()
         torch.cuda.synchronize()
         ndiff = int((sk_ != sp_).sum()) + int((ck_ != cp_).sum())
-        ok = torch.equal(ck_, cp_) and (ndiff == 0 if dt == torch.bfloat16
-                                        else within_one_ulp(sk_, sp_))
-        report(name, f"{tag}, {ndiff} values differ", (sk_ - sp_).abs().max().item(), ndiff,
-               "bf16 every value equal, f32 within one ulp", ok, kern_fn, plain_fn, main)
+        same = torch.equal(sk_, sk2) and torch.equal(ck_, ck2)
+        ok = same and torch.equal(ck_, cp_) and (ndiff == 0 if dt == torch.bfloat16
+                                                 else within_one_ulp(sk_, sp_))
+        report(name, f"{tag}, {ndiff} values differ, two launches "
+               f"{'bit-equal' if same else 'DIFFER'}", (sk_ - sp_).abs().max().item(), ndiff,
+               "bf16 every value equal, f32 within one ulp, counts equal, two launches "
+               "bit-equal", ok, kern_fn, plain_fn, main)
+
+    def moments_cases(spm, feats, rows_m, n_sp, dt, tagm, main):
+        """The three entry points on one input: K17 on the channel-major
+        features in ``dt``, K16 and K18 on the rows in bf16; and the kernel's
+        chunk ranges (a reading of the partials it writes)."""
+        dname = "bf16" if dt == torch.bfloat16 else "f32"
+        compare_moments("superpixel_moments_fused_t",
+                        lambda: gm.superpixel_moments_fused_t(spm, feats, n_sp, dtype=dt),
+                        lambda: gm.superpixel_moments_plain(spm, feats, n_sp, True), dt,
+                        f"{tagm}, channel-major in {dname} (the graph stage's call)", main)
+        for name in ("superpixel_moments_fused", "superpixel_moments_fused_nhwc"):
+            fn = getattr(gm, name)
+            compare_moments(name, lambda: fn(spm, rows_m, n_sp),
+                            lambda: gm.superpixel_moments_plain(
+                                spm, rows_m.to(torch.bfloat16), n_sp),
+                            torch.bfloat16, f"{tagm}, row-major in bf16", main)
+        bsz, dm, nm = feats.shape
+        chunk, n_chunks = gm.chunk_plan(bsz, nm, n_sp, dm)
+        rg = gm.chunk_ranges(spm, n_sp, chunk).long()
+        width = (rg[..., 1] - rg[..., 0] + 1).clamp(min=0).float()
+        moved = 2 * width.sum().item() * (dm + 1) * 8  # written once, read once
+        print(f"phase 3: superpixel moments [{tagm}] chunks of {chunk} pixels, {n_chunks} an "
+              f"image ({bsz * n_chunks} blocks): label range per chunk mean "
+              f"{width.mean().item():.1f}, max {int(width.max().item())}, "
+              f"{int((width > gm.WINDOW).sum().item())} chunks over the {gm.WINDOW}-label "
+              f"window; float64 partials {moved / 1e6:.1f} MB written and read against "
+              f"{feats.numel() * size(dt) / 1e6:.1f} MB of features (buffer "
+              f"{bsz * n_chunks * n_sp * (dm + 1) * 8 / 1e6:.1f} MB)", flush=True)
 
     for cfg_m, rgb_m, where in ((cfg3, rgb8, tag3), (cfg4, rgb4, tag4p)):
         for dt in (torch.bfloat16, torch.float32):
@@ -880,28 +965,32 @@ def main() -> None:
             bsz, dm, nm = feats.shape
             main = (feats.numel() * size(dt) + spm.numel() * 4 + bsz * n_sp * (dm + 1) * 4,
                     bsz * nm * (dm + 1)) if cfg_m is cfg3 and dt == torch.bfloat16 else None
-            tagm = f"{where} {dname} graph features {tuple(feats.shape)}, S={n_sp}"
-            compare_moments("superpixel_moments_fused_t",
-                            lambda: gm.superpixel_moments_fused_t(spm, feats, n_sp, dtype=dt),
-                            lambda: gm.superpixel_moments_plain(spm, feats, n_sp, True), dt,
-                            f"{tagm}, channel-major in {dname} (the graph stage's call)", main)
-            for name in ("superpixel_moments_fused", "superpixel_moments_fused_nhwc"):
-                fn = getattr(gm, name)
-                compare_moments(name, lambda: fn(spm, rows_m, n_sp),
-                                lambda: gm.superpixel_moments_plain(
-                                    spm, rows_m.to(torch.bfloat16), n_sp),
-                                torch.bfloat16, f"{tagm}, row-major in bf16", main)
+            tagm = f"{where} {dname} graph features {tuple(feats.shape)}"
+            moments_cases(spm, feats, rows_m, n_sp, dt, f"{tagm}, S={n_sp}", main)
             if main:  # one index_add_ of the same values as float32 rows
                 flat = (spm.long() + n_sp * torch.arange(bsz, device=dev)[:, None]).reshape(-1)
                 src = rows_m.float().reshape(-1, dm)
-                lib = cuda_ms(lambda: torch.zeros((bsz * n_sp, dm), device=dev)
-                              .index_add_(0, flat, src))
+                lib, lib_single = timed(lambda: torch.zeros((bsz * n_sp, dm), device=dev)
+                                        .index_add_(0, flat, src))
                 for name in ("superpixel_moments_fused", "superpixel_moments_fused_t",
                              "superpixel_moments_fused_nhwc"):
                     record[name]["library_ms"] = lib
                 print(f"phase 3: superpixel moments [{tagm}] library call, one float32 "
-                      f"index_add_ of the sums: {lib:.3f} ms ({card})", flush=True)
+                      f"index_add_ of the sums: {lib:.4f} ms (single launch "
+                      f"{lib_single:.4f}; {timing_note(lib_single)}) ({card})", flush=True)
                 del flat, src
+            if cfg_m is cfg3:
+                s_big = 8192
+                gy = np.arange(h3)[:, None] * 64 // h3
+                gx = np.arange(w3)[None, :] * 128 // w3
+                raster = np.broadcast_to((gy * 128 + gx).reshape(1, -1), (bsz, nm))
+                uniform = rng.integers(-1, s_big + 1, (bsz, nm))
+                for lab_np, kind in ((raster, "raster 64x128 block map"),
+                                     (uniform, "uniform random labels in [-1, S]")):
+                    lab_big = torch.from_numpy(lab_np.astype(np.int32)).to(dev)
+                    moments_cases(lab_big, feats, rows_m, s_big, dt,
+                                  f"{tagm}, S={s_big}, {kind}", None)
+                del lab_big
             del feats, spm, rows_m
     torch.cuda.empty_cache()
     lab5 = pl._color_transform(torch.from_numpy(rgb8).to(dev), "lab")
@@ -1130,7 +1219,7 @@ def main() -> None:
 
         def agreement(keep=()):
             with plain_kernels(keep):
-                ref, _ = pl.segment_batch(rgb, cfg, device="cuda")
+                ref, _ = pl.segment_batch(rgb, cfg, with_features=False, device="cuda")
             ref = ref.cpu().numpy()
             return [aligned_agreement(out[i].numpy(), ref[i]) for i in range(len(ref))]
 
@@ -1162,11 +1251,11 @@ def main() -> None:
                             (cfg3.replace(dtype="bfloat16"), rgb8, "config3 batch 8 bf16"),
                             (cfg3, rgb8, "config3 batch 8 f32"),
                             (cfg4.replace(dtype="bfloat16"), rgb4, "config4 batch 8 bf16")):
-        pl.segment_batch(rgb, cfg, device="cuda")
+        pl.segment_batch(rgb, cfg, with_features=False, device="cuda")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            pl.segment_batch(rgb, cfg, device="cuda")[0].cpu()
+            pl.segment_batch(rgb, cfg, with_features=False, device="cuda")[0].cpu()
             wall = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages()
         device_ms = sum(ev.self_device_time_total for ev in events  # kernels only

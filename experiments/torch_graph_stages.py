@@ -161,8 +161,8 @@ def plain_card_vs_cpu(dtype: str, dev: torch.device) -> None:
         cfg = base.replace(graph=dataclasses.replace(base.graph, n_superpixels=48,
                                                      eig_method=eig))
         with swapped(PLAIN_K1 + PLAIN_GRAPH + [((sf, "_SLIC_FUSE_BYTES"), 0)]):
-            card, _ = pl.segment_batch(rgb, cfg, device=dev)
-            cpu, _ = pl.segment_batch(rgb, cfg, device="cpu")
+            card, _ = pl.segment_batch(rgb, cfg, with_features=False, device=dev)
+            cpu, _ = pl.segment_batch(rgb, cfg, with_features=False, device="cpu")
             if eig == "eigh":
                 feats, sp, n_sp = pl._graph_front(torch.from_numpy(rgb).to(dev), cfg,
                                                   make_bank(cfg.bank))

@@ -56,7 +56,7 @@ _SIGNATURES = {
     "gcis_precision_chol": [_P] * 3 + [_I] * 2 + [_P],
     "gcis_precision_chol_params": [_P] * 6 + [_I] * 2 + [_F] * 2 + [_P],
     "gcis_lloyd_rows": [_P] * 5 + [_I] * 5 + [_P],
-    "gcis_superpixel_moments": [_P] * 4 + [_I] * 7 + [_P],
+    "gcis_superpixel_moments": [_P] * 6 + [_I] * 9 + [_P],
 }
 
 

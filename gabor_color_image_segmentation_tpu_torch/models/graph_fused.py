@@ -20,9 +20,16 @@ contracts, each with its own launch counter:
 
 Like the reference wrappers they round the features to bfloat16 first
 (K17 unless given another ``dtype``). Labels outside [0, S) add to no
-bucket. Sums are taken in float64 and rounded once to float32, in the
-kernel and in ``superpixel_moments_plain`` alike, so the two agree bit for
-bit in bfloat16 and in all but a vanishing share of values in float32.
+bucket, and S may be any size >= 1. Sums are taken in float64 and rounded
+once to float32, in the kernel and in ``superpixel_moments_plain`` alike,
+so the two agree bit for bit in bfloat16 and within one float32 ulp in
+float32; two launches on the same input give the same bits.
+
+The kernel splits each image's pixels into chunks of ``chunk_plan``'s
+size, one block per (chunk, group of 40 channels, image); each block
+writes float64 partials for the label range [lo, hi] its chunk holds, and
+a second launch adds them in chunk order (csrc/superpixel_moments.cu).
+``chunk_ranges`` is the plain version of those ranges.
 """
 
 from __future__ import annotations
@@ -31,7 +38,43 @@ import torch
 
 from gabor_color_image_segmentation_tpu_torch import _kernels
 
-S_MAX = 3632  # superpixels the kernel holds: 8 float64 columns of S in 227 KB
+# pixels per block: 151 chunks an image at config3, 1,208 blocks at batch 8
+# (experiments/torch_moments_chunks.py: of 768 to 4,096, the fastest at
+# config3 and within 6 % of the fastest at config4)
+CHUNK = 1024
+TILE = 256  # pixels the kernel stages at a time; a chunk is a whole number of tiles
+WINDOW = 128  # labels a block accumulates at a time; wider chunk ranges take more walks
+PARTIAL_BYTES = 512 << 20  # the float64 partials' buffer at most, but for one chunk an image
+
+
+def chunk_plan(b: int, n: int, n_sp: int, d: int) -> tuple:
+    """(pixels per chunk, chunks per image) of the kernel for B images of N
+    pixels, S superpixels and D channels: chunks of ``CHUNK`` pixels, fewer
+    and larger where the (B, n_chunks, S, D + 1) float64 partials would
+    pass ``PARTIAL_BYTES``."""
+    most = max(1, PARTIAL_BYTES // (b * n_sp * (d + 1) * 8))
+    chunk = _ceil_div(_ceil_div(n, min(_ceil_div(n, CHUNK), most)), TILE) * TILE
+    return chunk, _ceil_div(n, chunk)
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def chunk_ranges(idx: torch.Tensor, n_sp: int, chunk: int) -> torch.Tensor:
+    """Plain version of the kernel's chunk ranges: (B, n_chunks, 2) int32,
+    the least and greatest label in [0, S) of each chunk of ``chunk``
+    pixels, (2^31 - 1, -1) for a chunk without one."""
+    b, n = idx.shape
+    n_chunks = _ceil_div(n, chunk)
+    lab = torch.full((b, n_chunks * chunk), -1, dtype=torch.int64, device=idx.device)
+    lab[:, :n] = idx
+    lab = lab.reshape(b, n_chunks, chunk)
+    valid = (lab >= 0) & (lab < n_sp)
+    big = torch.iinfo(torch.int32).max
+    lo = torch.where(valid, lab, big).amin(dim=2)
+    hi = torch.where(valid, lab, -1).amax(dim=2)
+    return torch.stack([lo, hi], dim=2).to(torch.int32)
 
 
 def superpixel_moments_plain(idx: torch.Tensor, feats: torch.Tensor, n_sp: int,
@@ -67,13 +110,18 @@ def _moments(idx: torch.Tensor, feats: torch.Tensor, n_sp: int, channel_major: b
     _kernels.check(n_sp >= 1, f"n_sp must be >= 1, got {n_sp}")
     if _kernels.use_plain(idx, feats):
         return superpixel_moments_plain(idx, feats, n_sp, channel_major)
-    _kernels.check(n_sp <= S_MAX, f"the CUDA kernel takes n_sp <= {S_MAX}, got {n_sp}")
     idx, feats = idx.contiguous(), feats.contiguous()
-    sums = torch.empty((b, n_sp, d), dtype=torch.float32, device=feats.device)
-    counts = torch.empty((b, n_sp), dtype=torch.float32, device=feats.device)
+    dev = feats.device
+    sums = torch.empty((b, n_sp, d), dtype=torch.float32, device=dev)
+    counts = torch.empty((b, n_sp), dtype=torch.float32, device=dev)
+    chunk, n_chunks = chunk_plan(b, n, n_sp, d)
+    # only each chunk's [lo, hi] rows of the partials are written and read
+    part = torch.empty((b, n_chunks, n_sp, d + 1), dtype=torch.float64, device=dev)
+    ranges = torch.empty((b, n_chunks, 2), dtype=torch.int32, device=dev)
     ch_stride, px_stride = (n, 1) if channel_major else (1, d)
     _kernels.launch("gcis_superpixel_moments", feats.data_ptr(), idx.data_ptr(),
-                    sums.data_ptr(), counts.data_ptr(), b, d, n, n_sp, ch_stride, px_stride,
+                    sums.data_ptr(), counts.data_ptr(), part.data_ptr(), ranges.data_ptr(),
+                    b, d, n, n_sp, chunk, n_chunks, ch_stride, px_stride,
                     _kernels.storage_code(feats.dtype))
     wrapper.launches += 1
     return sums, counts

@@ -47,7 +47,8 @@ graph (config3, config4; ``segment_batch`` for the n-cut,
   6. with pooling, each label repeated 2^pool times along both axes.
 
 Configurations outside these slices raise NotImplementedError naming the
-ROADMAP queue-1 item that will bring them.
+ROADMAP queue-1 item that will bring them, before any work; on the card,
+so does a bank whose radii pass K1's tiles (queue 3 fault 2).
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ from gabor_color_image_segmentation_tpu_torch.models.graph import (
     resolve_eig_method,
 )
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import (
+    K_MAX,
     _affine_params,
     build_color4,
     kmeans_fused_chw,
@@ -84,7 +86,11 @@ from gabor_color_image_segmentation_tpu_torch.ops.features import (
     _pool2x2_cm,
     assemble_xp_from_affine,
 )
-from gabor_color_image_segmentation_tpu_torch.ops.fused import gabor_energies_fused
+from gabor_color_image_segmentation_tpu_torch.ops.fused import (
+    K1_CONV_RADIUS,
+    K1_SMOOTH_RADIUS,
+    gabor_energies_fused,
+)
 from gabor_color_image_segmentation_tpu_torch.ops.lookup import table_lookup
 from gabor_color_image_segmentation_tpu_torch.ops.precision import (
     set_policy,
@@ -96,13 +102,17 @@ from gabor_color_image_segmentation_tpu_torch.ops.tiled import (
 )
 
 
-def _check_supported(cfg: PipelineConfig, with_features: bool, hw: Tuple[int, int]) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for what the port
-    does not run yet; ``hw`` is the frame's (H, W)."""
+def _check_supported(cfg: PipelineConfig, with_features: bool, hw: Tuple[int, int],
+                     device: torch.device) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item or fault, for what
+    the port does not run yet; ``hw`` is the frame's (H, W), ``device``
+    where it would run. Allocates nothing."""
     c, g = cfg.cluster, cfg.graph
     tile = cfg.tile_hw
     nhwc = "queue 1 item 14 (the NHWC / with-features path)"
     features = "queue 1 item 13 (the rest of the feature stage)"
+    k1_tiles = (f"queue 3 fault 2 (K1's CUDA tiles take a conv radius <= {K1_CONV_RADIUS} "
+                f"and a smoothing radius <= {K1_SMOOTH_RADIUS}; the CPU runs it)")
     # the graph stage replaces the pixel clustering, so the solver's own
     # options do not apply to it
     solver = not g.enabled
@@ -111,6 +121,8 @@ def _check_supported(cfg: PipelineConfig, with_features: bool, hw: Tuple[int, in
         (g.enabled and c.cue_weight != "static",
          f"the graph stage with cue_weight={c.cue_weight!r}", nhwc),
         (solver and c.method not in ("kmeans", "gmm"), f"method={c.method!r}", nhwc),
+        # the reference sends k > 8 to its NHWC solver (fused_solver_eligible)
+        (solver and c.k > K_MAX, f"the pixel clustering with k={c.k} > {K_MAX}", nhwc),
         # a frame larger than the tile leaves the reference's transposed
         # clustering path for its NHWC one
         (solver and tile is not None and (hw[0] > tile[0] or hw[1] > tile[1]),
@@ -123,6 +135,10 @@ def _check_supported(cfg: PipelineConfig, with_features: bool, hw: Tuple[int, in
          f"init_stride={c.init_stride}", nhwc),
         (cfg.feature_impl not in ("auto", "pallas"),
          f"feature_impl={cfg.feature_impl!r}", features),
+        (device.type == "cuda" and (cfg.bank.max_conv_radius > K1_CONV_RADIUS
+                                    or cfg.bank.max_smooth_radius > K1_SMOOTH_RADIUS),
+         f"a bank with conv radius {cfg.bank.max_conv_radius} and smoothing radius "
+         f"{cfg.bank.max_smooth_radius} on the card", k1_tiles),
     ]
     for bad, what, item in unsupported:
         if bad:
@@ -329,17 +345,18 @@ def _resolve_device(device) -> torch.device:
 
 def segment_batch(
     rgb: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig, bank=None,
-    with_features: bool = False, device=None,
+    with_features: bool = True, device=None,
 ) -> Tuple[torch.Tensor, None]:
     """(B, H, W, 3) uint8 (or [0, 1] float) sRGB -> ((B, H, W) int32 labels,
     None). ``rgb`` is a numpy array or a tensor on any device; it is moved
     to ``device`` and the labels come back there. ``device`` None means the
     card, and raises RuntimeError when there is none: pass ``device="cpu"``
     for the CPU. ``bank``: the port's or the JAX package's GaborBank for
-    cfg.bank (built when None). Only the labels-only paths are ported
-    (with_features=False)."""
-    _check_supported(cfg, with_features, tuple(rgb.shape[1:3]))
+    cfg.bank (built when None). Only the labels-only paths are ported: pass
+    ``with_features=False``. The default, True as in the reference, raises
+    NotImplementedError naming ROADMAP queue 1 item 14."""
     dev = _resolve_device(device)
+    _check_supported(cfg, with_features, tuple(rgb.shape[1:3]), dev)
     set_policy()
     if bank is None:
         bank = make_bank(cfg.bank)
@@ -357,8 +374,8 @@ def segment_images(rgb: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig, ba
     if not (g.enabled and g.cut == "mincut"):
         labels, _ = segment_batch(rgb, cfg, bank, False, device)
         return labels
-    _check_supported(cfg, False, tuple(rgb.shape[1:3]))
     dev = _resolve_device(device)
+    _check_supported(cfg, False, tuple(rgb.shape[1:3]), dev)
     set_policy()
     if bank is None:
         bank = make_bank(cfg.bank)

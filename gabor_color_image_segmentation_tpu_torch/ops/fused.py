@@ -26,7 +26,7 @@ import torch
 from gabor_color_image_segmentation_tpu_torch import _kernels
 from gabor_color_image_segmentation_tpu_torch.ops.bank import GroupTensors
 
-_PMAX, _RMAX = 15, 24  # conv and smoothing radii the CUDA tiles are sized for
+K1_CONV_RADIUS, K1_SMOOTH_RADIUS = 15, 24  # radii the CUDA tiles are sized for
 
 
 def _reflect_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
@@ -136,9 +136,9 @@ def gabor_energies_fused(
     b, h, w, c = img.shape
     for g in groups:
         _kernels.check(
-            g.p <= _PMAX and g.r <= _RMAX,
-            f"the CUDA tiles take conv radius <= {_PMAX} and smoothing "
-            f"radius <= {_RMAX}, got {g.p} and {g.r}",
+            g.p <= K1_CONV_RADIUS and g.r <= K1_SMOOTH_RADIUS,
+            f"the CUDA tiles take conv radius <= {K1_CONV_RADIUS} and smoothing "
+            f"radius <= {K1_SMOOTH_RADIUS}, got {g.p} and {g.r}",
         )
     x = _centered(img)
     e = sum(g.n * c for g in groups)

@@ -314,6 +314,20 @@ def test_lookup_kernel(device, shape):
     assert torch.equal(got, lookup.table_lookup_plain(idx, table))
 
 
+@pytest.mark.parametrize("n", [150001, 40000 * 3 + 1])
+def test_lookup_kernel_large_table(device, n):
+    """K15 past its old 12,288-entry cap: S = 50,000, uniform random
+    indices, N odd so that rows 1.. of idx start off a 16-byte boundary."""
+    b, s = 3, 50000
+    rng = np.random.default_rng(n)
+    idx = torch.from_numpy(rng.integers(0, s, (b, n)).astype(np.int32)).to(device)
+    table = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (b, s)).astype(np.int32)).to(device)
+    assert idx[1].data_ptr() % 16 != 0
+    got = lookup.table_lookup(idx, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lookup.table_lookup_plain(idx, table))
+
+
 def _within_one_ulp(got, ref):
     """float32 values equal up to one unit in the last place of ``ref``."""
     ulp = torch.nextafter(ref.abs(), torch.full_like(ref, float("inf"))) - ref.abs()
@@ -348,6 +362,40 @@ def test_superpixel_moments_kernel(device, name, shape):
         sums, counts = fn(idx, f, n_sp, **kw)
         rs, rc = gm.superpixel_moments_plain(idx, f.to(dt), n_sp, channel_major)
         torch.cuda.synchronize()
+        assert torch.equal(counts, rc)
+        assert torch.equal(sums, rs) if dt == torch.bfloat16 else _within_one_ulp(sums, rs)
+
+
+@pytest.mark.parametrize("name", sorted(MOMENTS))
+@pytest.mark.parametrize("n_sp", [4096, 16384])
+@pytest.mark.parametrize("labels", ["raster", "random"])
+def test_superpixel_moments_kernel_large_s(device, name, n_sp, labels):
+    """K16-K18 past the old 3,632 cap on 2 x 39 x 40,000 (200 x 200):
+    "raster" numbers square blocks in raster order (a chunk of rows holds
+    a narrow label range, wider than one window at these S), "random" draws
+    each pixel's label uniformly from [-1, S] (every chunk's range is the
+    whole of S, and -1 and S add to no bucket). bf16 every value equal,
+    f32 (K17) within one ulp, counts equal, two launches bit-equal."""
+    fn, channel_major = MOMENTS[name]
+    b, h, w, d = 2, 200, 200, 39
+    rng = np.random.default_rng(n_sp + len(labels))
+    if labels == "raster":
+        g = int(round(n_sp ** 0.5))
+        lab = (np.arange(h)[:, None] * g // h) * g + np.arange(w)[None, :] * g // w
+        lab = np.broadcast_to(lab.reshape(1, -1), (b, h * w))
+    else:
+        lab = rng.integers(-1, n_sp + 1, (b, h * w))
+    idx = torch.from_numpy(lab.astype(np.int32)).to(device)
+    f = torch.from_numpy(rng.normal(size=(b, h * w, d)).astype(np.float32)).to(device)
+    if channel_major:
+        f = f.transpose(1, 2).contiguous()
+    for dt in ([torch.bfloat16, torch.float32] if channel_major else [torch.bfloat16]):
+        kw = {"dtype": dt} if channel_major else {}
+        sums, counts = fn(idx, f, n_sp, **kw)
+        again = fn(idx, f, n_sp, **kw)
+        rs, rc = gm.superpixel_moments_plain(idx, f.to(dt), n_sp, channel_major)
+        torch.cuda.synchronize()
+        assert torch.equal(sums, again[0]) and torch.equal(counts, again[1])
         assert torch.equal(counts, rc)
         assert torch.equal(sums, rs) if dt == torch.bfloat16 else _within_one_ulp(sums, rs)
 
@@ -434,7 +482,7 @@ def test_pipeline_kernels_match_plain_path(device, name, monkeypatch):
                           graph=dataclasses.replace(cfg.graph, n_superpixels=48))
         monkeypatch.setattr(sf, "_SLIC_FUSE_BYTES", 0)
         assert sf.slic_route(48, 64, 48) == "banded"
-    gpu, _ = segment_batch(rgb, cfg)
+    gpu, _ = segment_batch(rgb, cfg, with_features=False)
     assert gpu.device.type == "cuda"
     if name == "config4":
         # the cut is not determined on image 1 (14 live superpixels, all
@@ -445,9 +493,9 @@ def test_pipeline_kernels_match_plain_path(device, name, monkeypatch):
                             ("enforce_connectivity_fused", sl.enforce_connectivity_plain),
                             ("table_lookup", lookup.table_lookup_plain)):
             monkeypatch.setattr(pipeline, attr, plain)
-        ref, _ = segment_batch(rgb, cfg)
+        ref, _ = segment_batch(rgb, cfg, with_features=False)
     else:
-        ref, _ = segment_batch(rgb, cfg, device="cpu")
+        ref, _ = segment_batch(rgb, cfg, with_features=False, device="cpu")
     gpu, ref = gpu.cpu().numpy(), ref.cpu().numpy()
     for i in range(2):
         assert (align_labels(gpu[i], ref[i]) == ref[i]).mean() >= 0.999

@@ -118,3 +118,66 @@ def test_layouts_agree_and_inputs_are_checked():
         gm.superpixel_moments_fused(ti.long(), x, 30)
     with pytest.raises(ValueError, match="feats must be"):
         gm.superpixel_moments_fused_t(ti, x, 30)
+
+
+@pytest.mark.parametrize("geometry", [(8, 154401, 39, 925), (8, 518400, 39, 405),
+                                      (8, 154401, 39, 8192), (2, 40000, 39, 16384),
+                                      (1, 7, 1, 1), (64, 154401, 39, 100000)])
+def test_chunk_plan(geometry):
+    """The kernel's chunks: whole tiles, covering N with no empty chunk;
+    config3 (the first geometry) at >= 4 blocks per SM of an H100 (528);
+    the float64 partials within PARTIAL_BYTES unless one chunk an image."""
+    b, n, d, s = geometry
+    chunk, n_chunks = gm.chunk_plan(b, n, s, d)
+    assert chunk % gm.TILE == 0 and (n_chunks - 1) * chunk < n <= n_chunks * chunk
+    assert n_chunks == 1 or b * n_chunks * s * (d + 1) * 8 <= gm.PARTIAL_BYTES
+    if geometry == (8, 154401, 39, 925):
+        assert chunk == gm.CHUNK and b * n_chunks >= 528
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_ranges_hold_every_label(dtype):
+    """The kernel's two passes in plain torch: float64 sums per chunk, then
+    the sums of the chunks whose [lo, hi] holds each label added in chunk
+    order. No label falls outside its chunk's range, so the result is the
+    plain version's: bit for bit in bfloat16, within one ulp in float32."""
+    b, n, d, s = 2, 6000, 39, 925
+    idx, feats = _inputs(b, n, d, s, seed=13)
+    ti, x = torch.from_numpy(idx), torch.from_numpy(feats).to(dtype)
+    chunk = 512
+    ranges = gm.chunk_ranges(ti, s, chunk)
+    assert tuple(ranges.shape) == (b, -(-n // chunk), 2)
+    sums = torch.zeros((b, s, d), dtype=torch.float64)
+    counts = torch.zeros((b, s), dtype=torch.float64)
+    for k in range(ranges.shape[1]):
+        lab = ti[:, k * chunk:(k + 1) * chunk].long()
+        xk = x[:, k * chunk:(k + 1) * chunk].double()
+        for i in range(b):
+            lo, hi = ranges[i, k].tolist()
+            keep = (lab[i] >= 0) & (lab[i] < s)
+            valid = lab[i][keep]
+            assert (lo, hi) == ((int(valid.min()), int(valid.max())) if valid.numel()
+                                else (2**31 - 1, -1))
+            # the chunk's float64 partials, kept only for [lo, hi]
+            part = torch.zeros((s, d), dtype=torch.float64).index_add_(0, valid, xk[i][keep])
+            cnt = torch.bincount(valid, minlength=s).double()
+            held = torch.zeros(s, dtype=torch.bool)
+            held[max(lo, 0):hi + 1] = True
+            assert not bool(cnt[~held].any())
+            sums[i, held] += part[held]
+            counts[i, held] += cnt[held]
+    ref_s, ref_c = gm.superpixel_moments_plain(ti, x, s)
+    assert torch.equal(counts.float(), ref_c)
+    got = sums.float()
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, ref_s)
+    else:
+        ulp = torch.nextafter(ref_s.abs(), torch.full_like(ref_s, float("inf"))) - ref_s.abs()
+        assert bool(((got - ref_s).abs() <= ulp).all())
+
+
+def test_chunk_ranges_of_an_empty_chunk():
+    idx = torch.tensor([[-1, 5, 7, 9, 3, 3]], dtype=torch.int32)
+    assert gm.chunk_ranges(idx, 8, 2).tolist() == [[[5, 5], [7, 7], [3, 3]]]
+    assert gm.chunk_ranges(torch.full((1, 4), -1, dtype=torch.int32), 8, 4).tolist() == [
+        [[2**31 - 1, -1]]]

@@ -84,15 +84,16 @@ def test_bank_forms_and_entry_points_agree(batch):
     fits in changes nothing (the reference's transposed path ignores it)."""
     cfg = preset(PRESET).replace(batch_size=2)
     x = torch.from_numpy(batch)
-    own, _ = segment_batch(x, cfg, device="cpu")
-    jb, _ = segment_batch(x, cfg, jax_make_bank(cfg.bank), device="cpu")
+    labels_only = {"with_features": False, "device": "cpu"}
+    own, _ = segment_batch(x, cfg, **labels_only)
+    jb, _ = segment_batch(x, cfg, jax_make_bank(cfg.bank), **labels_only)
     assert torch.equal(own, jb)
     assert torch.equal(segment_images(x, cfg, make_bank(cfg.bank), device="cpu"), own)
-    as_float, _ = segment_batch(x.to(torch.float32) / 255.0, cfg, device="cpu")
+    as_float, _ = segment_batch(x.to(torch.float32) / 255.0, cfg, **labels_only)
     assert torch.equal(as_float, own)
-    from_numpy, _ = segment_batch(batch, cfg, device="cpu")
+    from_numpy, _ = segment_batch(batch, cfg, **labels_only)
     assert torch.equal(from_numpy, own)
-    fits, _ = segment_batch(x, cfg.replace(tile_hw=(64, 96)), device="cpu")
+    fits, _ = segment_batch(x, cfg.replace(tile_hw=(64, 96)), **labels_only)
     assert torch.equal(fits, own)
 
 
@@ -110,7 +111,7 @@ def test_entry_points_default_to_the_card(batch):
 def test_constant_image_gives_valid_labels():
     cfg = preset(PRESET).replace(batch_size=1)
     labels, _ = segment_batch(torch.full((1, 32, 40, 3), 128, dtype=torch.uint8), cfg,
-                              device="cpu")
+                              with_features=False, device="cpu")
     assert labels.min() >= 0 and labels.max() < cfg.cluster.k
 
 

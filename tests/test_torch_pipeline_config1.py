@@ -57,7 +57,7 @@ def test_slice_matches_jax(batch, reference, dtype):
     if dtype == "bfloat16":
         stable = _agreement(ref, reference("float32"))
         assert min(stable) >= FLOOR[dtype], f"borderline test image: {stable}"
-    labels, _ = segment_batch(torch.from_numpy(batch), cfg, device="cpu")
+    labels, _ = segment_batch(torch.from_numpy(batch), cfg, with_features=False, device="cpu")
     assert labels.dtype == torch.int32 and tuple(labels.shape) == batch.shape[:3]
     agree = _agreement(labels.numpy(), ref)
     assert min(agree) >= FLOOR[dtype], agree
@@ -78,13 +78,13 @@ def test_multigrid_path_runs_coarse_and_mid_stages(batch, monkeypatch):
 
         monkeypatch.setattr(mod, name, spy)
     x = torch.from_numpy(batch)
-    segment_batch(x, preset(PRESET).replace(batch_size=2), device="cpu")
+    segment_batch(x, preset(PRESET).replace(batch_size=2), with_features=False, device="cpu")
     assert calls.count("kmeans_coarse_centers_xp_plain") == 1
     assert "maximin_chw_pass_plain" not in calls
     c = preset(PRESET).cluster
     # mid passes (<= mid_iters) + at most refine_iters + the assign-only pass
     assert 2 <= calls.count("lloyd_chw_pass_plain") <= c.mid_iters + c.refine_iters + 1
     calls.clear()
-    segment_batch(x, preset("config0").replace(batch_size=2), device="cpu")
+    segment_batch(x, preset("config0").replace(batch_size=2), with_features=False, device="cpu")
     assert calls.count("maximin_chw_pass_plain") == preset("config0").cluster.k
     assert "kmeans_coarse_centers_xp_plain" not in calls

@@ -87,7 +87,8 @@ def test_gmm_path_runs_every_stage(batch, monkeypatch):
             return _real(x, *args)
 
         monkeypatch.setattr(mod, name, spy)
-    segment_batch(batch, preset("config2").replace(batch_size=2), device="cpu")
+    segment_batch(batch, preset("config2").replace(batch_size=2), with_features=False,
+                  device="cpu")
     m, n = 80 * 112, 160 * 224
     assert calls.count(("maximin_t_pass_plain", m, True)) == 5
     assert calls.count(("lloyd_t_pass_plain", m, True)) == 11

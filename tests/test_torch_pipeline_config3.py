@@ -117,7 +117,7 @@ def test_graph_path_runs_every_stage(batch, monkeypatch):
             return _real(*args, **kw)
 
         monkeypatch.setattr(mod, name, spy)
-    segment_batch(batch, _pinned(preset("config3"), "bfloat16"), device="cpu")
+    segment_batch(batch, _pinned(preset("config3"), "bfloat16"), with_features=False, device="cpu")
     assert calls == ["gabor_energies_fused", "slic_plain", "enforce_connectivity_plain",
                      "table_lookup_plain"]
     calls.clear()
@@ -125,7 +125,7 @@ def test_graph_path_runs_every_stage(batch, monkeypatch):
     segment_images(batch, cfg, device="cpu")
     assert calls == ["gabor_energies_fused", "slic_plain", "enforce_connectivity_plain"]
     with pytest.raises(ValueError, match="segment_images"):
-        segment_batch(batch, cfg, device="cpu")
+        segment_batch(batch, cfg, with_features=False, device="cpu")
 
 
 def test_production_preset_matches_jax():
@@ -137,7 +137,7 @@ def test_production_preset_matches_jax():
     jcfg = jax_preset("config3").replace(batch_size=2)
     ref = np.asarray(jax_segment_batch(rgb, jcfg, jax_make_bank(jcfg.bank), False)[0])
     cfg = preset("config3").replace(batch_size=2)
-    got = segment_batch(rgb, cfg, device="cpu")[0].numpy()
+    got = segment_batch(rgb, cfg, with_features=False, device="cpu")[0].numpy()
     assert got.min() >= 0 and got.max() < cfg.graph.n_regions
     agree = _agreement(got, ref)
     assert min(agree) >= FLOOR["float32"], agree

@@ -130,7 +130,7 @@ def test_pooled_path_runs_every_stage(batch, monkeypatch):
     monkeypatch.setattr(slic_fused, "_SLIC_FUSE_BYTES", 0)
     cfg = _pinned(preset("config4"), "bfloat16", slic_iters=4)
     assert slic_fused.slic_route(24, 32, 24) == "banded"
-    segment_batch(batch, cfg, device="cpu")
+    segment_batch(batch, cfg, with_features=False, device="cpu")
     assert calls == (["gabor_energies_fused"] * 4 + ["slic_band_pass_plain"] * 5
                      + ["enforce_connectivity_plain", "table_lookup_plain"])
 
@@ -142,4 +142,4 @@ def test_pool_needs_divisible_frame(batch):
     with pytest.raises(ValueError, match="divisible by 4"):
         jax_segment_batch(odd, jcfg, jax_make_bank(jcfg.bank), False)
     with pytest.raises(ValueError, match="divisible by 4"):
-        segment_batch(odd, cfg, device="cpu")
+        segment_batch(odd, cfg, with_features=False, device="cpu")
