@@ -20,13 +20,20 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    (no twin), K5, K6, K8 (the fit grid and full resolution, with moments
    and labels only), K9 and K10 (on the first EM pass's moments and on
    well-conditioned ones) at config2 (batch 8, f32 and bf16);
-   K11 (SLIC), K14 (connectivity, on K11's output and on a fragmented
-   random map) and K15 (table lookup, with ``torch.gather`` as the library
-   call; and with a table of 50,000 entries) at config3 (batch 8); K13
+   K1 at config3 (bf16, no twin) and at any radius: config0's bank widened
+   to conv radius 16 and to smoothing radius 25, and a bank of radii 32
+   and 50 (batch 2, both dtypes), each K1 line with its achieved TFLOP/s
+   beside its bound; K11 (SLIC), K14 (connectivity, on K11's output, on a
+   fragmented random map, on the spiral maze with its kept block in a
+   corner and on a map with no surviving component, each with the union-
+   find rounds, adoption steps, largest adoption distance and absorbed
+   share the pass meets) and K15 (table lookup, with ``torch.gather`` as
+   the library call; and with a table of 50,000 entries) at config3
+   (batch 8); K13
    (the banded SLIC loop) at config4's pooled grid (batch 8 of 540x960,
    S = 405), with K11 there, one K13 pass by column-piece width and one
    update as readings, and K14 and K15 on K13's output there (config4's
-   min_size, a (8, 405) table); K12 (the one-launch w5 SLIC) at 8x321x481
+   min_size, a (8, 405) table, K14 also on the spiral maze); K12 (the one-launch w5 SLIC) at 8x321x481
    with 400 superpixels, with K11 and K13 there as readings; K16-K18
    (superpixel sums and counts, with one ``index_add_`` as the library
    call) on the graph stage's own features and connected superpixels at
@@ -35,7 +42,9 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    in [-1, S]), bf16 and f32, each launched twice, with the kernel's chunk
    ranges; tiled K1 at config4 (batch 8 of 2160x3840, pool 2) against
    untiled K1 plus pooling (a reading of the tiling's cost) and against
-   the plain tiled path on batch 1;
+   the plain tiled path on batch 1; the modulated route's energies (plain
+   torch, the reference's graph route in float32) at config3 and config4
+   f32 beside K1's route in bf16, as readings;
 4. ``segment_batch(uint8 -> int32 labels, with_features=False)`` end to end
    at config1 batch 16 bf16, config0 batch 1 f32, config2 batch 8 bf16
    and f32 (with ``gmm_fused._FUSED_PREP`` off, the default, and on),
@@ -45,9 +54,11 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    each path runs with the launch counts set to 0 just before it and read
    just after, and every kernel of the path must have launched (config4:
    K13's passes and its updates, and not K11; config2 with the switch on:
-   K10 and not K9); agreement with the all-plain path on the card (for the
-   graph stage, with both paths handed K1's energies, see GRAPH_NOTE; for
-   config2 with the switch on, with the switch off);
+   K10 and not K9; the graph stage in bf16 K1 and not the modulated route,
+   in f32 the modulated route and not K1); agreement with the all-plain
+   path on the card (for the graph stage, with both paths handed the same
+   energies, see GRAPH_NOTE; for config2 with the switch on, with the
+   switch off);
    the Rand index against the mosaics' ground truth (a reading, not a
    gate); the eight 4K mosaics (bench seeds 100-107) are made on the host
    in worker processes while the kernels build, outside any timed window;
@@ -94,6 +105,7 @@ two), both computed from this run's shapes.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -129,7 +141,7 @@ CHOL_DIAG_TOL = 1e-6
 # config4 the cut is not determined at all (connectivity keeps a few of its
 # 405 superpixels, the affinity median is 0 and L_sym's null space is larger
 # than the 5 regions). K1 is held at config3's and config4's shapes in phase
-# 3, and the gate hands both paths K1's energies.
+# 3, and the gate hands both paths the same energies.
 GRAPH_NOTE = ", a reading for the graph stage: the gate is the next line"
 
 
@@ -181,8 +193,11 @@ def main() -> None:
           flush=True)
 
     from gabor_color_image_segmentation_tpu_torch import _kernels
-    from gabor_color_image_segmentation_tpu_torch.config import preset
-    from gabor_color_image_segmentation_tpu_torch.data import synthetic_mosaic
+    from gabor_color_image_segmentation_tpu_torch.config import BankConfig, preset
+    from gabor_color_image_segmentation_tpu_torch.data import (
+        connectivity_maze,
+        synthetic_mosaic,
+    )
     from gabor_color_image_segmentation_tpu_torch.models import chol
     from gabor_color_image_segmentation_tpu_torch.models import connectivity as cn
     from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
@@ -196,7 +211,7 @@ def main() -> None:
     from gabor_color_image_segmentation_tpu_torch.models.gmm import gmm_fit_levels
     from gabor_color_image_segmentation_tpu_torch.ops import features as ft
     from gabor_color_image_segmentation_tpu_torch.config import GraphConfig
-    from gabor_color_image_segmentation_tpu_torch.ops import fused, lookup, tiled
+    from gabor_color_image_segmentation_tpu_torch.ops import fused, lookup, modulated, tiled
     from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
     from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy
 
@@ -303,6 +318,7 @@ def main() -> None:
             record[name].update(max_abs_err=float(abs_err), ms=ms, plain_ms=plain_ms,
                                 bound_ms=b_ms, bound_by=b_by, timing=timing_note(single),
                                 ms_single_launch=single)
+        return ms
 
     def chol_errors(covs, pt, diag):
         """Per matrix of a precision Cholesky: (backward error
@@ -333,9 +349,9 @@ def main() -> None:
         return torch.empty((), dtype=dt).element_size()
 
     # ---- phase 3: kernels against their plain versions ---------------------
-    def compare_features(cfg, rgb, dt, tag, main_shape, pooled=True):
+    def compare_features(cfg, rgb, dt, tag, main_shape, pooled=True, bank_cfg=None):
         color = pl._color_transform(torch.from_numpy(rgb).to(dev), "lab")
-        groups = bank_tensors(make_bank(cfg.bank), dev)
+        groups = bank_tensors(make_bank(bank_cfg or cfg.bank), dev)
         e, tw = fused.gabor_energies_fused(color, groups, dt, pooled=pooled)
         pe, pt = fused.gabor_energies_fused_plain(color, groups, dt, pooled=pooled)
         torch.cuda.synchronize()
@@ -353,11 +369,16 @@ def main() -> None:
                                        + 2 * (2 * g.r + 1) * h * w) for g in groups)
         nbytes = color.numel() * 4 + e.numel() * size(dt) + (tw.numel() * size(dt)
                                                             if pooled else 0)
-        report("gabor_energies_fused", tag, abs_err, rel, f"{tol}*peak={tol * peak:.4g}",
-               rel <= tol,
-               lambda: fused.gabor_energies_fused(color, groups, dt, pooled=pooled),
-               lambda: fused.gabor_energies_fused_plain(color, groups, dt, pooled=pooled),
-               (nbytes, flops) if main_shape else None)
+        ms = report("gabor_energies_fused", tag, abs_err, rel, f"{tol}*peak={tol * peak:.4g}",
+                    rel <= tol,
+                    lambda: fused.gabor_energies_fused(color, groups, dt, pooled=pooled),
+                    lambda: fused.gabor_energies_fused_plain(color, groups, dt, pooled=pooled),
+                    (nbytes, flops) if main_shape else None)
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"phase 3: gabor_energies_fused [{tag}] radii (conv, smoothing) "
+              f"{[(g.p, g.r) for g in groups]}: {flops / ms / 1e9:.2f} TFLOP/s achieved "
+              f"({flops / 1e9:.1f} GFLOP), bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / ms:.1f} % of it ({card})", flush=True)
         del pe, pt
         return color, e, tw
 
@@ -748,6 +769,21 @@ def main() -> None:
     cfg3 = preset("config3")  # batch 8
     g3 = cfg3.graph
     tag3 = "config3 8x321x481"
+    # K1 at config3 (the graph stage's bf16 call, no twin; f32 batches take
+    # the modulated route there), and at any radius: config0's bank widened
+    # past the radii K1's tiles were once sized for (conv 16, smoothing 25)
+    # and a bank at twice them or more (conv 32, smoothing 50), batch 2
+    compare_features(cfg3, rgb8, torch.bfloat16, f"{tag3} bf16 no twin", False, pooled=False)
+    wide_banks = (("conv radius 16", dataclasses.replace(cfg0.bank, max_ksize=33)),
+                  ("smoothing radius 25", dataclasses.replace(cfg0.bank, smooth_truncate=3.1)),
+                  ("radii 32 and 50", BankConfig(scales=(2.0, 11.0), orientations=2,
+                                                 max_ksize=65, smoothing=1.5)))
+    for what, bank_cfg in wide_banks:
+        for dt in (torch.bfloat16, torch.float32):
+            compare_features(cfg0, rgb8[:2], dt, f"2x321x481 {what} "
+                             f"{'bf16' if dt == torch.bfloat16 else 'f32'}", False,
+                             bank_cfg=bank_cfg)
+    torch.cuda.empty_cache()
     lab3 = pl._color_transform(torch.from_numpy(rgb8).to(dev), "lab")
     bsz, h3, w3, _ = lab3.shape
     n3 = h3 * w3
@@ -773,26 +809,46 @@ def main() -> None:
            lambda: run_slic(sf.slic_w3), lambda: run_slic(sl.slic_plain),
            (lab3.numel() * 4 + spk.numel() * 4, flops))
 
-    # K14 on K11's output (the main path's input) and on a fragmented map
+    # K14 on K11's output (the main path's input), on a fragmented map, on
+    # the spiral maze (a corridor ~h * w / 2 long, the kept block in a
+    # corner: the longest adoption distance, h + w - 6) and on a map with no
+    # surviving component (min_size 5 for both mazes); with what the pass
+    # meets there (the plain union-find's hook rounds, the Jacobi loop's
+    # steps, the largest adoption distance, the absorbed share)
     rng = np.random.default_rng(14)
     base = rng.integers(0, s3, ((h3 + 7) // 8, (w3 + 7) // 8))
     frag = np.kron(base, np.ones((8, 8), int))[:h3, :w3]
     frag = np.where(rng.random((h3, w3)) < 0.25, rng.integers(0, s3, (h3, w3)), frag)
     frag = torch.from_numpy(np.stack([frag] * bsz).astype(np.int32)).to(dev)
-    for src, where, main in ((spk, "on K11's output", True),
-                             (frag, "on a fragmented random map", False)):
-        ck = cn.enforce_connectivity_fused(src, s3)
-        cp = sl.enforce_connectivity_plain(src, s3)
+
+    def maze(kept, h, w):
+        return torch.from_numpy(np.stack([connectivity_maze(h, w, kept)] * bsz)).to(dev)
+
+    def compare_connectivity(src, n_sp, min_size, where, main):
+        h, w = src.shape[1:]
+        ck = cn.enforce_connectivity_fused(src, n_sp, min_size)
+        cp = sl.enforce_connectivity_plain(src, n_sp, min_size)
         torch.cuda.synchronize()
         ndiff = int((ck != cp).sum())
-        report("enforce_connectivity_fused", f"{tag3} {where}, min_size "
-               f"{sl.connectivity_defaults(h3, w3, s3, None, None)[0]}, {ndiff} pixels "
-               f"differ", float((ck - cp).abs().max()), ndiff, "bit-equal (0 pixels)",
-               ndiff == 0, lambda: cn.enforce_connectivity_fused(src, s3),
-               lambda: sl.enforce_connectivity_plain(src, s3),
+        r = sl.connectivity_readings(src, n_sp, min_size)
+        report("enforce_connectivity_fused", f"{where}, min_size "
+               f"{sl.connectivity_defaults(h, w, n_sp, min_size, None)[0]}, {ndiff} pixels "
+               f"differ; union-find rounds {r['union_find_rounds']}, adoption steps "
+               f"{r['adoption_steps']}, largest distance {r['max_distance']} (h + w = "
+               f"{h + w}), absorbed {r['absorbed_share']:.4f}, kept per image "
+               f"{r['kept_per_image']}", float((ck - cp).abs().max()), ndiff,
+               "bit-equal (0 pixels)", ndiff == 0,
+               lambda: cn.enforce_connectivity_fused(src, n_sp, min_size),
+               lambda: sl.enforce_connectivity_plain(src, n_sp, min_size),
                (2 * src.numel() * 4, 0) if main else None)
-        if main:
-            sp3 = ck.reshape(bsz, n3)
+        return ck
+
+    sp3 = compare_connectivity(spk, s3, None, f"{tag3} on K11's output", True).reshape(bsz, n3)
+    compare_connectivity(frag, s3, None, f"{tag3} on a fragmented random map", False)
+    compare_connectivity(maze("corner", h3, w3), 16, 5, f"{tag3} spiral maze, corner kept",
+                         False)
+    compare_connectivity(maze("none", h3, w3), 16, 5, f"{tag3} no surviving component",
+                         False)
 
     # K15: region ids of each superpixel broadcast to the pixels
     table = torch.from_numpy(rng.integers(0, g3.n_regions, (bsz, s3)).astype(np.int32)).to(dev)
@@ -820,7 +876,7 @@ def main() -> None:
            ndiff, "bit-equal (0 pixels)", ndiff == 0,
            lambda: lookup.table_lookup(idx_big, table_big),
            lambda: lookup.table_lookup_plain(idx_big, table_big))
-    del lab3, spk, spp, frag, ck, cp, sp3, sp3_64, lk, lp, idx_big, table_big
+    del lab3, spk, spp, frag, sp3, sp3_64, lk, lp, idx_big, table_big
 
     # K13 at config4's pooled grid, the main path's SLIC; K12 at 8x321x481
     # with 400 superpixels (a frame under the whole-image gate, where
@@ -884,15 +940,9 @@ def main() -> None:
     # pixels a frame, with config4's min_size and a table of its S rows
     gh4, gw4, _ = sl.grid_shape(h4, w4, g4.n_superpixels)
     s4 = gh4 * gw4
-    ck = cn.enforce_connectivity_fused(sp4, s4)
-    cp = sl.enforce_connectivity_plain(sp4, s4)
-    torch.cuda.synchronize()
-    ndiff = int((ck != cp).sum())
-    report("enforce_connectivity_fused", f"{tag4p} on K13's output, S={s4}, min_size "
-           f"{sl.connectivity_defaults(h4, w4, s4, None, None)[0]}, {ndiff} pixels differ",
-           float((ck - cp).abs().max()), ndiff, "bit-equal (0 pixels)", ndiff == 0,
-           lambda: cn.enforce_connectivity_fused(sp4, s4),
-           lambda: sl.enforce_connectivity_plain(sp4, s4))
+    ck = compare_connectivity(sp4, s4, None, f"{tag4p} on K13's output, S={s4}", False)
+    compare_connectivity(maze("corner", h4, w4), 16, 5, f"{tag4p} spiral maze, corner kept",
+                         False)
     idx4 = ck.reshape(ck.shape[0], h4 * w4)
     table4 = torch.from_numpy(rng.integers(0, g4.n_regions, (ck.shape[0], s4))
                               .astype(np.int32)).to(dev)
@@ -903,7 +953,7 @@ def main() -> None:
            f"{ndiff} pixels differ", float((lk - lp).abs().max()), ndiff,
            "bit-equal (0 pixels)", ndiff == 0, lambda: lookup.table_lookup(idx4, table4),
            lambda: lookup.table_lookup_plain(idx4, table4))
-    del sp4, ck, cp, idx4, table4, lk, lp
+    del sp4, ck, idx4, table4, lk, lp
 
     # K16-K18 on the graph stage's own inputs: the standardised features and
     # the connected superpixels of config3 and of config4's pooled grid; at
@@ -1051,6 +1101,24 @@ def main() -> None:
     del color4, ek, ep
     torch.cuda.empty_cache()
 
+    # the modulated route, plain torch and float32 energies, which the
+    # reference's graph stage takes at batch 1 and in float32: the energies
+    # of the config3 and config4 float32 batches (a reading, not a kernel),
+    # beside K1's route for the same frames in bf16
+    for cfg_m, rgb_m, where, reps in ((cfg3, rgb8, tag3, 5), (cfg4, rgb4, tag4, 2)):
+        x_m = torch.from_numpy(rgb_m).to(dev)
+        bank_m = make_bank(cfg_m.bank)
+        pool_m = cfg_m.graph.pool
+        mcfg = cfg_m.replace(dtype="float32", feature_impl="modulated")
+        kcfg = cfg_m.replace(dtype="bfloat16")
+        t_mod = cuda_ms(lambda: pl.compute_energies(x_m, mcfg, bank_m, pool_m), reps=reps)
+        t_k1 = cuda_ms(lambda: pl.compute_energies(x_m, kcfg, bank_m, pool_m), reps=reps)
+        print(f"phase 3: modulated route [{where} f32, pool {pool_m}] energies "
+              f"(colour transform included) {t_mod:.3f} ms, K1's route in bf16 {t_k1:.3f} ms "
+              f"(readings, median of {reps}) ({card})", flush=True)
+        del x_m
+    torch.cuda.empty_cache()
+
     # ---- phase 4: end to end ----------------------------------------------
     def moments_t_plain(idx, feats_t, n_sp, dtype=torch.bfloat16):
         return gm.superpixel_moments_plain(idx, feats_t.to(dtype), n_sp, True)
@@ -1124,14 +1192,20 @@ def main() -> None:
                          + (" _FUSED_PREP on" if prep else ""),
                          gmm_path + ["precision_chol_params" if prep else "precision_chol"],
                          ["precision_chol" if prep else "precision_chol_params"], prep))
+    # the graph stage's energies: K1 for bf16 batches, the reference's
+    # modulated route (no K1) in float32
     for dtype in ("bfloat16", "float32"):
+        bf = dtype == "bfloat16"
         runs.append((cfg3.replace(dtype=dtype), rgb8, gt8,
-                     f"config3 batch 8 {'bf16' if dtype == 'bfloat16' else 'f32'}",
-                     graph_path, moments_off, False))
+                     f"config3 batch 8 {'bf16' if bf else 'f32'}",
+                     graph_path if bf else graph_path[1:],
+                     moments_off + ([] if bf else graph_path[:1]), False))
     for dtype in ("bfloat16", "float32"):
+        bf = dtype == "bfloat16"
         runs.append((cfg4.replace(dtype=dtype), rgb4, gt4,
-                     f"config4 batch 8 of 2160x3840 {'bf16' if dtype == 'bfloat16' else 'f32'}",
-                     banded_path, ["slic_w3"] + moments_off, False))
+                     f"config4 batch 8 of 2160x3840 {'bf16' if bf else 'f32'}",
+                     banded_path if bf else banded_path[1:],
+                     ["slic_w3"] + moments_off + ([] if bf else banded_path[:1]), False))
     totals = {name: 0 for name in counters}
     totals["lloyd_pass"] += k7_launches  # K7's path ran in phase 3
     outputs = []
@@ -1143,6 +1217,7 @@ def main() -> None:
 
         for wrapper in counters.values():
             wrapper.launches = 0
+        modulated.gabor_energies_mod.calls = 0
         t0 = time.perf_counter()
         first = run()
         warm = time.perf_counter() - t0
@@ -1153,6 +1228,7 @@ def main() -> None:
             out = run()
             times.append(time.perf_counter() - t0)
         counts = {name: wrapper.launches for name, wrapper in counters.items()}
+        mod_calls = modulated.gabor_energies_mod.calls
         ms = statistics.median(times) * 1e3
         mp = rgb.shape[0] * rgb.shape[1] * rgb.shape[2] / 1e6 / (ms / 1e3)
         check(torch.equal(out, first), f"{label}: labels differ between runs")
@@ -1161,7 +1237,12 @@ def main() -> None:
               f"{warm:.2f} s), {mp:.2f} MP/s, host uint8 in -> host int32 labels "
               f"out, {card}", flush=True)
         print(f"phase 4: {label}: launches in its 6 calls "
-              f"{ {name: counts[name] for name in path + absent} }", flush=True)
+              f"{ {name: counts[name] for name in path + absent} }, modulated route calls "
+              f"{mod_calls}", flush=True)
+        mod_route = cfg.graph.enabled and cfg.dtype == "float32"
+        check((mod_calls > 0) == mod_route,
+              f"{label}: the modulated route ran {mod_calls} times, expected "
+              f"{'some' if mod_route else 'none'}")
         for name in path:
             check(counts[name] > 0, f"{name} was never launched on the {label} path")
             totals[name] += counts[name]
@@ -1229,10 +1310,11 @@ def main() -> None:
               f"min aligned agreement {min(each):.6f} (floor {floor}{note}; per image "
               f"{[round(v, 6) for v in each]})", flush=True)
         if cfg.graph.enabled:
-            # the gate: both paths from K1's energies, so the comparison
-            # holds K11 or K13, K14, K15 and the plain n-cut around them
+            # the gate: both paths from the same energies (K1's in bf16, the
+            # modulated route's in f32), so the comparison holds K11 or K13,
+            # K14, K15 and the plain n-cut around them
             each = agreement(keep=("gabor_energies_fused",))
-            print(f"phase 4: {label}: kernel path vs the plain graph stage on K1's "
+            print(f"phase 4: {label}: kernel path vs the plain graph stage on the same "
                   f"energies, min aligned agreement {min(each):.6f} (floor {floor}; per "
                   f"image {[round(v, 6) for v in each]})", flush=True)
         check(min(each) >= floor, f"{label}: kernel path disagrees with the plain path")

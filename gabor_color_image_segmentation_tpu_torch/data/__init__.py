@@ -1,5 +1,9 @@
-"""Data layer of the port: the seeded synthetic mosaics (numpy only)."""
+"""Data layer of the port: the seeded synthetic mosaics and the label
+mazes that stress the connectivity pass (numpy only)."""
 
-from gabor_color_image_segmentation_tpu_torch.data.synthetic import synthetic_mosaic
+from gabor_color_image_segmentation_tpu_torch.data.synthetic import (
+    connectivity_maze,
+    synthetic_mosaic,
+)
 
-__all__ = ["synthetic_mosaic"]
+__all__ = ["connectivity_maze", "synthetic_mosaic"]

@@ -61,3 +61,45 @@ def synthetic_mosaic(
     img += rng.normal(0.0, noise, img.shape)
     img = np.clip(img, 0.0, 1.0)
     return (img * 255.0 + 0.5).astype(np.uint8), gt
+
+
+def spiral_path(h: int, w: int) -> np.ndarray:
+    """(h, w) bool: a 1-pixel corridor that spirals in from the top-left
+    corner with 1-pixel walls between its turns (an h x w maze whose path
+    is about h * w / 2 pixels long)."""
+    path = np.zeros((h, w), bool)
+    top, left, bottom, right = 0, 0, h - 1, w - 1
+    while top <= bottom and left <= right:
+        path[top, left:right + 1] = True
+        path[top:bottom + 1, right] = True
+        if bottom > top + 1:
+            path[bottom, left:right + 1] = True
+        if bottom > top + 3 and right > left + 1:
+            path[top + 2:bottom + 1, left] = True
+            path[top + 2, left + 1] = True  # the step into the next turn
+        top, left, bottom, right = top + 2, left + 2, bottom - 2, right - 2
+    return path
+
+
+def connectivity_maze(h: int, w: int, kept: str) -> np.ndarray:
+    """(h, w) int32 label maps that stress the connectivity pass: every
+    pixel a one-pixel component (checkerboard labels, 0-1 on the walls, 2-3
+    on the spiral corridor of ``spiral_path``) but for the kept part:
+    ``kept="centre"`` a 3 x 3 block of label 9 at the image's centre,
+    ``kept="corner"`` the same at the bottom-right corner (the longest
+    adoption distances), ``kept="walls"`` the walls as one component of
+    label 9, ``kept="none"`` nothing (every component absorbed for min_size
+    >= 2)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    path = spiral_path(h, w)
+    lab = ((yy + xx) % 2 + 2 * path).astype(np.int32)
+    if kept == "centre":
+        cy, cx = h // 2, w // 2
+        lab[max(0, cy - 1):cy + 2, max(0, cx - 1):cx + 2] = 9
+    elif kept == "corner":
+        lab[-3:, -3:] = 9
+    elif kept == "walls":
+        lab[~path] = 9
+    elif kept != "none":
+        raise ValueError(f"kept must be 'centre', 'corner', 'walls' or 'none', got {kept!r}")
+    return lab

@@ -2,12 +2,14 @@
 JAX package's models/connectivity_pallas.py).
 
 K14 ``enforce_connectivity_fused`` (csrc/connectivity.cu) replaces
-``models/connectivity_pallas.py::_enforce_kernel``: one thread block per
-image runs every step of the pass, fixpoint loops included, on the device.
-Its output is bit-equal to ``enforce_connectivity_plain``
-(models/slic.py), which is bit-equal to the reference's
-``enforce_connectivity_device``. The wrapper launches K14 for CUDA tensors
-and runs the plain version for CPU tensors.
+``models/connectivity_pallas.py::_enforce_kernel``: a fixed schedule of
+launches over the whole card (tile union-find, border merge, sizes, a
+renumbering scan, the city-block distance to the kept pixels, pointer
+jumping), with no host sync. It computes
+``models/slic.py::enforce_connectivity_bfs_plain``, whose output is
+bit-equal to ``enforce_connectivity_plain``, itself bit-equal to the
+reference's ``enforce_connectivity_device``. The wrapper launches K14 for
+CUDA tensors and runs ``enforce_connectivity_plain`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from gabor_color_image_segmentation_tpu_torch.models.slic import (
     connectivity_defaults,
     enforce_connectivity_plain,
 )
+
+_CHUNK = 1024  # pixels per renumbering chunk (csrc/connectivity.cu's CH)
 
 
 def enforce_connectivity_fused(labels: torch.Tensor, n_sp: int,
@@ -37,8 +41,9 @@ def enforce_connectivity_fused(labels: torch.Tensor, n_sp: int,
     labels = labels.contiguous()
     out = torch.empty_like(labels)
     comp, count, buf = (torch.empty_like(labels) for _ in range(3))  # scratch
+    tot = torch.empty((b, -(-h * w // _CHUNK)), dtype=torch.int32, device=labels.device)
     _kernels.launch("gcis_enforce_connectivity", labels.data_ptr(), out.data_ptr(),
-                    comp.data_ptr(), count.data_ptr(), buf.data_ptr(),
+                    comp.data_ptr(), count.data_ptr(), buf.data_ptr(), tot.data_ptr(),
                     b, h, w, min_size, s_max)
     enforce_connectivity_fused.launches += 1
     return out

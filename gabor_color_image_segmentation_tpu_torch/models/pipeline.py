@@ -31,12 +31,16 @@ GMM (config2):
 graph (config3, config4; ``segment_batch`` for the n-cut,
 ``segment_images`` for the min-cut too):
   1. Lab colour transform;
-  2. Gabor energies without the twin (K1), window by window when the frame
+  2. Gabor energies without the twin, window by window when the frame
      exceeds ``tile_hw`` (ops/tiled.py), pooled ``graph.pool`` times by
      exact 2x2 means (per window on the tiled path), so the graph stage
      runs on the (H >> pool, W >> pool) grid with the colour and the Lab
-     pooled alike;
-  3. the standardised (B, E + 3, N) features in the storage dtype;
+     pooled alike. The reference's dispatch: the n-cut with
+     ``feature_impl="auto"`` at batch 1 or in float32 takes the modulated
+     route (ops/modulated.py, plain torch, float32 energies), production
+     bf16 batches and the min-cut route K1;
+  3. the standardised (B, E + 3, N) features in the energies' dtype (the
+     storage dtype on K1, float32 on the modulated route);
   4. SLIC superpixels on the float32 Lab (K11 under the reference's
      whole-image gate, the banded K13 above it, as models/slic_fused.py
      routes) and connectivity enforcement (K14);
@@ -47,8 +51,7 @@ graph (config3, config4; ``segment_batch`` for the n-cut,
   6. with pooling, each label repeated 2^pool times along both axes.
 
 Configurations outside these slices raise NotImplementedError naming the
-ROADMAP queue-1 item that will bring them, before any work; on the card,
-so does a bank whose radii pass K1's tiles (queue 3 fault 2).
+ROADMAP queue-1 item that will bring them, before any work.
 """
 
 from __future__ import annotations
@@ -86,12 +89,9 @@ from gabor_color_image_segmentation_tpu_torch.ops.features import (
     _pool2x2_cm,
     assemble_xp_from_affine,
 )
-from gabor_color_image_segmentation_tpu_torch.ops.fused import (
-    K1_CONV_RADIUS,
-    K1_SMOOTH_RADIUS,
-    gabor_energies_fused,
-)
+from gabor_color_image_segmentation_tpu_torch.ops.fused import gabor_energies_fused
 from gabor_color_image_segmentation_tpu_torch.ops.lookup import table_lookup
+from gabor_color_image_segmentation_tpu_torch.ops.modulated import gabor_energies_mod
 from gabor_color_image_segmentation_tpu_torch.ops.precision import (
     set_policy,
     storage_dtype,
@@ -111,8 +111,6 @@ def _check_supported(cfg: PipelineConfig, with_features: bool, hw: Tuple[int, in
     tile = cfg.tile_hw
     nhwc = "queue 1 item 14 (the NHWC / with-features path)"
     features = "queue 1 item 13 (the rest of the feature stage)"
-    k1_tiles = (f"queue 3 fault 2 (K1's CUDA tiles take a conv radius <= {K1_CONV_RADIUS} "
-                f"and a smoothing radius <= {K1_SMOOTH_RADIUS}; the CPU runs it)")
     # the graph stage replaces the pixel clustering, so the solver's own
     # options do not apply to it
     solver = not g.enabled
@@ -133,12 +131,12 @@ def _check_supported(cfg: PipelineConfig, with_features: bool, hw: Tuple[int, in
         (cfg.bank.gamma != 1.0, f"bank gamma={cfg.bank.gamma}", features),
         (solver and c.method == "kmeans" and c.init_stride != 1,
          f"init_stride={c.init_stride}", nhwc),
-        (cfg.feature_impl not in ("auto", "pallas"),
+        # the reference's transposed pixel clustering takes the fused
+        # kernel's energies only; another impl leaves it for the NHWC path
+        (solver and cfg.feature_impl not in ("auto", "pallas"),
+         f"the pixel clustering with feature_impl={cfg.feature_impl!r}", nhwc),
+        (cfg.feature_impl not in ("auto", "pallas", "modulated"),
          f"feature_impl={cfg.feature_impl!r}", features),
-        (device.type == "cuda" and (cfg.bank.max_conv_radius > K1_CONV_RADIUS
-                                    or cfg.bank.max_smooth_radius > K1_SMOOTH_RADIUS),
-         f"a bank with conv radius {cfg.bank.max_conv_radius} and smoothing radius "
-         f"{cfg.bank.max_smooth_radius} on the card", k1_tiles),
     ]
     for bad, what, item in unsupported:
         if bad:
@@ -224,49 +222,72 @@ def _segment_gmm(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
     return labels.reshape(b, h, w)
 
 
+def _k1_energies(color: torch.Tensor, bank, dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, W, C) -> (B, E, H, W) K1 energies in ``dtype``, no twin."""
+    energies, _ = gabor_energies_fused(color, bank_tensors(bank, color.device), dtype,
+                                       pooled=False)
+    return energies
+
+
+def _modulated_energies(color: torch.Tensor, bank, dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, W, C) -> (B, E, H, W) float32 energies of the modulated route."""
+    return gabor_energies_mod(color, bank, dtype).permute(0, 3, 1, 2).contiguous()
+
+
 def compute_energies(rgb: torch.Tensor, cfg: PipelineConfig, bank, pool: int = 0):
-    """(B, H, W, 3) sRGB -> ((B, E, H >> pool, W >> pool) K1 energies in the
-    storage dtype, (B, H, W, 3) float32 colour). Frames larger than
-    ``cfg.tile_hw`` run window by window and pool per window; others run
-    K1 whole and pool the stored energies after."""
+    """(B, H, W, 3) sRGB -> ((B, E, H >> pool, W >> pool) energies, (B, H, W,
+    3) float32 colour), by ``cfg.feature_impl`` as the reference picks its
+    energies function: "auto" and "pallas" run K1 (the reference's choice
+    on its accelerator) in the storage dtype, "modulated" the modulated
+    route in float32. Frames larger than ``cfg.tile_hw`` run window by
+    window and pool per window; others run whole and pool the stored
+    energies after."""
     dtype = storage_dtype(cfg.dtype)
     color = _color_transform(rgb, cfg.color_space)
-    groups = bank_tensors(bank, rgb.device)
+    fn = _modulated_energies if cfg.feature_impl == "modulated" else _k1_energies
     _, h, w, _ = color.shape
     tile = cfg.tile_hw
     if tile is not None and (h > tile[0] or w > tile[1]):
-        return gabor_energies_tiled(color, groups, dtype, tile, bank.config.max_halo,
-                                    pool), color
-    energies, _ = gabor_energies_fused(color, groups, dtype, pooled=False)
+        return gabor_energies_tiled(color, bank_tensors(bank, rgb.device), dtype, tile,
+                                    bank.config.max_halo, pool,
+                                    energies_fn=lambda win: fn(win, bank, dtype)), color
+    energies = fn(color, bank, dtype)
     for _ in range(pool):
         energies = pool2x2_mean(energies, 2)
     return energies, color
 
 
-def _graph_front(rgb: torch.Tensor, cfg: PipelineConfig, bank):
-    """(B, H, W, 3) sRGB -> ((B, E + 3, n) standardised features in the
-    storage dtype, (B, n) int32 connected superpixels of the float32 Lab,
-    their count S), n the pixels of the grid pooled ``graph.pool`` times.
+def _graph_front(rgb: torch.Tensor, cfg: PipelineConfig, bank, ncut: bool = True):
+    """(B, H, W, 3) sRGB -> ((B, E + 3, n) standardised features, (B, n)
+    int32 connected superpixels of the float32 Lab, their count S), n the
+    pixels of the grid pooled ``graph.pool`` times.
 
-    The features are the reference's assemble_features on the pooled
-    energies and the pooled float32 colour: the colour rounded to the
-    storage dtype before the per-image moments, the sqrt(E/3) colour
-    balance, static cue weights."""
+    The energies follow the reference's graph dispatch: for the n-cut
+    (``ncut``) with ``feature_impl="auto"``, batch 1 or float32 takes the
+    modulated route and bf16 batches K1; the min-cut route takes
+    ``cfg.feature_impl`` as it is. The features are the reference's
+    assemble_features on the pooled energies and the pooled float32 colour,
+    in the energies' dtype (bf16 from K1 in bf16 mode, else float32): the
+    colour rounded to that dtype before the per-image moments, the
+    sqrt(E/3) colour balance, static cue weights."""
     b, h, w, _ = rgb.shape
-    dtype = storage_dtype(cfg.dtype)
     g = cfg.graph
     p = g.pool
     if p and (h % (1 << p) or w % (1 << p)):
         raise ValueError(f"graph.pool={p} needs H, W divisible by {1 << p}, got {h}x{w}")
-    energies, color = compute_energies(rgb, cfg, bank, p)
+    fcfg = cfg
+    if ncut and cfg.feature_impl == "auto" and (b == 1 or cfg.dtype == "float32"):
+        fcfg = cfg.replace(feature_impl="modulated")
+    energies, color = compute_energies(rgb, fcfg, bank, p)
+    fdt = energies.dtype
     same = cfg.color_space == "lab"
     lab = color if same else _color_transform(rgb, "lab")
     for _ in range(p):
         color = pool2x2_mean(color, 1)
         lab = color if same else pool2x2_mean(lab, 1)
-    c4 = build_color4(color, dtype)
+    c4 = build_color4(color, fdt)
     a, b_aff = _affine_params(energies, c4, cfg.cluster, 1e-6)
-    feats = assemble_xp_from_affine(energies, c4, a, b_aff, dtype)
+    feats = assemble_xp_from_affine(energies, c4, a, b_aff, fdt)
     del energies, c4
     hp, wp = h >> p, w >> p
     gh, gw, _ = grid_shape(hp, wp, g.n_superpixels)
@@ -302,7 +323,7 @@ def _segment_mincut(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tenso
     b, h, w, _ = rgb.shape
     g = cfg.graph
     hp, wp = h >> g.pool, w >> g.pool
-    feats, sp, _ = _graph_front(rgb, cfg, bank)
+    feats, sp, _ = _graph_front(rgb, cfg, bank, ncut=False)
     feats = feats.to(torch.float32).cpu().numpy()
     sp = sp.cpu().numpy()
     out = np.stack([mincut_segment(feats[i].T.reshape(hp, wp, -1), sp[i].reshape(hp, wp),

@@ -29,6 +29,11 @@ clamped to 0. Its components come from union-find hooking with path
 compression rather than the reference's run-min sweeps: the components and
 their ids are the same, so the output is.
 
+``enforce_connectivity_bfs_plain`` is K14's own algorithm (the city-block
+distance to the kept pixels, a pointer to the first nearer neighbour,
+pointer jumping), bit-equal to ``enforce_connectivity_plain``;
+``connectivity_readings`` reports what the pass meets on a label map.
+
 ``enforce_connectivity`` is the copy of the reference's host pass
 (numpy/scipy; largest-shared-border absorption).
 """
@@ -185,13 +190,8 @@ def connectivity_defaults(h: int, w: int, n_sp: int, min_size: Optional[int],
     return min_size, (n_sp if s_max is None else s_max)
 
 
-def connected_components(labels: torch.Tensor) -> torch.Tensor:
-    """(B, H, W) int labels -> (B, N) int64 ids of their 4-connected
-    equal-label components, each the smallest flat index it contains.
-
-    Union-find over (B, N): every edge of equal labels hooks the larger of
-    its two roots to the smaller (a scatter-min), then path compression,
-    until no edge joins two roots."""
+def _components(labels: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """connected_components, and the number of its hook rounds."""
     b, h, w = labels.shape
     n = h * w
     lab = labels.reshape(b, n)
@@ -201,7 +201,9 @@ def connected_components(labels: torch.Tensor) -> torch.Tensor:
     edges = [(pix[:, :-1].reshape(-1), pix[:, 1:].reshape(-1)),
              (pix[:-1].reshape(-1), pix[1:].reshape(-1))]
     edges = [(p, q) for p, q in edges if p.numel()]
+    rounds = 0
     while True:
+        rounds += 1
         changed = False
         for p, q in edges:
             same = lab[:, p] == lab[:, q]
@@ -218,18 +220,26 @@ def connected_components(labels: torch.Tensor) -> torch.Tensor:
                 break
             par = nxt
         if not changed:
-            return par
+            return par, rounds
 
 
-def enforce_connectivity_plain(labels: torch.Tensor, n_sp: int,
-                               min_size: Optional[int] = None,
-                               s_max: Optional[int] = None) -> torch.Tensor:
-    """Plain version of K14: (B, H, W) int32 SLIC labels -> (B, H, W) int32
-    4-connected superpixels in [0, s_max)."""
+def connected_components(labels: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) int labels -> (B, N) int64 ids of their 4-connected
+    equal-label components, each the smallest flat index it contains.
+
+    Union-find over (B, N): every edge of equal labels hooks the larger of
+    its two roots to the smaller (a scatter-min), then path compression,
+    until no edge joins two roots."""
+    return _components(labels)[0]
+
+
+def _seeds(labels: torch.Tensor, comp: torch.Tensor, min_size: int,
+           s_max: int) -> torch.Tensor:
+    """(B, H, W) labels and their components -> (B, H, W) int64 seeds: each
+    kept component's new id (raster order of the roots of >= min_size
+    pixels, below s_max), -1 on absorbed pixels."""
     b, h, w = labels.shape
     n = h * w
-    min_size, s_max = connectivity_defaults(h, w, n_sp, min_size, s_max)
-    comp = connected_components(labels)
     idx = torch.arange(n, device=labels.device)
     counts = torch.zeros((b, n), dtype=torch.int64, device=labels.device)
     counts.scatter_add_(1, comp, torch.ones_like(comp))
@@ -237,28 +247,124 @@ def enforce_connectivity_plain(labels: torch.Tensor, n_sp: int,
     newid = torch.cumsum(survives.to(torch.int64), dim=1) - 1  # raster order
     survives = survives & (newid < s_max)
     seed = torch.where(survives, newid, -1)
-    lab = torch.gather(seed, 1, comp).reshape(b, h, w)  # -1 on absorbed fragments
+    return torch.gather(seed, 1, comp).reshape(b, h, w)
 
-    def shifted(x, dy, dx):
-        """out[y, x] = x[y + dy, x + dx], -1 outside the image."""
-        out = torch.full_like(x, -1)
-        ys, yd = (slice(dy, None), slice(None, h - dy)) if dy >= 0 else \
-            (slice(None, h + dy), slice(-dy, None))
-        xs, xd = (slice(dx, None), slice(None, w - dx)) if dx >= 0 else \
-            (slice(None, w + dx), slice(-dx, None))
-        out[:, yd, xd] = x[:, ys, xs]
-        return out
 
+def _shifted(x: torch.Tensor, dy: int, dx: int, fill: int) -> torch.Tensor:
+    """(B, H, W) -> out[y, x] = x[y + dy, x + dx], ``fill`` outside the
+    image."""
+    h, w = x.shape[1:]
+    out = torch.full_like(x, fill)
+    ys, yd = (slice(dy, None), slice(None, h - dy)) if dy >= 0 else \
+        (slice(None, h + dy), slice(-dy, None))
+    xs, xd = (slice(dx, None), slice(None, w - dx)) if dx >= 0 else \
+        (slice(None, w + dx), slice(-dx, None))
+    out[:, yd, xd] = x[:, ys, xs]
+    return out
+
+
+# up, left, right, down: the adoption's priority, as (dy, dx)
+_PRIORITY = ((-1, 0), (0, -1), (0, 1), (1, 0))
+
+
+def _jacobi_adoption(lab: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """The reference's adoption loop on (B, H, W) seeds: (labels with -1
+    left where no kept pixel reached, the steps it ran)."""
+    h, w = lab.shape[1:]
     t = 0
     while bool((lab < 0).any()) and t < h + w:
         cand = lab
-        # reverse priority, so the first of up, left, right, down wins
-        for dy, dx in ((1, 0), (0, 1), (0, -1), (-1, 0)):
-            nl = shifted(lab, dy, dx)
+        for dy, dx in reversed(_PRIORITY):  # so the first of them wins
+            nl = _shifted(lab, dy, dx, -1)
             cand = torch.where(nl >= 0, nl, cand)
         lab = torch.where(lab < 0, cand, lab)
         t += 1
+    return lab, t
+
+
+def enforce_connectivity_plain(labels: torch.Tensor, n_sp: int,
+                               min_size: Optional[int] = None,
+                               s_max: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K14: (B, H, W) int32 SLIC labels -> (B, H, W) int32
+    4-connected superpixels in [0, s_max)."""
+    h, w = labels.shape[1:]
+    min_size, s_max = connectivity_defaults(h, w, n_sp, min_size, s_max)
+    lab, _ = _jacobi_adoption(_seeds(labels, connected_components(labels), min_size, s_max))
     return torch.clamp(lab, min=0).to(torch.int32)
+
+
+DIST_INF = 0x3FFFFFFF  # csrc/connectivity.cu's INF: no kept pixel in reach
+
+
+def city_block_distance(kept: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) bool -> (B, H, W) int64: each pixel's distance to the
+    nearest kept pixel of its image along the 4-connected grid, DIST_INF
+    where the image keeps none. As K14 takes it: the distance along each
+    column (a min-plus scan down and one up), then min over x' of that +
+    |x - x'| along each row (a prefix min of g - x', then a suffix min of
+    f + x' on its result f)."""
+    h, w = kept.shape[1:]
+    g = torch.where(kept, 0, DIST_INF).to(torch.int64)
+    ys = torch.arange(h, device=kept.device).reshape(1, h, 1)
+    xs = torch.arange(w, device=kept.device).reshape(1, 1, w)
+    fwd = torch.cummin(g - ys, dim=1).values + ys
+    g = torch.minimum(fwd, torch.cummin((g + ys).flip(1), dim=1).values.flip(1) - ys)
+    g = g.clamp(max=DIST_INF)
+    f = (torch.cummin(g - xs, dim=2).values + xs).clamp(max=DIST_INF)
+    return (torch.cummin((f + xs).flip(2), dim=2).values.flip(2) - xs).clamp(max=DIST_INF)
+
+
+def enforce_connectivity_bfs_plain(labels: torch.Tensor, n_sp: int,
+                                   min_size: Optional[int] = None,
+                                   s_max: Optional[int] = None) -> torch.Tensor:
+    """K14's algorithm in PyTorch, bit-equal to enforce_connectivity_plain.
+
+    The Jacobi loop sets an absorbed pixel at step dist(p), its city-block
+    distance to the nearest kept pixel (every unset pixel can be set, so
+    nothing blocks the spread), to the id of its first neighbour, up, left,
+    right, down, with dist one less. So each absorbed pixel points to that
+    neighbour, and ceil(log2(h + w)) rounds of pointer jumping reach the
+    kept pixel whose id it takes. dist <= h + w - 2 wherever the image keeps
+    a pixel; pixels past the loop's h + w steps (DIST_INF: the image keeps
+    none) end at 0, as its clamp leaves them."""
+    b, h, w = labels.shape
+    n = h * w
+    min_size, s_max = connectivity_defaults(h, w, n_sp, min_size, s_max)
+    lab = _seeds(labels, connected_components(labels), min_size, s_max)
+    dist = city_block_distance(lab >= 0)
+    idx = torch.arange(n, device=labels.device).reshape(1, h, w).expand(b, h, w)
+    ptr = torch.where(lab >= 0, idx, -1)
+    reach = (lab < 0) & (dist <= h + w)
+    for dy, dx in reversed(_PRIORITY):  # so the first of them wins
+        nearer = _shifted(dist, dy, dx, -1) == dist - 1
+        ptr = torch.where(reach & nearer, idx + dy * w + dx, ptr)
+    ptr = ptr.reshape(b, n)
+    span = 1
+    while span < h + w:
+        ptr = torch.where(ptr >= 0, torch.gather(ptr, 1, ptr.clamp(min=0)), ptr)
+        span *= 2
+    out = torch.where(ptr >= 0, torch.gather(lab.reshape(b, n), 1, ptr.clamp(min=0)), 0)
+    return out.reshape(b, h, w).to(torch.int32)
+
+
+def connectivity_readings(labels: torch.Tensor, n_sp: int,
+                          min_size: Optional[int] = None,
+                          s_max: Optional[int] = None) -> dict:
+    """What the pass meets on ``labels``: the plain union-find's hook rounds,
+    the Jacobi adoption's steps, the largest adoption distance, the share of
+    absorbed pixels and the kept components per image (min, max)."""
+    h, w = labels.shape[1:]
+    min_size, s_max = connectivity_defaults(h, w, n_sp, min_size, s_max)
+    comp, rounds = _components(labels)
+    lab = _seeds(labels, comp, min_size, s_max)
+    _, steps = _jacobi_adoption(lab)
+    dist = city_block_distance(lab >= 0)
+    finite = dist[dist < DIST_INF]
+    kept = (lab.amax(dim=(1, 2)) + 1).tolist()
+    return {"union_find_rounds": rounds, "adoption_steps": steps,
+            "max_distance": int(finite.max()) if finite.numel() else 0,
+            "absorbed_share": float((lab < 0).float().mean()),
+            "kept_per_image": (min(kept), max(kept))}
 
 
 def enforce_connectivity(labels: np.ndarray, min_size: int | None = None) -> np.ndarray:

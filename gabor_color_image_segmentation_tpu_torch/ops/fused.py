@@ -7,8 +7,10 @@ magnitude pass and a smoothing pass, with a float32 magnitude intermediate
 of (B, max n_g * C, H, W) in device memory that every group reuses. It
 writes each group straight into its channel slice of one (B, E, H, W)
 output and of its 2x2-pooled twin (B, E, H // 2, W // 2), so there is no
-per-group tuple and no concatenation. Its note says what bounds it on the
-H100.
+per-group tuple and no concatenation. It sizes its tiles and halos at
+launch from each group's radii, so it takes any radius a bank gives. Its
+note says what bounds it on the H100 and how its tap loops are
+register-blocked.
 
 Output order is the feature contract: groups in bank order, kernel-major,
 channel-minor within a group (the reference's features.py energy_index).
@@ -25,9 +27,6 @@ import torch
 
 from gabor_color_image_segmentation_tpu_torch import _kernels
 from gabor_color_image_segmentation_tpu_torch.ops.bank import GroupTensors
-
-K1_CONV_RADIUS, K1_SMOOTH_RADIUS = 15, 24  # radii the CUDA tiles are sized for
-
 
 def _reflect_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
     """Source indices of a REFLECT_101 pad of ``lo``/``hi`` samples around a
@@ -134,12 +133,6 @@ def gabor_energies_fused(
     if _kernels.use_plain(img, *(g.env for g in groups)):
         return gabor_energies_fused_plain(img, groups, dtype, pooled)
     b, h, w, c = img.shape
-    for g in groups:
-        _kernels.check(
-            g.p <= K1_CONV_RADIUS and g.r <= K1_SMOOTH_RADIUS,
-            f"the CUDA tiles take conv radius <= {K1_CONV_RADIUS} and smoothing "
-            f"radius <= {K1_SMOOTH_RADIUS}, got {g.p} and {g.r}",
-        )
     x = _centered(img)
     e = sum(g.n * c for g in groups)
     out = torch.empty((b, e, h, w), dtype=dtype, device=img.device)

@@ -2,13 +2,15 @@
 (counterpart of the JAX package's ops/tiled.py::gabor_energies_tiled and
 models/pipeline.py::_pool2x2_nhwc).
 
-Large frames (config4's 4K) run K1 window by window: each window is a tile
-of ``tile_hw`` plus a halo of the bank's ``max_halo`` on every side that
-is not a true image border (clamped, never reflected: K1 reflects the
-magnitude map at a true border, which a reflected input would change), the
-last window of a ragged axis shifted inward. K1 runs on the window with no
-twin, the tile's interior is kept, pooled ``pool`` times and written into
-one preallocated (B, E, H >> pool, W >> pool) tensor, so the
+Large frames (config4's 4K) run the energies window by window: each
+window is a tile of ``tile_hw`` plus a halo of the bank's ``max_halo`` on
+every side that is not a true image border (clamped, never reflected: the
+energies reflect the magnitude map at a true border, which a reflected
+input would change), the last window of a ragged axis shifted inward. The
+energies function (K1 with no twin by default, or the caller's, as the
+reference's ``energies_fn``: the pipeline passes the modulated route
+there) runs on the window, the tile's interior is kept, pooled ``pool``
+times and written into one (B, E, H >> pool, W >> pool) tensor, so the
 full-resolution energies of the frame never exist.
 
 K1 centres each input on its own per-channel mean, so a window's energies
@@ -19,7 +21,7 @@ not to bit-equality.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,13 +59,15 @@ def tile_offsets(h: int, w: int, tile_hw: Tuple[int, int]):
 def gabor_energies_tiled(
     color: torch.Tensor, groups: Sequence[GroupTensors], dtype: torch.dtype,
     tile_hw: Tuple[int, int], halo: int, pool: int = 0,
+    energies_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """(B, H, W, C) float32 -> (B, E, H >> pool, W >> pool) energies in
-    ``dtype``, tile by tile, K1 once per window. ``halo``: the bank's
-    ``max_halo`` (conv radius + smoothing radius). Raises ValueError when a
-    tile or an offset is not a multiple of 2^pool (a 2^pool block would
-    straddle two tiles)."""
-    b, h, w, c = color.shape
+    """(B, H, W, C) float32 -> (B, E, H >> pool, W >> pool) energies, tile
+    by tile, ``energies_fn`` once per window: (B, h, w, C) -> (B, E, h, w),
+    in whatever dtype it returns; None is K1 on ``groups`` in ``dtype``.
+    ``halo``: the bank's ``max_halo`` (conv radius + smoothing radius).
+    Raises ValueError when a tile or an offset is not a multiple of 2^pool
+    (a 2^pool block would straddle two tiles)."""
+    b, h, w, _ = color.shape
     th, tw, ys, xs = tile_offsets(h, w, tile_hw)
     f = 1 << pool
     if pool and any(v % f for v in [th, tw, h, w, *ys, *xs]):
@@ -71,16 +75,20 @@ def gabor_energies_tiled(
             f"tiled pooling needs tile/image geometry divisible by {f}, got "
             f"tile {th}x{tw} over {h}x{w} at offsets {ys}x{xs}"
         )
-    e = sum(g.n * c for g in groups)
-    out = torch.empty((b, e, h // f, w // f), dtype=dtype, device=color.device)
+    if energies_fn is None:
+        def energies_fn(win):
+            return gabor_energies_fused(win, groups, dtype, pooled=False)[0]
+    out = None
     for y0 in ys:
         for x0 in xs:
             y_lo, y_hi = max(0, y0 - halo), min(h, y0 + th + halo)
             x_lo, x_hi = max(0, x0 - halo), min(w, x0 + tw + halo)
-            win, _ = gabor_energies_fused(color[:, y_lo:y_hi, x_lo:x_hi], groups, dtype,
-                                          pooled=False)
+            win = energies_fn(color[:, y_lo:y_hi, x_lo:x_hi])
             part = win[:, :, y0 - y_lo:y0 - y_lo + th, x0 - x_lo:x0 - x_lo + tw]
             for _ in range(pool):
                 part = pool2x2_mean(part, 2)
+            if out is None:
+                out = torch.empty((b, part.shape[1], h // f, w // f), dtype=part.dtype,
+                                  device=color.device)
             out[:, :, y0 // f:(y0 + th) // f, x0 // f:(x0 + tw) // f] = part
     return out

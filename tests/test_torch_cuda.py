@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from gabor_color_image_segmentation_tpu_torch.config import BankConfig, preset
-from gabor_color_image_segmentation_tpu_torch.data import synthetic_mosaic
+from gabor_color_image_segmentation_tpu_torch.data import connectivity_maze, synthetic_mosaic
 from gabor_color_image_segmentation_tpu_torch.models import chol
 from gabor_color_image_segmentation_tpu_torch.models import connectivity as cn
 from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
@@ -45,13 +45,25 @@ def device():
     return torch.device("cuda")
 
 
+# K1's banks: a small one; the config0 bank widened past the radii K1's
+# tiles were once sized for (conv radius 16, smoothing radius 25, as
+# tests/test_torch_refusals.py's WIDE_BANKS); and one at twice them or more
+# (conv radius 32, smoothing radius 50)
+K1_BANKS = {
+    "small": BankConfig(scales=(2.0, 4.0, 8.0), orientations=3, frequencies=(0.12,)),
+    "conv_radius_16": dataclasses.replace(preset("config0").bank, max_ksize=33),
+    "smooth_radius_25": dataclasses.replace(preset("config0").bank, smooth_truncate=3.1),
+    "radii_32_50": BankConfig(scales=(2.0, 11.0), orientations=2, max_ksize=65,
+                              smoothing=1.5),
+}
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("hw", [(37, 53), (64, 96)])
-def test_gabor_energies_kernel(device, dtype, hw):
+@pytest.mark.parametrize("bank_name", sorted(K1_BANKS))
+def test_gabor_energies_kernel(device, dtype, hw, bank_name):
     dt = DTYPES[dtype]
-    bank = make_bank(BankConfig(scales=(2.0, 4.0, 8.0), orientations=3,
-                                frequencies=(0.12,)))
-    groups = bank_tensors(bank, device)
+    groups = bank_tensors(make_bank(K1_BANKS[bank_name]), device)
     img = torch.randn((2, *hw, 3), generator=torch.Generator().manual_seed(0)).to(device)
     out, twin = fused.gabor_energies_fused(img, groups, dt)
     ref, ref_twin = fused.gabor_energies_fused_plain(img, groups, dt)
@@ -299,6 +311,22 @@ def test_connectivity_kernel_on_slic_output(device):
     sp = sf.slic_batch(lab, 900, 5.0, 10)
     assert torch.equal(cn.enforce_connectivity_fused(sp, 925),
                        sl.enforce_connectivity_plain(sp, 925))
+
+
+@pytest.mark.parametrize("kept", ["centre", "corner", "walls", "none"])
+@pytest.mark.parametrize("hw", [(41, 37), (97, 130)])
+def test_connectivity_kernel_on_mazes(device, kept, hw):
+    """The spiral mazes of data.connectivity_maze (a corridor many times h +
+    w long, every pixel but the kept part a one-pixel fragment) and the map
+    with no surviving component, min_size 5."""
+    lab = connectivity_maze(*hw, kept)
+    lab = torch.from_numpy(np.stack([lab, lab[::-1, ::-1]]).copy()).to(device)
+    got = cn.enforce_connectivity_fused(lab, 16, 5)
+    ref = sl.enforce_connectivity_plain(lab, 16, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if kept == "none":
+        assert int(got.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("shape", [(2, 5000, 37), (3, 1001, 925), (1, 7, 1),

@@ -28,12 +28,12 @@ from gabor_color_image_segmentation_tpu.ops.bank import make_bank as jax_make_ba
 from gabor_color_image_segmentation_tpu.utils.labels import align_labels
 from gabor_color_image_segmentation_tpu_torch.config import preset
 from gabor_color_image_segmentation_tpu_torch.data import synthetic_mosaic
-from gabor_color_image_segmentation_tpu_torch.models import connectivity, slic_fused
+from gabor_color_image_segmentation_tpu_torch.models import connectivity, pipeline, slic_fused
 from gabor_color_image_segmentation_tpu_torch.models.pipeline import (
     segment_batch,
     segment_images,
 )
-from gabor_color_image_segmentation_tpu_torch.ops import lookup, tiled
+from gabor_color_image_segmentation_tpu_torch.ops import lookup
 
 torch.set_num_threads(2)
 
@@ -111,12 +111,15 @@ def test_mincut_route_matches_jax(batch, dtype):
 
 
 def test_pooled_path_runs_every_stage(batch, monkeypatch):
-    """K1 once per window (2 x 2 windows), the banded SLIC pass (forced:
+    """K1 once per window (2 x 2 windows; bf16 at batch 2 keeps the
+    reference's K1 route, and the pipeline hands the tiling its energies
+    function), the banded SLIC pass (forced:
     the port's whole-image gate at 0 sends the 24x32 grid to K13's loop, 5
     passes of 4 iterations and the last assignment), connectivity and the
     lookup once."""
     calls = []
-    for mod, name in ((tiled, "gabor_energies_fused"), (slic_fused, "slic_band_pass_plain"),
+    for mod, name in ((pipeline, "gabor_energies_fused"),
+                      (slic_fused, "slic_band_pass_plain"),
                       (slic_fused, "slic_plain"),
                       (connectivity, "enforce_connectivity_plain"),
                       (lookup, "table_lookup_plain")):

@@ -4,11 +4,12 @@ work and never a move to the CPU.
 
 - k > 8 in the pixel clustering (config1's k-means, config2's GMM): the
   reference sends it to its NHWC solver, ROADMAP queue 1 item 14.
-- A bank whose conv radius passes 15 or whose smoothing radius passes 24,
-  on the card: K1's CUDA tiles are sized for those radii (ROADMAP queue 3
-  fault 2). The check allocates nothing, so a CPU machine can ask it about
-  ``torch.device("cuda")``; on the CPU the same config runs through the
-  plain K1.
+- No refusal of a wide bank: K1 sizes its tiles and halos from the radii
+  at launch (ROADMAP queue 3 fault 2, repaired), so a bank whose conv
+  radius passes 15 or whose smoothing radius passes 24 passes the check on
+  the card too. The check allocates nothing, so a CPU machine can ask it
+  about ``torch.device("cuda")``; on the CPU the same config runs through
+  the plain K1.
 - ``segment_batch``'s default ``with_features=True`` (the reference's):
   the features are item 14's, so the default raises instead of returning
   ``(labels, None)``."""
@@ -40,7 +41,7 @@ def _with_bank(name, **bank):
 
 
 # (bank fields, the radii they give): conv radius 16 past 15, smoothing
-# radius 25 past 24
+# radius 25 past 24, the radii K1's tiles were once sized for
 WIDE_BANKS = {"conv_radius_16": ({"max_ksize": 33}, (16, 24)),
               "smooth_radius_25": ({"smooth_truncate": 3.1}, (15, 25))}
 
@@ -60,15 +61,13 @@ def test_k_does_not_bind_the_graph_stage():
 
 
 @pytest.mark.parametrize("case", sorted(WIDE_BANKS))
-def test_wide_bank_names_fault_2_on_the_card(case):
+def test_wide_bank_passes_the_card_check(case):
     fields, radii = WIDE_BANKS[case]
     cfg = _with_bank("config0", **fields)
     assert (cfg.bank.max_conv_radius, cfg.bank.max_smooth_radius) == radii
-    with pytest.raises(NotImplementedError, match="queue 3 fault 2"):
-        pipeline._check_supported(cfg, False, (32, 40), CUDA)
+    pipeline._check_supported(cfg, False, (32, 40), CUDA)
     pipeline._check_supported(cfg, False, (32, 40), CPU)
-    # the preset's own bank (radii 15 and 24) passes on the card
-    pipeline._check_supported(preset("config0"), False, (32, 40), CUDA)
+    pipeline._check_supported(_with_bank("config3", **fields), False, (32, 40), CUDA)
 
 
 @pytest.mark.parametrize("case", sorted(WIDE_BANKS))
