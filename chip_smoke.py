@@ -14,11 +14,13 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    single launch reads under 1 ms, the median of 5 means over 50
    back-to-back calls, the single-launch reading printed beside it):
    K1-K4 at config1 (batch 16 of 321x481, bf16) and config0 (batch 1, f32
-   and bf16); K7 (one pass and the whole ``kmeans_fused``, whose run with
+   and bf16), K3 also on config1's buffer in float32 and at batch 1, each
+   K3 call launched twice (bit-equal) and beside its design floor (k + 1 +
+   iters reads of its buffer); K7 (one pass and the whole ``kmeans_fused``, whose run with
    the counts set to 0 just before it and read just after is K7's path) on
    config1's standardised features laid out (16, 154401, 243) in bf16; K1
    (no twin), K5, K6, K8 (the fit grid and full resolution, with moments
-   and labels only), K9 and K10 (on the first EM pass's moments and on
+   and labels only, each launched twice: bit-equal), K9 and K10 (on the first EM pass's moments and on
    well-conditioned ones) at config2 (batch 8, f32 and bf16);
    K1 at config3 (bf16, no twin) and at any radius: config0's bank widened
    to conv radius 16 and to smoothing radius 25, and a bank of radii 32
@@ -70,14 +72,16 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
 
 Tolerances (also in the tests): energies <= 1e-4 * peak (f32), <= 2e-2 *
 peak (bf16); Lloyd labels equal on >= 99.99 % of pixels, sums within rtol
-1e-4 (f32) / 1e-3 (bf16); coarse centres within rtol and atol 2e-3;
+1e-4 (f32) / 1e-3 (bf16); coarse centres within rtol and atol 2e-3 and
+two K3 launches bit-equal;
 maximin picks the same pixels, running minima within rtol 1e-5 (K4) or
 within 1e-5 of the largest distance (K6, whose expanded form cancels near
 the probe); EM labels
 equal on >= 99.99 %, and, held with the plain version against the plain
 version in float64, the log-likelihood within max(rtol 1e-5, twice the
 plain version's error) and the moments within max(1e-4 of each
-component's summed magnitude, twice the plain version's error);
+component's summed magnitude, twice the plain version's error), two K8
+launches bit-equal;
 SLIC labels equal on >= 99.9 % of each image's pixels (K11) or on every
 pixel (K12 and K13 against their plain banded loop); connectivity and
 lookup bit-equal; precision Cholesky within 5e-4 relative of cuSOLVER on well-conditioned
@@ -446,16 +450,40 @@ def main() -> None:
     d, m = e.shape[1] + 3, pe2.shape[2] * pe2.shape[3]
     xp = ft.assemble_xp_from_affine(pe2, pc2, affine[0], affine[1], torch.bfloat16)
     iters = cfg1.cluster.coarse_iters
-    ck = kf.kmeans_coarse_centers_xp(xp, 5, d, m, iters)
-    cp = kf.kmeans_coarse_centers_xp_plain(xp, 5, d, m, iters)
-    torch.cuda.synchronize()
-    err = (ck - cp).abs().max().item()
     nb = xp.shape[0]
-    report("kmeans_coarse_centers_xp", f"{tag} 4x4 grid {tuple(xp.shape)}", err, err,
-           "2e-3 (rtol and atol)", torch.allclose(ck, cp, rtol=2e-3, atol=2e-3),
-           lambda: kf.kmeans_coarse_centers_xp(xp, 5, d, m, iters),
-           lambda: kf.kmeans_coarse_centers_xp_plain(xp, 5, d, m, iters),
-           (xp.numel() * 2, nb * m * (5 * 3 * d + iters * (2 * 5 * d + d))))
+
+    def compare_coarse(xq, where, main=False):
+        """K3 against its plain version (rtol and atol 2e-3) and against
+        itself (two launches bit-equal); prints the design's floor, the
+        k + 1 + iters reads of the buffer from device memory."""
+        ck = kf.kmeans_coarse_centers_xp(xq, 5, d, m, iters)
+        cp = kf.kmeans_coarse_centers_xp_plain(xq, 5, d, m, iters)
+        again = kf.kmeans_coarse_centers_xp(xq, 5, d, m, iters)
+        torch.cuda.synchronize()
+        err = (ck - cp).abs().max().item()
+        same = torch.equal(ck, again)
+        b_q = xq.shape[0]
+        active = kf._active_clusters(d, _kernels.storage_code(xq.dtype),
+                                     torch.cuda.current_device())
+        ctas = kf.coarse_plan(b_q, m, active)
+        floor = (5 + 1 + iters) * xq.numel() * xq.element_size() / HBM_BYTES_PER_MS
+        ms = report("kmeans_coarse_centers_xp",
+                    f"{where} 4x4 grid {tuple(xq.shape)}, {ctas} CTAs an image (clusters of "
+                    f"{kf.COARSE_CLUSTERS} held at once: {active}), two launches "
+                    f"bit-equal {same}", err, err, "2e-3 (rtol and atol)",
+                    same and torch.allclose(ck, cp, rtol=2e-3, atol=2e-3),
+                    lambda: kf.kmeans_coarse_centers_xp(xq, 5, d, m, iters),
+                    lambda: kf.kmeans_coarse_centers_xp_plain(xq, 5, d, m, iters),
+                    (xq.numel() * xq.element_size(),
+                     b_q * m * (5 * 3 * d + iters * (2 * 5 * d + d))) if main else None)
+        print(f"phase 3: kmeans_coarse_centers_xp [{where}] design floor {floor:.4f} ms "
+              f"({5 + 1 + iters} reads of {xq.numel() * xq.element_size() / 1e6:.2f} MB at "
+              f"3.35 TB/s), {100 * floor / ms:.1f} % of it ({card})", flush=True)
+        return ck
+
+    ck = compare_coarse(xp, tag, main=True)
+    compare_coarse(xp.float(), "config1 16x321x481 f32 buffer (config1's features in float32)")
+    compare_coarse(xp[:1].contiguous(), "config1 batch 1 bf16")
     compare_lloyd(e, xc4, affine, ck, torch.bfloat16, f"{tag} full resolution", True)
     compare_lloyd(tw, pc0, affine, ck, torch.bfloat16, f"{tag} 2x2 twin", False)
 
@@ -721,11 +749,13 @@ def main() -> None:
                                           (x, "full resolution labels only", False, False)):
             got = gf.em_pass(buf, *inputs, moments=moments)
             ref = gf.em_pass_plain(buf, *inputs, moments=moments)
+            again = gf.em_pass(buf, *inputs, moments=moments)
             torch.cuda.synchronize()
             if not moments:
-                got, ref = (got,), (ref,)
+                got, ref, again = (got,), (ref,), (again,)
             same = (got[0] == ref[0]).float().mean().item()
-            ok, abs_err, err, tol = same >= 0.9999, 0.0, 0.0, 1e-4
+            bits = all(torch.equal(g, a) for g, a in zip(got, again))
+            ok, abs_err, err, tol = same >= 0.9999 and bits, 0.0, 0.0, 1e-4
             if moments:
                 # Long float32 reductions (154,401 pixels at full resolution)
                 # in two orders: both are held against the plain version in
@@ -756,7 +786,8 @@ def main() -> None:
                       f"kernel {err:.3e}, plain {err_p:.3e}", flush=True)
             npx = buf.shape[2]
             flops = bsz * npx * (k * d * (d + 1) + (k * (d + 1) * (d + 2) if moments else 0))
-            report("em_pass", f"{tag2} {where} {tuple(buf.shape)} labels equal {same:.6f}",
+            report("em_pass", f"{tag2} {where} {tuple(buf.shape)} labels equal {same:.6f}, "
+                   f"two launches bit-equal {bits}",
                    abs_err, err, f"labels 0.9999; vs float64, ll within max(1e-5, 2 x "
                    f"plain's), moments within max(1e-4, 2 x plain's) = {tol:.3e}",
                    ok and err <= tol,

@@ -14,36 +14,39 @@
 //
 // All arithmetic is float32, bf16 storage included. The TPU kernel split
 // every float32 operand into bf16 halves (bf16x3) because its matrix unit
-// had no float32-accurate dot; the CUDA cores need no such trick.
+// had no float32-accurate dot; the CUDA cores need no such trick, and no
+// tensor core runs here.
 //
-// em_kernel, one block of 256 pixels, one thread per pixel:
-//   scores   the k lower triangles of P^T, the biases and constants sit in
-//            shared memory (5 x 780 floats at D = 39) and are read as
-//            broadcasts; the pixel's column of x sits in registers (the
-//            loops over the triangle are unrolled to DMAX = 40 rows: the
-//            GMM's D is 39), so the triangle halves the FMAs of a full
-//            P^T x. Each lp_j goes to a shared tile, the argmax to the
-//            labels.
-//   moments  the thread turns its lp column into responsibilities; the
-//            block stages its x tile (with a ones row) and the
-//            responsibility tile in shared memory, padded so that rows fall
-//            in different banks. Each thread then owns a strided set of the
-//            k (D + 1)(D + 2) / 2 distinct entries of the k extended
-//            scatters (the symmetry halves them; the ones row makes sums and
-//            counts entries of the same triangle) and sums its entries over
-//            the block's 256 pixels in pixel order.
-//   Each block writes its packed entries and its log-likelihood sum to a
-//   partial row; block_order_sum adds the rows in block order. No float
-//   atomics: labels depend on these sums over 30 EM iterations, and the
-//   basin EM lands in can turn on their last bits.
+// em_kernel: blocks of NT = 320 threads walk chunks of CH = 640 pixels (the
+// wrapper's em_plan gives each block a run of consecutive chunks, sized so
+// that one wave of blocks covers the card). Per chunk:
+//   scores   each thread takes two pixels (p and p + NT): their columns of
+//            x sit in registers (unrolled to DMAX = 40 rows), the k lower
+//            triangles of P^T sit in shared memory with each row padded to
+//            a multiple of 4, so one float4 broadcast feeds eight FMAs.
+//   moments  the thread turns its lp values into responsibilities and
+//            stores its pixels' extended columns [x 1 0...] pixel-major in
+//            shared memory. The k lower triangles of the extended
+//            (D + 1) x (D + 1) scatter are cut into 4 x 8 tiles (the
+//            wrapper's tile map, one entry per tile: component, first row,
+//            first column; 30 tiles a component at D = 39); each thread
+//            owns one tile and sums it over a fixed share of the chunk's
+//            pixels in pixel order: per pixel three float4 loads and one
+//            load of r feed 32 FMAs. Where the tiles are fewer than the
+//            threads, S = NT / tiles threads share a tile, each taking every
+//            S-th pixel; their sums are added in share order at the end.
+//   Each block writes its tiles and its log-likelihood sum to a partial row;
+//   block_order_sum adds the rows in block order. No float atomics: labels
+//   depend on these sums over 30 EM iterations, and the basin EM lands in
+//   can turn on their last bits. Two launches give the same bits.
 //
 // Bound on the H100: float32 operations. Per pixel the scores take
 // k D (D + 1) / 2 FMAs and the moments k (D + 1)(D + 2) / 2, about 16 kFLOP
 // at k = 5, D = 39 (half that labels only), against 78 (bf16) or 156 (f32)
 // bytes of x: ~100-200 FLOP per byte, far above the card's ~20 for float32.
-// The moments phase reads three shared-memory words per FMA, so it runs at
-// a fraction of the FMA rate; register tiling of the scatter and tensor
-// cores (tf32x3) are later work.
+// The padded rows add ~13 % to the score FMAs and the square tiles ~17 % to
+// the moments' (entries above the diagonal, which the wrapper does not
+// read).
 
 #include "common.cuh"
 
@@ -53,152 +56,255 @@ using gcis::ld;
 using gcis::neg_inf;
 using gcis::warp_sum;
 
-constexpr int NT = 256;
+constexpr int NT = 320;
+constexpr int CH = 2 * NT;  // pixels a chunk, two a thread
 constexpr int KMAX = 8;
-constexpr int DMAX = 40;  // feature rows held in registers
-constexpr int PAD = NT + 1;  // row stride of the shared x and resp tiles
+constexpr int DMAX = 40;      // feature rows held in registers
+constexpr int PSTRIDE = 880;  // padded lower triangle of DMAX rows
+constexpr int XS = 52;        // floats a pixel's extended column takes in shared memory
+constexpr int TA = 4, TC = 8;  // rows and columns of a moments tile
+constexpr int TILE = TA * TC;
+constexpr int RSTRIDE = CH + 4;  // rs rows fall in different banks
 
-template <typename T>
-__global__ void __launch_bounds__(NT) em_kernel(
-    const T* __restrict__ x, const float* __restrict__ pt,
-    const float* __restrict__ bias, const float* __restrict__ cnst,
-    int* __restrict__ labels, float* __restrict__ partial, int D, int N, int k,
-    int moments) {
-  extern __shared__ float smem[];
-  const int tri = D * (D + 1) / 2;
-  float* P = smem;                  // (k, tri) lower triangles, row i at i(i+1)/2
-  float* bs = P + k * tri;          // (k, D) biases
-  float* cs = bs + k * D;           // (KMAX,) constants
-  float* rs = cs + KMAX;            // (k, PAD) lp, then responsibilities
-  float* xs = rs + k * PAD;         // (D + 1, PAD) x tile, ones row at D (moments)
-  __shared__ float warp_ll[NT / 32];
-  const int tid = threadIdx.x, blk = blockIdx.x, b = blockIdx.y;
-  const long n = N;
+// Offset of row i in a padded triangle: row i holds 4 * (i / 4 + 1) floats.
+__host__ __device__ constexpr int row_off(int i) {
+  return 8 * (i / 4) * (i / 4 + 1) + 4 * (i % 4) * (i / 4 + 1);
+}
 
-  const float* ptb = pt + (long)b * k * D * D;
-  for (int e = tid; e < k * D * D; e += NT) {
-    const int j = e / (D * D), r = e - j * D * D, i = r / D, l = r - i * D;
-    if (l <= i) P[j * tri + i * (i + 1) / 2 + l] = ptb[e];
-  }
-  for (int e = tid; e < k * D; e += NT) bs[e] = bias[(long)b * k * D + e];
-  if (tid < k) cs[tid] = cnst[(long)b * k + tid];
-  __syncthreads();
-
-  const long p = (long)blk * NT + tid;
-  const bool valid = p < n;
-  const T* xb = x + (long)b * D * n;
-  float xv[DMAX];
-#pragma unroll
-  for (int i = 0; i < DMAX; ++i) xv[i] = (i < D && valid) ? ld(xb, i * n + p) : 0.f;
-
-  int best = 0;
-  float bestv = neg_inf();
-  for (int j = 0; j < k; ++j) {
-    const float* Pj = P + j * tri;
-    const float* bj = bs + j * D;
-    float maha = 0.f;
-#pragma unroll
-    for (int i = 0; i < DMAX; ++i) {
-      if (i < D) {
-        float y = 0.f;
-#pragma unroll
-        for (int l = 0; l <= i; ++l) y += Pj[i * (i + 1) / 2 + l] * xv[l];
-        y -= bj[i];
-        maha += y * y;
-      }
-    }
-    const float lp = cs[j] - 0.5f * maha;
-    rs[j * PAD + tid] = lp;
-    if (j == 0 || lp > bestv) {
-      bestv = lp;
-      best = j;
-    }
-  }
-  if (valid) labels[(long)b * n + p] = best;
-  if (!moments) return;
-
-  // responsibilities and the log-sum-exp, in place in the lp tile
+// One pixel's responsibilities (in place of its lp values in rs) and its
+// extended column [x 1 0 ...] in col; returns its log-sum-exp (0 past N).
+__device__ __forceinline__ float finish(float* rs, float* col, int p, const float (&xv)[DMAX],
+                                        float bv, bool valid, int D, int k) {
   float lse = 0.f;
   if (valid) {
     float se = 0.f;
     for (int j = 0; j < k; ++j) {
-      const float ex = expf(rs[j * PAD + tid] - bestv);
-      rs[j * PAD + tid] = ex;
+      const float ex = expf(rs[j * RSTRIDE + p] - bv);
+      rs[j * RSTRIDE + p] = ex;
       se += ex;
     }
-    for (int j = 0; j < k; ++j) rs[j * PAD + tid] /= se;
-    lse = bestv + logf(se);
+    for (int j = 0; j < k; ++j) rs[j * RSTRIDE + p] /= se;
+    lse = bv + logf(se);
   } else {
-    for (int j = 0; j < k; ++j) rs[j * PAD + tid] = 0.f;
+    for (int j = 0; j < k; ++j) rs[j * RSTRIDE + p] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < DMAX; ++i)
-    if (i < D) xs[i * PAD + tid] = xv[i];
-  xs[D * PAD + tid] = 1.f;
-  const float wl = warp_sum(lse);
-  if ((tid & 31) == 0) warp_ll[tid >> 5] = wl;
+  for (int u = 0; u < XS; u += 4) {
+    float v[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int i = u + h;
+      v[h] = i < D ? xv[i < DMAX ? i : DMAX - 1] : (i == D ? 1.f : 0.f);
+    }
+    *reinterpret_cast<float4*>(col + u) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  return lse;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 1) em_kernel(
+    const T* __restrict__ x, const float* __restrict__ pt, const float* __restrict__ bias,
+    const float* __restrict__ cnst, const int* __restrict__ tiles, int* __restrict__ labels,
+    float* __restrict__ partial, int D, int N, int k, int chunks, int njobs, int moments) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float warp_ll[NT / 32];
+  float* P = smem;                 // (k, PSTRIDE) padded lower triangles
+  float* bs = P + k * PSTRIDE;     // (k, DMAX) biases
+  float* cs = bs + k * DMAX;       // (KMAX,) constants
+  float* rs = cs + KMAX;           // (k, RSTRIDE) responsibilities (moments)
+  float* xs = rs + k * RSTRIDE;    // (CH, XS) extended columns (moments)
+  const int tid = threadIdx.x, blk = blockIdx.x, b = blockIdx.y;
+  const long n = N;
+
+  const float* ptb = pt + (long)b * k * D * D;
+  for (int e = tid; e < k * DMAX * DMAX; e += NT) {
+    const int j = e / (DMAX * DMAX), r = e - j * DMAX * DMAX, i = r / DMAX, l = r - i * DMAX;
+    if (l < 4 * (i / 4 + 1))
+      P[j * PSTRIDE + row_off(i) + l] =
+          (i < D && l <= i) ? ptb[((long)j * D + i) * D + l] : 0.f;
+  }
+  for (int e = tid; e < k * DMAX; e += NT) {
+    const int j = e / DMAX, i = e - j * DMAX;
+    bs[e] = i < D ? bias[((long)b * k + j) * D + i] : 0.f;
+  }
+  if (tid < k) cs[tid] = cnst[(long)b * k + tid];
+
+  // this thread's moments tile
+  const int job = tid % njobs, share = tid / njobs;
+  const int nshare = max(1, NT / njobs);
+  const bool tile_owner = share < nshare;
+  const int code = tiles[job];
+  const int tj = code >> 16, a0 = (code >> 8) & 0xff, c0 = code & 0xff;
+  float acc[TA][TC];
+#pragma unroll
+  for (int i = 0; i < TA; ++i)
+#pragma unroll
+    for (int c = 0; c < TC; ++c) acc[i][c] = 0.f;
+  float ll = 0.f;
   __syncthreads();
 
-  const int T1 = (D + 1) * (D + 2) / 2;  // extended triangle per component
-  const int width = k * T1 + 1;
+  const T* xb = x + (long)b * D * n;
+  const int nchunks = (N + CH - 1) / CH;
+  const int q0 = blk * chunks, q1 = min(nchunks, q0 + chunks);
+  for (int q = q0; q < q1; ++q) {
+    const long base = (long)q * CH;
+    const long p0 = base + tid, p1 = p0 + NT;
+    const bool v0 = p0 < n, v1 = p1 < n;
+    float x0[DMAX], x1[DMAX];
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      x0[i] = (i < D && v0) ? ld(xb, i * n + p0) : 0.f;
+      x1[i] = (i < D && v1) ? ld(xb, i * n + p1) : 0.f;
+    }
+    int best0 = 0, best1 = 0;
+    float bv0 = neg_inf(), bv1 = neg_inf();
+    for (int j = 0; j < k; ++j) {
+      const float* Pj = P + j * PSTRIDE;
+      const float* bj = bs + j * DMAX;
+      float m0 = 0.f, m1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < DMAX; ++i) {
+        if (i < D) {
+          float y0 = 0.f, y1 = 0.f;
+#pragma unroll
+          for (int l4 = 0; l4 <= i / 4; ++l4) {
+            const float4 w = *reinterpret_cast<const float4*>(Pj + row_off(i) + 4 * l4);
+            y0 += w.x * x0[4 * l4];
+            y1 += w.x * x1[4 * l4];
+            y0 += w.y * x0[4 * l4 + 1];
+            y1 += w.y * x1[4 * l4 + 1];
+            y0 += w.z * x0[4 * l4 + 2];
+            y1 += w.z * x1[4 * l4 + 2];
+            y0 += w.w * x0[4 * l4 + 3];
+            y1 += w.w * x1[4 * l4 + 3];
+          }
+          const float z0 = y0 - bj[i], z1 = y1 - bj[i];
+          m0 += z0 * z0;
+          m1 += z1 * z1;
+        }
+      }
+      const float lp0 = cs[j] - 0.5f * m0, lp1 = cs[j] - 0.5f * m1;
+      if (moments) {
+        rs[j * RSTRIDE + tid] = lp0;
+        rs[j * RSTRIDE + tid + NT] = lp1;
+      }
+      if (j == 0 || lp0 > bv0) {
+        bv0 = lp0;
+        best0 = j;
+      }
+      if (j == 0 || lp1 > bv1) {
+        bv1 = lp1;
+        best1 = j;
+      }
+    }
+    if (v0) labels[(long)b * n + p0] = best0;
+    if (v1) labels[(long)b * n + p1] = best1;
+    if (!moments) continue;
+
+    // responsibilities, the log-sum-exp and the extended columns
+    ll += finish(rs, xs + tid * XS, tid, x0, bv0, v0, D, k);
+    ll += finish(rs, xs + (tid + NT) * XS, tid + NT, x1, bv1, v1, D, k);
+    __syncthreads();
+    if (tile_owner) {
+      const int nvalid = (int)min((long)CH, n - base);
+      const float* rj = rs + tj * RSTRIDE;
+#pragma unroll 4
+      for (int p = share; p < nvalid; p += nshare) {
+        const float r = rj[p];
+        const float* col = xs + p * XS;
+        float wa[TA], xc[TC];
+#pragma unroll
+        for (int u = 0; u < TA; u += 4) {
+          const float4 f = *reinterpret_cast<const float4*>(col + a0 + u);
+          wa[u] = r * f.x;
+          wa[u + 1] = r * f.y;
+          wa[u + 2] = r * f.z;
+          wa[u + 3] = r * f.w;
+        }
+#pragma unroll
+        for (int u = 0; u < TC; u += 4) {
+          const float4 f = *reinterpret_cast<const float4*>(col + c0 + u);
+          xc[u] = f.x;
+          xc[u + 1] = f.y;
+          xc[u + 2] = f.z;
+          xc[u + 3] = f.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TA; ++i)
+#pragma unroll
+          for (int c = 0; c < TC; ++c) acc[i][c] += wa[i] * xc[c];
+      }
+    }
+    __syncthreads();  // rs and xs are rewritten next chunk
+  }
+  if (!moments) return;
+
+  // the shares' tiles, added in share order; the log-likelihood in warp order
+  float* red = xs;  // (nshare, njobs, TILE), free after the last chunk
+  if (tile_owner) {
+#pragma unroll
+    for (int i = 0; i < TA; ++i)
+#pragma unroll
+      for (int c = 0; c < TC; ++c) red[(share * njobs + job) * TILE + i * TC + c] = acc[i][c];
+  }
+  const float wl = warp_sum(ll);
+  if ((tid & 31) == 0) warp_ll[tid >> 5] = wl;
+  __syncthreads();
+  const int width = njobs * TILE + 1;
   float* out = partial + ((long)b * gridDim.x + blk) * width;
-  for (int o = tid; o < k * T1; o += NT) {
-    const int j = o / T1, t = o - j * T1;
-    int a = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
-    while (a * (a + 1) / 2 > t) --a;
-    while ((a + 1) * (a + 2) / 2 <= t) ++a;
-    const int c = t - a * (a + 1) / 2;
-    const float* ra = rs + j * PAD;
-    const float* xa = xs + a * PAD;
-    const float* xc = xs + c * PAD;
-    float acc = 0.f;
-    for (int q = 0; q < NT; ++q) acc += (ra[q] * xa[q]) * xc[q];
-    out[o] = acc;
+  for (int e = tid; e < njobs * TILE; e += NT) {
+    float s = 0.f;
+    for (int h = 0; h < nshare; ++h) s += red[h * njobs * TILE + e];
+    out[e] = s;
   }
   if (tid == 0) {
     float s = 0.f;
     for (int w = 0; w < NT / 32; ++w) s += warp_ll[w];
-    out[k * T1] = s;
+    out[njobs * TILE] = s;
   }
 }
 
 template <typename T>
 int launch(const void* x, const float* pt, const float* bias, const float* cnst,
-           int* labels, float* partial, float* out, int B, int D, int N, int k,
-           int moments, cudaStream_t s) {
-  const int nblk = (N + NT - 1) / NT;
-  const size_t words = (size_t)k * D * (D + 1) / 2 + (size_t)k * D + KMAX +
-                       (size_t)k * PAD + (moments ? (size_t)(D + 1) * PAD : 0);
+           const int* tiles, int* labels, float* partial, float* out, int B, int D, int N,
+           int k, int chunks, int njobs, int moments, cudaStream_t s) {
+  const int nchunks = (N + CH - 1) / CH;
+  const int nblk = (nchunks + chunks - 1) / chunks;
+  const size_t words = (size_t)k * PSTRIDE + (size_t)k * DMAX + KMAX +
+                       (moments ? (size_t)k * RSTRIDE + (size_t)CH * XS : 0);
   const size_t smem = words * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       em_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  em_kernel<T><<<dim3(nblk, B), NT, smem, s>>>(
-      (const T*)x, pt, bias, cnst, labels, partial, D, N, k, moments);
+  em_kernel<T><<<dim3(nblk, B), NT, smem, s>>>((const T*)x, pt, bias, cnst, tiles,
+                                               labels, partial, D, N, k, chunks, njobs,
+                                               moments);
   err = cudaGetLastError();
   if (err != cudaSuccess || !moments) return (int)err;
-  const int width = k * (D + 1) * (D + 2) / 2 + 1;
-  return (int)gcis::block_order_sum(partial, out, B, nblk, width, s);
+  return (int)gcis::block_order_sum(partial, out, B, nblk, njobs * TILE + 1, s);
 }
 
 }  // namespace
 
 // x: (B, D, N) float32 or bfloat16 (bf16 != 0). pt: (B, k, D, D) float32 P^T
-// (lower triangle read). bias: (B, k, D), cnst: (B, k) float32. labels:
-// (B, N) int32. With moments != 0: partial (B, ceil(N / 256), W) scratch and
-// out (B, W) float32, W = k (D + 1)(D + 2) / 2 + 1: per component the lower
-// triangle of sum r [x 1][x 1]^T, entry (a, c) at a (a + 1) / 2 + c, then the
-// sum of the per-pixel log-likelihoods. partial and out are untouched when
-// moments == 0.
+// (lower triangle read). bias: (B, k, D), cnst: (B, k) float32. tiles:
+// (njobs,) int32, the moments tiles (component << 16 | first row << 8 |
+// first column, rows a multiple of 4, columns of 8), njobs <= 320. labels:
+// (B, N) int32. chunks: the 640-pixel chunks a block walks. With moments !=
+// 0: partial (B, nblk, W) scratch, nblk = ceil(ceil(N / 640) / chunks), and
+// out (B, W) float32, W = 32 njobs + 1: tile t's entry (i, c) at 32 t + 8 i
+// + c, the sum of r [x 1]_(row + i) [x 1]_(column + c), then the sum of the
+// per-pixel log-likelihoods. partial and out are untouched when moments == 0.
 GCIS_API int gcis_em_pass(const void* x, const float* pt, const float* bias,
-                          const float* cnst, int* labels, float* partial, float* out,
-                          int B, int D, int N, int k, int bf16, int moments,
-                          void* stream) {
-  if (k < 1 || k > KMAX || D < 1 || D > DMAX || B > 65535)
+                          const float* cnst, const int* tiles, int* labels, float* partial,
+                          float* out, int B, int D, int N, int k, int chunks, int njobs,
+                          int bf16, int moments, void* stream) {
+  if (k < 1 || k > KMAX || D < 1 || D > DMAX || B < 1 || B > 65535 || N < 1 ||
+      chunks < 1 || njobs < 1 || njobs > NT)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? launch<__nv_bfloat16>(x, pt, bias, cnst, labels, partial, out, B, D,
-                                      N, k, moments, s)
-              : launch<float>(x, pt, bias, cnst, labels, partial, out, B, D, N, k,
-                              moments, s);
+  return bf16 ? launch<__nv_bfloat16>(x, pt, bias, cnst, tiles, labels, partial, out, B, D,
+                                      N, k, chunks, njobs, moments, s)
+              : launch<float>(x, pt, bias, cnst, tiles, labels, partial, out, B, D, N, k,
+                              chunks, njobs, moments, s);
 }

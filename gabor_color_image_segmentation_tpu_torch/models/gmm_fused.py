@@ -7,9 +7,12 @@ the first-index argmax labels and, unless ``moments=False``, log-sum-exp
 responsibilities r_j, the per-image sum of the log-sum-exp and the
 per-component moments sum r_j, sum r_j x and sum r_j x x^T. Arithmetic is
 float32 in both storage dtypes: the TPU kernel's bf16x3 operand split made
-up for a missing float32 dot on the TPU and is not carried over. Partials
-are per block and reduced in block order, with no float atomics, so a run
-repeats bit for bit: EM's basin depends on these sums over 30 iterations.
+up for a missing float32 dot on the TPU and is not carried over. The
+kernel sums the moments in 4 x 8 register tiles of the extended scatter
+(``tile_map``) over chunks of 640 pixels (``em_plan`` spreads the chunks
+over one wave of blocks); partials are per block and reduced in block
+order, with no float atomics, so a run repeats bit for bit: EM's basin
+depends on these sums over 30 iterations.
 
 The solver ``gmm_fused_t_xt`` mirrors the reference's sklearn semantics:
 k-means init (K6 + K5), hard one-hot moments, ``n_iter`` EM iterations with
@@ -41,7 +44,7 @@ from gabor_color_image_segmentation_tpu_torch.models.chol import (
     _params_to_kernel_inputs,
     precision_chol_params,
 )
-from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import _TILE, K_MAX
+from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import K_MAX
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import kmeans_fused_t_xt
 
 D_MAX = 40  # feature rows the kernel holds per pixel (config2: 39)
@@ -52,19 +55,56 @@ def _use_fused_prep() -> bool:
     return _FUSED_PREP
 
 
+_EM_CHUNK = 640  # pixels a chunk of K8 (320 threads, two pixels each)
+_EM_TILE = (4, 8)  # rows and columns of one of K8's moments tiles
+
+
+def em_plan(b: int, n: int, n_sm: int):
+    """K8's blocks: (chunks a block walks, blocks an image). Each image's
+    ceil(n / 640) chunks are split into runs of consecutive chunks so that
+    the b images' blocks make about one wave over the card's n_sm SMs (one
+    block an SM: each holds ~180 KB of shared memory), one block an image
+    when the batch alone fills the card."""
+    nchunks = -(-n // _EM_CHUNK)
+    chunks = -(-nchunks // max(1, n_sm // b))
+    return chunks, -(-nchunks // chunks)
+
+
+def tile_map(d: int):
+    """K8's moments tiles of one component: (first row, first column) of each
+    4 x 8 tile that holds an entry (a >= c) of the lower triangle of the
+    extended (d + 1) x (d + 1) scatter [x 1][x 1]^T, row-major."""
+    ta, tc = _EM_TILE
+    return [(a0, c0) for a0 in range(0, d + 1, ta) for c0 in range(0, a0 + ta, tc)]
+
+
+@functools.lru_cache(maxsize=16)
+def _tile_codes(d: int, k: int, device: str) -> torch.Tensor:
+    """The kernel's tile list: component << 16 | first row << 8 | first
+    column, component-major."""
+    codes = [j << 16 | a0 << 8 | c0 for j in range(k) for a0, c0 in tile_map(d)]
+    return torch.tensor(codes, dtype=torch.int32, device=device)
+
+
 @functools.lru_cache(maxsize=16)
 def _unpack_index(d: int, device: str):
-    """Index of each output in the kernel's packed moments. The kernel
-    extends x with a ones entry at index d and packs, per component, the
-    lower triangle (a >= b) of the extended (d + 1) x (d + 1) scatter at
-    a * (a + 1) / 2 + b: (a < d, b < d) the scatter, (d, b < d) the sums,
-    (d, d) the count. Returns (scatter index (d, d), sums index (d,), count
-    index, triangle size)."""
-    a = torch.arange(d)
-    hi, lo = torch.maximum(a[:, None], a[None, :]), torch.minimum(a[:, None], a[None, :])
-    tri = d * (d + 1) // 2
-    return ((hi * (hi + 1) // 2 + lo).to(device), (tri + a).to(device), tri + d,
-            (d + 1) * (d + 2) // 2)
+    """Index of each output in one component's packed moments. The kernel
+    extends x with a ones entry at index d and writes, per component, the
+    tiles of ``tile_map(d)`` in order, entry (i, c) of a tile at 32 t + 8 i
+    + c; the lower entry (a >= b) of the extended scatter sits in the tile
+    of rows a // 4 * 4 and columns b // 8 * 8: (a < d, b < d) the scatter,
+    (d, b < d) the sums, (d, d) the count. Returns (scatter index (d, d),
+    sums index (d,), count index, packed entries per component)."""
+    ta, tc = _EM_TILE
+    tiles = tile_map(d)
+    where = {t: i for i, t in enumerate(tiles)}
+
+    def pos(a, c):  # a >= c
+        return where[(a // ta * ta, c // tc * tc)] * ta * tc + a % ta * tc + c % tc
+
+    scat = torch.tensor([[pos(max(i, j), min(i, j)) for j in range(d)] for i in range(d)])
+    return (scat.to(device), torch.tensor([pos(d, c) for c in range(d)]).to(device),
+            pos(d, d), len(tiles) * ta * tc)
 
 
 def em_pass_plain(x, pt, bias, const, moments: bool = True):
@@ -108,21 +148,24 @@ def em_pass(x, pt, bias, const, moments: bool = True):
                        f"{name} must be float32 {shape}, got {t.dtype} {tuple(t.shape)}")
     if _kernels.use_plain(x, pt, bias, const):
         return em_pass_plain(x, pt, bias, const, moments)
-    _kernels.check(d <= D_MAX, f"the CUDA kernel takes D <= {D_MAX}, got {d}")
+    _kernels.check(d <= D_MAX and n >= 1,
+                   f"the CUDA kernel takes D <= {D_MAX} and N >= 1, got {d}, {n}")
     x, pt, bias, const = x.contiguous(), pt.contiguous(), bias.contiguous(), const.contiguous()
     labels = torch.empty((b, n), dtype=torch.int32, device=x.device)
-    scat_idx, sums_idx, count_idx, tri = _unpack_index(d, str(x.device))
+    dev = str(x.device)
+    scat_idx, sums_idx, count_idx, tri = _unpack_index(d, dev)
+    codes = _tile_codes(d, k, dev)
     width = k * tri + 1  # packed moments, then the log-likelihood
+    chunks, nblk = em_plan(b, n, torch.cuda.get_device_properties(x.device).multi_processor_count)
     partial = packed = None
     if moments:
-        nblk = -(-n // _TILE)
         partial = torch.empty((b, nblk, width), dtype=torch.float32, device=x.device)
         packed = torch.empty((b, width), dtype=torch.float32, device=x.device)
     _kernels.launch(
         "gcis_em_pass", x.data_ptr(), pt.data_ptr(), bias.data_ptr(), const.data_ptr(),
-        labels.data_ptr(), None if partial is None else partial.data_ptr(),
-        None if packed is None else packed.data_ptr(),
-        b, d, n, k, _kernels.storage_code(x.dtype), int(moments),
+        codes.data_ptr(), labels.data_ptr(), None if partial is None else partial.data_ptr(),
+        None if packed is None else packed.data_ptr(), b, d, n, k, chunks, codes.numel(),
+        _kernels.storage_code(x.dtype), int(moments),
     )
     em_pass.launches += 1
     if not moments:

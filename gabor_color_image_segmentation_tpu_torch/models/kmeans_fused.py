@@ -10,7 +10,9 @@ is built.
 
 - K3 (csrc/coarse_centers.cu) replaces ``_coarse_all_kernel``: maximin
   seeding and ``coarse_iters`` Lloyd passes on the pooled buffer in one
-  launch, one thread block per image. The JAX package runs that kernel in
+  launch, each image spread over a thread-block cluster of ``coarse_plan``
+  CTAs that stream its pixels and trade their partial sums through
+  distributed shared memory. The JAX package runs that kernel in
   bf16 only and routes f32 through separate maximin and Lloyd passes (with
   a fixed-point early exit, identical at the fixed point); the port runs K3
   in both dtypes, so the two differ only in reduction order.
@@ -33,11 +35,43 @@ its kernel on the H100.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from gabor_color_image_segmentation_tpu_torch import _kernels
 from gabor_color_image_segmentation_tpu_torch.models.kmeans import maximin_init
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import _TILE, K_MAX
+
+D_COARSE_MAX = 400  # feature rows K3 stages (two tiles of >= 32 pixels in shared memory)
+COARSE_CLUSTERS = (1, 2, 4, 8, 16)  # K3's cluster sizes (16 needs the non-portable size)
+_COARSE_CTA_PIXELS = 128  # a CTA's fixed cost a pass, in pixels (about one tile)
+
+
+def coarse_plan(b: int, m: int, active) -> int:
+    """CTAs per image of K3's cluster. ``active[i]`` is how many clusters of
+    ``COARSE_CLUSTERS[i]`` CTAs the card holds at once (its shared memory
+    decides: a GPC holds whole clusters only). Each pass costs a CTA about
+    ceil(m / ctas) + 128 pixels of work, and ceil(b / active) waves of
+    clusters run one after another: the size with the least waves x work
+    wins, the smaller size on a tie."""
+    best, best_cost = 1, None
+    for ctas, n in zip(COARSE_CLUSTERS, active):
+        if n < 1:
+            continue
+        cost = -(-b // n) * (-(-m // ctas) + _COARSE_CTA_PIXELS)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = ctas, cost
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _active_clusters(d: int, code: int, device: int) -> tuple:
+    """The card's co-resident clusters of K3 for each of COARSE_CLUSTERS."""
+    out = torch.zeros(len(COARSE_CLUSTERS), dtype=torch.int32)
+    with torch.cuda.device(device):
+        _kernels.launch("gcis_coarse_active_clusters", d, code, out.data_ptr())
+    return tuple(out.tolist())
 
 
 def kmeans_coarse_centers_xp_plain(xp, k: int, d: int, m: int, coarse_iters: int):
@@ -82,15 +116,17 @@ def kmeans_coarse_centers_xp(xp, k: int, d: int, m: int, coarse_iters: int):
     _kernels.storage_code(xp.dtype)
     if _kernels.use_plain(xp):
         return kmeans_coarse_centers_xp_plain(xp, k, d, m, coarse_iters)
+    _kernels.check(1 <= d <= D_COARSE_MAX,
+                   f"the CUDA kernel takes 1 <= d <= {D_COARSE_MAX}, got {d}")
     xp = xp.contiguous()
     b, rows, cols = xp.shape
+    code = _kernels.storage_code(xp.dtype)
+    ctas = coarse_plan(b, m, _active_clusters(d, code, xp.device.index))
     centers = torch.empty((b, k, d), dtype=torch.float32, device=xp.device)
     dmin = torch.empty((b, m), dtype=torch.float32, device=xp.device)
-    labels = torch.empty((b, m), dtype=torch.int32, device=xp.device)
     _kernels.launch(
-        "gcis_coarse_centers", xp.data_ptr(), centers.data_ptr(),
-        dmin.data_ptr(), labels.data_ptr(), b, rows, cols, d, m, k,
-        coarse_iters, _kernels.storage_code(xp.dtype),
+        "gcis_coarse_centers", xp.data_ptr(), centers.data_ptr(), dmin.data_ptr(),
+        b, rows, cols, d, m, k, coarse_iters, code, ctas,
     )
     kmeans_coarse_centers_xp.launches += 1
     return centers

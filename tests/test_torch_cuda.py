@@ -117,16 +117,53 @@ def test_maximin_kernel(device, dtype):
         probe = pk
 
 
+def _separated(device, dt, b, d, n, k, seed):
+    """A (B, d, n) buffer of k blobs whose means lie ~4 noise radii apart:
+    no pixel sits within rounding of a boundary between two clusters, so
+    two summation orders (the kernel's, cuBLAS's in the plain version) give
+    the same labels. Where k-means splits a blob (more clusters than
+    blobs), float32 centres that differ in their last bits send a pixel
+    near the split to the other cluster, and the centres part by ~1e-2."""
+    rng = np.random.default_rng(seed)
+    means = rng.normal(scale=4.0, size=(b, k, d))
+    lab = rng.integers(0, k, size=(b, n))
+    x = np.take_along_axis(means, lab[:, :, None], 1) + rng.normal(size=(b, n, d))
+    return torch.from_numpy(np.swapaxes(x, 1, 2).astype(np.float32)).to(device, dt)
+
+
+# K3's cases: (batch, d, rows, m, cols, k, CTAs per image forced or None)
+COARSE_CASES = {
+    "rows": None,  # the (3, 20 + 3, 30 * 44) buffer of _rows, k = 5
+    "batch1": (1, 23, 23, 1320, 1320, 5, None),  # 16 CTAs
+    "batch17_queued": (17, 23, 23, 1320, 1320, 5, 8),  # 136 CTAs, more than fit at once
+    "m_below_ctas": (1, 23, 23, 5, 5, 3, None),  # 16 CTAs, 11 of them empty
+    "ragged_unaligned": (2, 39, 41, 3001, 3004, 5, None),  # rows, columns past d, m
+    "k1": (2, 23, 23, 1320, 1320, 1, None),
+    "k8": (2, 23, 23, 1320, 1320, 8, None),
+    "d243": (2, 243, 243, 2400, 2400, 5, None),
+}
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_coarse_centers_kernel(device, dtype):
+@pytest.mark.parametrize("case", list(COARSE_CASES))
+def test_coarse_centers_kernel(device, dtype, case, monkeypatch):
     dt = DTYPES[dtype]
-    xe, xc4 = _rows(device, dt, b=3, e=20, h=30, w=44, seed=4)
-    b, e, h, w = xe.shape
-    xp = torch.cat([xe.reshape(b, e, -1), xc4[:, :3].reshape(b, 3, -1)], dim=1)
-    out = kf.kmeans_coarse_centers_xp(xp, 5, e + 3, h * w, 8)
-    ref = kf.kmeans_coarse_centers_xp_plain(xp, 5, e + 3, h * w, 8)
+    if COARSE_CASES[case] is None:
+        xe, xc4 = _rows(device, dt, b=3, e=20, h=30, w=44, seed=4)
+        b, e, h, w = xe.shape
+        xp = torch.cat([xe.reshape(b, e, -1), xc4[:, :3].reshape(b, 3, -1)], dim=1)
+        k, d, m = 5, e + 3, h * w
+    else:
+        b, d, rows, m, cols, k, ctas = COARSE_CASES[case]
+        xp = _separated(device, dt, b, rows, cols, k, seed=d + m + k)
+        if ctas is not None:
+            monkeypatch.setattr(kf, "coarse_plan", lambda *_: ctas)
+    out = kf.kmeans_coarse_centers_xp(xp, k, d, m, 8)
+    ref = kf.kmeans_coarse_centers_xp_plain(xp, k, d, m, 8)
+    again = kf.kmeans_coarse_centers_xp(xp, k, d, m, 8)
     torch.cuda.synchronize()
     assert torch.allclose(out, ref, rtol=2e-3, atol=2e-3)
+    assert torch.equal(out, again)  # two launches give the same bits
 
 
 def _buffer(device, dt, b=2, d=39, n=3001, seed=5):
@@ -176,19 +213,58 @@ def _em_inputs(x, k=5, seed=7):
     return gf._params_to_kernel_inputs(*params)
 
 
+# K8's cases: (batch, D, N, k)
+EM_CASES = {
+    "b2_d39_k5": (2, 39, 3001, 5),
+    "k1": (2, 39, 3001, 1),
+    "k8": (2, 39, 3001, 8),
+    "d3": (2, 3, 3001, 5),
+    "d40": (2, 40, 3001, 5),
+    "b1_n1": (1, 39, 1, 5),
+    "b1_n257": (1, 39, 257, 5),
+    "b1_n200003": (1, 39, 200003, 5),  # ragged: 313 chunks of 640, two a block
+}
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_em_pass_kernel(device, dtype):
-    x = _buffer(device, DTYPES[dtype], seed=8)
-    pt, bias, const = _em_inputs(x)
-    lk, llk, ck, sk, xk = gf.em_pass(x, pt, bias, const)
-    lp, llp, cp, sp, xp = gf.em_pass_plain(x, pt, bias, const)
+@pytest.mark.parametrize("case", list(EM_CASES))
+def test_em_pass_kernel(device, dtype, case):
+    b, d, n, k = EM_CASES[case]
+    x = _buffer(device, DTYPES[dtype], b=b, d=d, n=n, seed=8)
+    pt, bias, const = _em_inputs(x, k=k)
+    got = gf.em_pass(x, pt, bias, const)
+    ref = gf.em_pass_plain(x, pt, bias, const)
+    again = gf.em_pass(x, pt, bias, const)
+    only = gf.em_pass(x, pt, bias, const, moments=False)
+    only_again = gf.em_pass(x, pt, bias, const, moments=False)
     torch.cuda.synchronize()
+    lk, llk, ck, sk, xk = got
+    lp, llp, cp, sp, xp = ref
     assert (lk == lp).float().mean() >= 0.9999
-    assert torch.allclose(llk, llp, rtol=1e-5)
-    for got, ref in ((ck, cp), (sk, sp), (xk, xp)):
-        assert torch.allclose(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
-    assert torch.equal(gf.em_pass(x, pt, bias, const, moments=False), lk)
+    if n <= 3001:
+        assert torch.allclose(llk, llp, rtol=1e-5)
+        for g, r in ((ck, cp), (sk, sp), (xk, xp)):
+            assert torch.allclose(g, r, rtol=1e-4, atol=1e-4 * r.abs().max().item())
+    # chip_smoke's gate: both against the plain version in float64, the
+    # moments' error scaled by each component's summed magnitude
+    r64 = gf.em_pass_plain(x, *(t.double() for t in (pt, bias, const)))
+    scale = torch.maximum(r64[2], torch.diagonal(r64[4], dim1=2, dim2=3).amax(dim=2))
+    scale = scale.clamp(min=1e-30)
+
+    def err64(out):
+        e_ll = ((out[1].double() - r64[1]).abs() / r64[1].abs()).max().item()
+        e_m = max(((g.double() - r).abs().reshape(b, k, -1).amax(dim=2) / scale).max().item()
+                  for g, r in zip(out[2:], r64[2:]))
+        return e_ll, e_m
+
+    (ll_k, m_k), (ll_p, m_p) = err64(got), err64(ref)
+    assert ll_k <= max(1e-5, 2.0 * ll_p)
+    assert m_k <= max(1e-4, 2.0 * m_p)
+    assert torch.equal(only, lk)
     assert torch.equal(xk, xk.transpose(2, 3))  # one packed entry per pair
+    for g, a in zip(got, again):  # two launches give the same bits
+        assert torch.equal(g, a)
+    assert torch.equal(only, only_again)
 
 
 @pytest.mark.parametrize("d", [3, 39, 64])

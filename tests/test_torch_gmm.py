@@ -12,7 +12,8 @@ Tolerances: K5 labels equal on >= 99.99 % of pixels, sums within rtol 1e-4
 counts and scatter within rtol 1e-4; K9 within 5e-4 relative
 (tests/test_chol_pallas.py's bound), and K10's bias within 2e-4 and its
 const within 1e-5 relative (that test's bounds); the solvers' labels agree
-on >= 99.9 % after alignment."""
+on >= 99.9 % after alignment. K8's host-side plan (its moments tile map,
+the unpacking of its tile layout and its blocks) is checked exactly."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -264,3 +265,68 @@ def test_gmm_fused_prep_matches_jax(dtype, monkeypatch):
     monkeypatch.setattr(gf, "_FUSED_PREP", True)
     labels = gf.gmm_fused_t_xt(xb, 3, 8, 1e-4, 10, 1e-3)
     assert _aligned(labels.numpy(), np.asarray(ref)) >= 0.999
+
+
+@pytest.mark.parametrize("d", [3, 39, 40])
+def test_em_tile_map_covers_the_triangle(d):
+    """Every lower entry (a >= c) of the extended (d + 1) x (d + 1) scatter
+    lies in the lower part of exactly one of K8's tiles; the tiles start on
+    float4 boundaries inside the kernel's 52-float columns, and k <= 8
+    components need at most the kernel's 320 threads."""
+    e = d + 1
+    ta, tc = gf._EM_TILE
+    cover = np.zeros((e, e), int)
+    for a0, c0 in gf.tile_map(d):
+        assert a0 % ta == 0 and c0 % tc == 0 and ta % 4 == 0 and tc % 4 == 0
+        assert a0 + ta <= 52 and c0 + tc <= 52
+        for a in range(a0, min(a0 + ta, e)):
+            for c in range(c0, min(c0 + tc, a + 1)):
+                cover[a, c] += 1
+    assert np.array_equal(cover, np.tril(np.ones((e, e), int)))
+    assert 8 * len(gf.tile_map(d)) <= 320
+
+
+@pytest.mark.parametrize("d", [3, 39, 40])
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_em_unpack_reads_the_tile_layout(d, k):
+    """The wrapper's unpacking of K8's packed moments, on moments packed the
+    way the kernel writes them (tile t's entry (i, c) at ta tc t + tc i + c
+    of each component's block, ta x tc tiles): the scatter, sums and counts
+    come back exactly as the plain version computes them."""
+    rng = np.random.default_rng(d * 10 + k)
+    b, n = 2, 50
+    # small integers: every sum is exact, so the scatter is exactly symmetric
+    x = torch.from_numpy(rng.integers(-8, 9, size=(b, d, n)).astype(np.float64))
+    resp = torch.from_numpy(rng.integers(0, 5, size=(b, k, n)).astype(np.float64))
+    xe = torch.cat([x, torch.ones(b, 1, n, dtype=x.dtype)], dim=1)  # (B, d + 1, N)
+    full = torch.einsum("bjn,ban,bcn->bjac", resp, xe, xe)  # extended scatter
+    tiles = gf.tile_map(d)
+    ta, tc = gf._EM_TILE
+    packed = torch.zeros(b, k, len(tiles) * ta * tc, dtype=x.dtype)
+    for t, (a0, c0) in enumerate(tiles):
+        for i in range(ta):
+            for c in range(tc):
+                if a0 + i <= d and c0 + c <= d:
+                    packed[:, :, ta * tc * t + tc * i + c] = full[:, :, a0 + i, c0 + c]
+    scat_idx, sums_idx, count_idx, per = gf._unpack_index(d, "cpu")
+    assert per == packed.shape[2]
+    assert torch.equal(packed[:, :, scat_idx], full[:, :, :d, :d])
+    assert torch.equal(packed[:, :, sums_idx], full[:, :, d, :d])
+    assert torch.equal(packed[:, :, count_idx], full[:, :, d, d])
+
+
+@pytest.mark.parametrize("b, n, n_sm, expect", [
+    (8, 9600, 132, (1, 15)),  # config2's fit grid: 120 blocks
+    (8, 154401, 132, (16, 16)),  # config2's full resolution: 128 blocks
+    (1, 257, 132, (1, 1)),
+    (1, 154401, 132, (2, 121)),
+    (200, 3001, 132, (5, 1)),  # the batch alone fills the card
+])
+def test_em_plan(b, n, n_sm, expect):
+    """K8's plan: every chunk in exactly one block, about one wave of
+    blocks."""
+    chunks, nblk = gf.em_plan(b, n, n_sm)
+    assert (chunks, nblk) == expect
+    nchunks = -(-n // 640)
+    assert (nblk - 1) * chunks < nchunks <= nblk * chunks
+    assert b * nblk <= max(n_sm, b)

@@ -28,6 +28,7 @@ from gabor_color_image_segmentation_tpu.utils.labels import align_labels
 from gabor_color_image_segmentation_tpu_torch.models import kmeans as tkm
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_chw as tchw
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import (
+    coarse_plan,
     kmeans_coarse_centers_xp,
 )
 
@@ -195,3 +196,27 @@ def test_kmeans_fused_chw_matches_eager(problem, warm_start):
         assert (align_labels(got, ref) == ref).mean() >= 0.995
         np.testing.assert_allclose(centers[i].numpy(), refs[i][1].numpy(),
                                    rtol=2e-3, atol=2e-3)
+
+
+# clusters of 1, 2, 4, 8, 16 CTAs a card of 132 SMs might hold at once (a
+# GPC holds whole clusters only, so 8 and 16 fit fewer times than 132 / n)
+ACTIVE = (132, 66, 32, 16, 7)
+
+
+@pytest.mark.parametrize("b, m, active, expect", [
+    (16, 9600, ACTIVE, 8),  # config1: 16 clusters of 8 in one wave
+    (16, 9600, (132, 66, 32, 14, 7), 16),  # 8: 2 waves of 1,328 px; 16: 3 of 728
+    (1, 9600, ACTIVE, 16),
+    (17, 1320, ACTIVE, 4),  # the 17th cluster of 8 would wait for a second wave
+    (1, 5, ACTIVE, 8),  # fewer pixels than CTAs: 8 and 16 tie, the smaller wins
+    (500, 9600, ACTIVE, 1),
+    (4, 9600, (132, 66, 32, 16, 0), 8),  # no 16-CTA cluster fits
+])
+def test_coarse_plan(b, m, active, expect):
+    """K3's CTAs per image: the cluster size with the least waves x work
+    per CTA (ceil(m / ctas) + 128 pixels), the smaller on a tie."""
+    ctas = coarse_plan(b, m, active)
+    assert ctas == expect
+    cost = {c: -(-b // n) * (-(-m // c) + 128)
+            for c, n in zip((1, 2, 4, 8, 16), active) if n}
+    assert cost[ctas] == min(cost.values())
