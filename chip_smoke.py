@@ -14,9 +14,11 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    single launch reads under 1 ms, the median of 5 means over 50
    back-to-back calls, the single-launch reading printed beside it):
    K1-K4 at config1 (batch 16 of 321x481, bf16) and config0 (batch 1, f32
-   and bf16), K3 also on config1's buffer in float32 and at batch 1, each
-   K3 call launched twice (bit-equal) and beside its design floor (k + 1 +
-   iters reads of its buffer); K7 (one pass and the whole ``kmeans_fused``, whose run with
+   and bf16), K2 launched twice (labels and sums bit-equal), its labels-only
+   pass timed too, both beside its bytes bound with its plan (CTAs an
+   image, tiles, stages, bytes in flight), K3 also on config1's buffer in
+   float32 and at batch 1, each K3 call launched twice (bit-equal) and
+   beside its design floor (k + 1 + iters reads of its buffer); K7 (one pass and the whole ``kmeans_fused``, whose run with
    the counts set to 0 just before it and read just after is K7's path) on
    config1's standardised features laid out (16, 154401, 243) in bf16; K1
    (no twin), K5, K6, K8 (the fit grid and full resolution, with moments
@@ -32,11 +34,14 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    share the pass meets) and K15 (table lookup, with ``torch.gather`` as
    the library call; and with a table of 50,000 entries) at config3
    (batch 8); K13
-   (the banded SLIC loop) at config4's pooled grid (batch 8 of 540x960,
-   S = 405), with K11 there, one K13 pass by column-piece width and one
-   update as readings, and K14 and K15 on K13's output there (config4's
-   min_size, a (8, 405) table, K14 also on the spiral maze); K12 (the one-launch w5 SLIC) at 8x321x481
-   with 400 superpixels, with K11 and K13 there as readings; K16-K18
+   (the banded SLIC loop, two loops bit-equal) at config4's pooled grid
+   (batch 8 of 540x960, S = 405), one pass (labels and partials) and one
+   update bit-equal to their plain versions, timed with a labels-only pass
+   beside the pass's bound, with K11 there and one pass by column-piece
+   width as readings, and K14 and K15 on K13's output there (config4's
+   min_size, a (8, 405) table, K14 also on the spiral maze); K12 (the
+   one-launch w5 SLIC) at 8x321x481 with 400 superpixels, K13's loop
+   bit-equal to it, with K11 and K13 there as readings; K16-K18
    (superpixel sums and counts, with one ``index_add_`` as the library
    call) on the graph stage's own features and connected superpixels at
    config3 (S = 925) and config4's pooled grid (S = 405), and on config3's
@@ -72,7 +77,7 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
 
 Tolerances (also in the tests): energies <= 1e-4 * peak (f32), <= 2e-2 *
 peak (bf16); Lloyd labels equal on >= 99.99 % of pixels, sums within rtol
-1e-4 (f32) / 1e-3 (bf16); coarse centres within rtol and atol 2e-3 and
+1e-4 (f32) / 1e-3 (bf16), two K2 launches bit-equal; coarse centres within rtol and atol 2e-3 and
 two K3 launches bit-equal;
 maximin picks the same pixels, running minima within rtol 1e-5 (K4) or
 within 1e-5 of the largest distance (K6, whose expanded form cancels near
@@ -83,7 +88,8 @@ plain version's error) and the moments within max(1e-4 of each
 component's summed magnitude, twice the plain version's error), two K8
 launches bit-equal;
 SLIC labels equal on >= 99.9 % of each image's pixels (K11) or on every
-pixel (K12 and K13 against their plain banded loop); connectivity and
+pixel (K12 and K13 against their plain banded loop, K13's loop against
+K12, two calls of each; K13's pass and update bit-equal); connectivity and
 lookup bit-equal; precision Cholesky within 5e-4 relative of cuSOLVER on well-conditioned
 matrices, and on the EM's ill-conditioned covariances, where two float32
 inverses differ entry by entry by up to cond * eps, a backward error
@@ -234,6 +240,7 @@ def main() -> None:
 
     set_policy()
     dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     kernels = {  # wrapper -> (wrapper, source, TPU kernel it replaces)
         "gabor_energies_fused": (fused.gabor_energies_fused,
@@ -393,28 +400,44 @@ def main() -> None:
         return xc4, pc0, affine
 
     def compare_lloyd(xe, xc4, affine, centers, dt, tag, main_shape):
+        """K2 with sums against its plain version (labels >= 0.9999 equal,
+        sums within rtol of the plain sums' largest magnitude), labels only
+        equal to the full pass's labels, two launches bit-equal; then the
+        labels-only pass timed, each beside the bound, and K2's plan."""
         a, b = affine
         u = centers - b[:, None, :]
         wc = (a[:, None, :] * u).to(dt).float()
         offs = u.square().sum(dim=2)
         lk, sk, ck = kc.lloyd_chw_pass(xe, xc4, wc, offs)
+        again = kc.lloyd_chw_pass(xe, xc4, wc, offs)
         lp, sp, cp = kc.lloyd_chw_pass_plain(xe, xc4, wc, offs)
         only = kc.lloyd_chw_pass(xe, xc4, wc, offs, assign_only=True)
         torch.cuda.synchronize()
         same = (lk == lp).float().mean().item()
+        bits = all(torch.equal(x, y) for x, y in zip((lk, sk, ck), again))
         rtol = 1e-4 if dt == torch.float32 else 1e-3
         scale = sp.abs().max().item()
         err = (sk - sp).abs().max().item()
-        ok = (same >= 0.9999 and err <= rtol * scale and torch.equal(only, lk))
+        ok = (same >= 0.9999 and err <= rtol * scale and torch.equal(only, lk) and bits)
         bsz, e = xe.shape[:2]
         npix = xe.shape[2] * xe.shape[3]
         k, d = wc.shape[1], e + 3
         main = (bsz * npix * (d * size(dt) + 4), bsz * npix * (2 * k * d + d))
-        report("lloyd_chw_pass", f"{tag} labels equal {same:.6f}", err, err,
-               f"{rtol}*{scale:.4g}", ok,
-               lambda: kc.lloyd_chw_pass(xe, xc4, wc, offs),
-               lambda: kc.lloyd_chw_pass_plain(xe, xc4, wc, offs),
-               main if main_shape else None)
+        ms = report("lloyd_chw_pass", f"{tag} labels equal {same:.6f}, two launches "
+                    f"bit-equal {bits}", err, err, f"{rtol}*{scale:.4g}", ok,
+                    lambda: kc.lloyd_chw_pass(xe, xc4, wc, offs),
+                    lambda: kc.lloyd_chw_pass_plain(xe, xc4, wc, offs),
+                    main if main_shape else None)
+        ms_only = timed(lambda: kc.lloyd_chw_pass(xe, xc4, wc, offs, assign_only=True))[0]
+        p, stages, ctas, tpc = kc.lloyd_plan(bsz, npix, d, size(dt), n_sm)
+        smem = kc._lloyd_smem(d, p, stages, size(dt))
+        fly = max(1, stages - 1) * d * (p * size(dt) + 16)  # one CTA an SM
+        b_ms = bound(*main)[0]
+        print(f"phase 3: lloyd_chw_pass [{tag}] bound {b_ms:.4f} ms (bytes): with sums "
+              f"{ms:.4f} ms, {100 * b_ms / ms:.1f} % of it; labels only {ms_only:.4f} ms, "
+              f"{100 * b_ms / ms_only:.1f} % of it; plan {ctas} CTAs an image x {tpc} tiles of "
+              f"{p} pixels, {stages} stages, {smem / 1024:.1f} KB a CTA (one an SM), "
+              f"{fly / 1024:.0f} KB in flight an SM ({card})", flush=True)
 
     def compare_maximin(xe, xc4, affine, tag, main_shape):
         a, _ = affine
@@ -923,22 +946,30 @@ def main() -> None:
     for _ in range(g4.pool):
         lab4 = tiled.pool2x2_mean(lab4, 1)
 
-    def compare_banded(name, fn, lab, n_sp, tag, readings):
+    def compare_banded(name, fn, lab, n_sp, tag, readings, equal_to=()):
         """``fn`` (K13's loop or K12) against the plain banded loop: labels
-        equal on every pixel. The least work is K11's (see run_slic)."""
+        equal on every pixel, and two calls bit-equal; the calls in
+        ``equal_to`` bit-equal to it too. The least work is K11's (see
+        run_slic)."""
         args = (lab, n_sp, g4.slic_compactness, g4.slic_iters)
-        got, ref = fn(*args), sf.slic_banded_plain(*args)
+        got, again, ref = fn(*args), fn(*args), sf.slic_banded_plain(*args)
         torch.cuda.synchronize()
         ndiff = int((got != ref).sum())
+        twice = torch.equal(got, again)
         bsz, h, w, _ = lab.shape
         gh, gw, _ = sl.grid_shape(h, w, n_sp)
         n_cand = int(sl._candidates(h, w, gh, gw, dev)[1].sum()) * bsz
         flops = ((g4.slic_iters + 1) * (n_cand * 12 + bsz * gh * gw * 11)
                  + g4.slic_iters * bsz * h * w * 6)
         report(name, f"{tag} S={gh * gw}, {g4.slic_iters} iterations, {ndiff} pixels "
-               f"differ", float((got - ref).abs().max()), ndiff,
-               "labels equal on every pixel", ndiff == 0, lambda: fn(*args),
+               f"differ, two calls bit-equal {twice}", float((got - ref).abs().max()), ndiff,
+               "labels equal on every pixel", ndiff == 0 and twice, lambda: fn(*args),
                lambda: sf.slic_banded_plain(*args), (lab.numel() * 4 + got.numel() * 4, flops))
+        for other, ofn in equal_to:
+            ndiff = int((ofn(*args) != got).sum())
+            print(f"phase 3: {other} [{tag} S={gh * gw}] {ndiff} pixels differ from "
+                  f"{name}'s labels ({card})", flush=True)
+            check(ndiff == 0, f"{other} is not bit-equal to {name} at {tag}")
         for other, ofn in readings:
             same = (ofn(*args) == got).float().mean(dim=(1, 2)).min().item()
             other_ms = timed(lambda: ofn(*args))[0]
@@ -953,19 +984,37 @@ def main() -> None:
     sp4 = compare_banded("slic_band_pass", sf.slic_banded, lab4, g4.n_superpixels,
                          f"{tag4p}, banded loop, 11 pass launches",
                          [("slic_w3 (K11)", sf.slic_w3)])
-    # where K13's loop spends its time (readings): one pass with partials
-    # at several column-piece widths (the frame's width is one piece per
-    # band), and one update after the default pass
+    # K13's pass (labels and partials) and update bit-equal to their plain
+    # versions at centroids three plain iterations off the grid; one pass
+    # with partials, one labels only and one update beside the pass's
+    # bound, and one pass at several column-piece widths (the frame's width
+    # is one piece per band) as readings
     bp4 = sf._band_plan(h4, w4, g4.n_superpixels)
     sw4 = sl.slic_geometry(h4, w4, g4.n_superpixels, g4.slic_compactness)[2]
     cent4 = sl.slic_init_centroids(lab4, bp4["gh"], bp4["gw"])
+    for _ in range(3):
+        cent4 = sf.slic_band_update_plain(cent4, sf.slic_band_pass_plain(lab4, cent4, bp4,
+                                                                         sw4)[1], bp4)
+    lk4, pk4 = sf.slic_band_pass(lab4, cent4, bp4, sw4)
+    lp4, pp4 = sf.slic_band_pass_plain(lab4, cent4, bp4, sw4)
+    up_ok = torch.equal(sf.slic_band_update(cent4.clone(), pk4, bp4, h4),
+                        sf.slic_band_update_plain(cent4, pp4, bp4))
+    torch.cuda.synchronize()
+    pass_ok = torch.equal(lk4, lp4) and torch.equal(pk4, pp4)
+    n_cand4 = int(sl._candidates(h4, w4, bp4["gh"], bp4["gw"], dev)[1].sum()) * lab4.shape[0]
+    pass_b = bound(lab4.numel() * 4 + lk4.numel() * 4, n_cand4 * 12)[0]
+    t_pass = timed(lambda: sf.slic_band_pass(lab4, cent4, bp4, sw4))[0]
+    t_only = timed(lambda: sf.slic_band_pass(lab4, cent4, bp4, sw4, partials=False))[0]
+    t_update = timed(lambda: sf.slic_band_update(cent4.clone(), pk4, bp4, h4))[0]
     by_cols = {c: round(timed(lambda: sf.slic_band_pass(lab4, cent4, bp4, sw4, cols=c))[0], 4)
                for c in (w4, 256, sf._BAND_COLS, 64)}
-    parts4 = sf.slic_band_pass(lab4, cent4, bp4, sw4)[1]
-    t_update = timed(lambda: sf.slic_band_update(cent4.clone(), parts4, bp4, h4))[0]
-    print(f"phase 3: slic_band_pass [{tag4p}] (readings) one pass with partials by column "
-          f"width {by_cols} ms, one update {t_update:.4f} ms ({card})", flush=True)
-    del parts4, cent4
+    print(f"phase 3: slic_band_pass [{tag4p}] one pass: labels and partials bit-equal to the "
+          f"plain pass {pass_ok}, update bit-equal {up_ok}; with partials {t_pass:.4f} ms, "
+          f"labels only {t_only:.4f} ms, bound {pass_b:.4f} ms ({100 * pass_b / t_pass:.1f} % "
+          f"of it with partials); one update {t_update:.4f} ms (a centroid clone included); "
+          f"with partials by column width {by_cols} ms (readings) ({card})", flush=True)
+    check(pass_ok and up_ok, "K13's pass or update is not bit-equal to its plain version")
+    del lk4, pk4, lp4, pp4, cent4
 
     # K14 and K15 on K13's output, at config4's shapes: 3.4x config3's
     # pixels a frame, with config4's min_size and a table of its S rows
@@ -1077,7 +1126,8 @@ def main() -> None:
     lab5 = pl._color_transform(torch.from_numpy(rgb8).to(dev), "lab")
     check(sf.slic_route(321, 481, 400, "w5") == "w5", "8x321x481 at 400 superpixels is not w5")
     compare_banded("slic_w5", sf.slic_w5, lab5, 400, "8x321x481, one cooperative launch",
-                   [("slic_w3 (K11)", sf.slic_w3), ("slic_banded (K13)", sf.slic_banded)])
+                   [("slic_w3 (K11)", sf.slic_w3), ("slic_banded (K13)", sf.slic_banded)],
+                   equal_to=[("slic_banded (K13)", sf.slic_banded)])
     del lab4, lab5
 
     # tiled K1 at config4: against K1 on the whole frames plus pooling (a

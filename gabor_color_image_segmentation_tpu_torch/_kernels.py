@@ -47,7 +47,7 @@ _SIGNATURES = {
     "gcis_enforce_connectivity": [_P] * 6 + [_I] * 5 + [_P],
     "gcis_table_lookup": [_P] * 3 + [_I] * 3 + [_P],
     "gcis_gabor_group": [_P] * 8 + [_I] * 10 + [_P],
-    "gcis_lloyd_chw": [_P] * 7 + [_I] * 6 + [_P],
+    "gcis_lloyd_chw": [_P] * 7 + [_I] * 10 + [_P],
     "gcis_maximin_chw": [_P] * 8 + [_I] * 5 + [_P],
     "gcis_coarse_centers": [_P] * 3 + [_I] * 9 + [_P],
     "gcis_coarse_active_clusters": [_I] * 2 + [_P] * 2,
@@ -139,6 +139,13 @@ def launch(name: str, *args) -> None:
             f"{name} failed: CUDA error {rc} "
             f"({lib.gcis_error_string(rc).decode()})"
         )
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, for a kernel's launch plan. The kernels are
+    built (or loaded) first, so a missing nvcc raises here as at a launch."""
+    library()
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def use_plain(*tensors: torch.Tensor) -> bool:

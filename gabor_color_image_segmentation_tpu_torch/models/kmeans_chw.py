@@ -13,7 +13,10 @@ exit, and final labels from one assign-only pass under the final centres.
 K2 ``lloyd_chw_pass`` (csrc/lloyd_chw.cu) replaces
 ``models/kmeans_chw.py::_lloyd_chw_kernel``; K4 ``maximin_chw_pass``
 (csrc/maximin_chw.cu) replaces ``::_maximin_chw_kernel``. Both source files
-say what bounds them on the H100 (HBM bandwidth). Each wrapper runs its
+say what bounds them on the H100 (HBM bandwidth). K2 runs persistent CTAs
+that stage tiles of P pixels x D rows in shared memory and score and sum
+them on the tensor cores (``lloyd_plan`` sizes the tiles, the stages and
+the CTAs an image). Each wrapper runs its
 ``*_plain`` twin for CPU tensors and launches the kernel for CUDA tensors.
 """
 
@@ -28,7 +31,7 @@ from gabor_color_image_segmentation_tpu_torch import _kernels
 from gabor_color_image_segmentation_tpu_torch.ops.features import fold_coherence_affine
 
 K_MAX = 8  # centre rows the kernels hold
-_TILE = 256  # pixels per block in both kernels
+_TILE = 256  # pixels per block of K4 (and of K5, K6 in kmeans_fused)
 
 
 def _check_rows(xe: torch.Tensor, xc4: torch.Tensor) -> None:
@@ -67,6 +70,48 @@ def lloyd_chw_pass_plain(xe, xc4, wc, offs, assign_only=False):
     return labels.to(torch.int32).reshape(b, h, w), sums, onehot.sum(dim=1)
 
 
+# K2's launch (csrc/lloyd_chw.cu): 512 threads a CTA, one CTA an SM, at most
+# 227 KB of shared memory a CTA
+_SMEM_CTA = 227 * 1024
+
+
+def _lloyd_smem(d: int, p: int, stages: int, esize: int) -> int:
+    """K2's dynamic shared memory a CTA, as csrc/lloyd_chw.cu's smem_bytes:
+    the ring of staged tiles (rows of p values plus 16 bytes for the
+    alignment shift, and a row of ones and one of zeros a stage), the
+    centre rows as score fragments (three bf16 parts, 768 bytes a 16-row
+    chunk), the sums fragments (512 bytes a 16-row tile of the (D + 1)-row
+    operand), the rows' source addresses, the ring's mbarriers, the tile's
+    labels, the rows' offsets and the score offsets."""
+    nkc, nmt = -(-d // 16), -(-(d + 1) // 16)
+    return (stages * (d + 2) * (p * esize + 16) + 768 * nkc + 512 * nmt + 8 * d + 32
+            + 4 * (p + 16 * nkc + K_MAX))
+
+
+def lloyd_plan(b: int, n: int, d: int, esize: int, n_sm: int):
+    """K2's launch: (pixels a tile, stages, CTAs an image, tiles a CTA).
+
+    A tile is 128 pixels (each of the CTA's 16 warps scores 8 of them) or
+    fewer, halving until two stages fit a CTA's shared memory, then the
+    most stages (up to 4) that fit; one stage of 16 pixels is the last
+    resort (D up to 1,344 float32 or 1,650 bf16 rows). One CTA an SM: the
+    CTAs of the b images make about one wave (n_sm // b an image, each
+    walking consecutive tiles), one CTA an image when the batch alone
+    fills the card."""
+    for ring in ((4, 3, 2), (1,)):
+        p = 128
+        while p >= 16:
+            fits = [s for s in ring if _lloyd_smem(d, p, s, esize) <= _SMEM_CTA]
+            if fits:
+                ntiles = -(-n // p)
+                ctas = min(ntiles, max(1, n_sm // b))
+                tpc = -(-ntiles // ctas)
+                return p, fits[0], -(-ntiles // tpc), tpc
+            p //= 2
+    raise ValueError(f"K2's tiles do not fit shared memory at D = {d} feature rows "
+                     f"({esize}-byte values)")
+
+
 def lloyd_chw_pass(xe, xc4, wc, offs, assign_only=False):
     """One Lloyd pass over raw rows under folded centres.
 
@@ -88,18 +133,19 @@ def lloyd_chw_pass(xe, xc4, wc, offs, assign_only=False):
     xe, xc4 = xe.contiguous(), xc4.contiguous()
     wc, offs = wc.contiguous(), offs.contiguous()
     n = h * w
-    nblk = -(-n // _TILE)
+    p, stages, ctas, tpc = lloyd_plan(b, n, e + 3, xe.element_size(),
+                                      _kernels.sm_count(xe.device))
     labels = torch.empty((b, h, w), dtype=torch.int32, device=xe.device)
     partial = sums = None
     if not assign_only:
-        partial = torch.empty((b, nblk, k, e + 4), dtype=torch.float32, device=xe.device)
+        partial = torch.empty((b, ctas, k, e + 4), dtype=torch.float32, device=xe.device)
         sums = torch.empty((b, k, e + 4), dtype=torch.float32, device=xe.device)
     _kernels.launch(
         "gcis_lloyd_chw", xe.data_ptr(), xc4.data_ptr(), wc.data_ptr(),
         offs.data_ptr(), labels.data_ptr(),
         None if assign_only else partial.data_ptr(),
         None if assign_only else sums.data_ptr(),
-        b, e, n, k, _kernels.storage_code(xe.dtype), int(assign_only),
+        b, e, n, k, _kernels.storage_code(xe.dtype), p, stages, ctas, tpc, int(assign_only),
     )
     lloyd_chw_pass.launches += 1
     if assign_only:

@@ -44,6 +44,7 @@ banded loop on those, for K12 (whose one launch runs the same loop).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -162,9 +163,11 @@ def slic_route(h: int, w: int, n_superpixels: int, plan: str = "auto") -> str:
     return "banded"
 
 
+@functools.lru_cache(maxsize=None)
 def _band_plan(h: int, w: int, n_superpixels: int) -> dict:
     """The uniform-band plan of K12 and K13, checked: every pixel's
-    candidate rows (its float32 cell row +- 1) lie in its band's window."""
+    candidate rows (its float32 cell row +- 1) lie in its band's window.
+    Cached: the check runs on the host, once a geometry."""
     bp = slic_plan(h, w, n_superpixels)
     _kernels.check(bp is not None and bp["w_rows"] > 0,
                    f"no uniform-band SLIC plan at {h}x{w} with {n_superpixels} superpixels")
@@ -296,9 +299,9 @@ slic_band_pass.launches = 0
 
 
 def slic_band_update(cent: torch.Tensor, parts: torch.Tensor, bp: dict, h: int) -> torch.Tensor:
-    """K13's update (one thread per superpixel, launched after each pass
-    but the last; its own launch counter): the new (B, S, 5) centroids. On
-    the card ``cent`` is updated in place and returned."""
+    """K13's update (one warp per superpixel, launched after each pass but
+    the last; its own launch counter): the new (B, S, 5) centroids. On the
+    card ``cent`` is updated in place and returned."""
     b = cent.shape[0]
     _kernels.check(tuple(cent.shape) == (b, bp["n_sp"], 5) and cent.dtype == torch.float32,
                    f"cent must be ({b}, {bp['n_sp']}, 5) float32")

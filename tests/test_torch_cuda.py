@@ -98,6 +98,51 @@ def test_lloyd_kernel(device, dtype):
     assert torch.equal(kc.lloyd_chw_pass(xe, xc4, wc, offs, assign_only=True), labels)
 
 
+# K2's plan at its edges: (B, E, H, W, k). N not a multiple of the tile, N
+# under one tile, batch 1 and 16, k = 1 and 8, config1's 243 rows, 603 rows
+# (16-pixel tiles, five M-tiles a warp) and rows whose pointer is not
+# 16-byte aligned (an energy view one plane into a larger buffer)
+K2_CASES = {
+    "ragged": (2, 20, 37, 53, 5),
+    "under_tile": (2, 7, 5, 9, 3),
+    "b1_config0": (1, 36, 321, 481, 5),
+    "b16": (16, 40, 33, 47, 5),
+    "k1": (2, 12, 40, 61, 1),
+    "k8": (2, 12, 40, 61, 8),
+    "d243": (2, 240, 41, 61, 5),
+    "d603": (1, 600, 19, 23, 5),
+    "offset": (1, 9, 31, 43, 4),
+}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_lloyd_kernel_plan_edges(device, dtype, case):
+    """K2 against its plain version at the plan's edges, labels only equal
+    to the full pass's labels, and two launches bit-equal."""
+    dt = DTYPES[dtype]
+    b, e, h, w, k = K2_CASES[case]
+    if case == "offset":
+        xe, xc4 = _rows(device, dt, b=b, e=e + 1, h=h, w=w, seed=3)
+        xe = xe[:, 1:]  # contiguous, one odd plane past the allocation's start
+        assert xe.is_contiguous() and xe.data_ptr() % 16
+    else:
+        xe, xc4 = _rows(device, dt, b=b, e=e, h=h, w=w, seed=len(case))
+    g = torch.Generator().manual_seed(k)
+    wc = (torch.randn((b, k, e + 3), generator=g) * 0.1).to(device).to(dt).float()
+    offs = torch.rand((b, k), generator=g).to(device)
+    labels, sums, counts = kc.lloyd_chw_pass(xe, xc4, wc, offs)
+    again = kc.lloyd_chw_pass(xe, xc4, wc, offs)
+    rl, rs, rc = kc.lloyd_chw_pass_plain(xe, xc4, wc, offs)
+    torch.cuda.synchronize()
+    assert (labels == rl).float().mean() >= 0.9999
+    assert torch.equal(counts, rc)
+    rtol = 1e-4 if dt == torch.float32 else 1e-3
+    assert (sums - rs).abs().max() <= rtol * rs.abs().max()
+    assert all(torch.equal(x, y) for x, y in zip((labels, sums, counts), again))
+    assert torch.equal(kc.lloyd_chw_pass(xe, xc4, wc, offs, assign_only=True), labels)
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_maximin_kernel(device, dtype):
     dt = DTYPES[dtype]
@@ -331,6 +376,34 @@ def test_slic_band_pass_kernel(device, geometry):
     got = sf.slic_banded(lab, n_sp, 10.0, 10)
     assert torch.equal(got, sf.slic_banded_plain(lab, n_sp, 10.0, 10))
     assert (got == sl.slic_plain(lab, n_sp, 10.0, 10)).float().mean(dim=(1, 2)).min() >= 0.999
+
+
+@pytest.mark.parametrize("geometry", [(40, 77, 20), (33, 129, 24), (150, 203, 100),
+                                      (161, 77, 60), (200, 301, 150)])
+def test_slic_band_pass_kernel_odd_widths(device, geometry):
+    """K13 at widths under one column piece and at odd widths (scalar Lab
+    loads), and with 30-column pieces (ragged, not a multiple of 4): pass
+    and update bit-equal to their plain versions, two banded loops
+    bit-equal to each other, to the plain loop and to K12's."""
+    h, w, n_sp = geometry
+    lab = _lab(device, h, w)
+    bp = sf._band_plan(h, w, n_sp)
+    _, _, sw = sl.slic_geometry(h, w, n_sp, 10.0)
+    cent = sl.slic_init_centroids(lab, bp["gh"], bp["gw"])
+    for _ in range(2):
+        _, parts = sf.slic_band_pass_plain(lab, cent, bp, sw)
+        cent = sf.slic_band_update_plain(cent, parts, bp)
+    for cols in (sf._BAND_COLS, 30):
+        lk, pk = sf.slic_band_pass(lab, cent, bp, sw, cols=cols)
+        lp, pp = sf.slic_band_pass_plain(lab, cent, bp, sw, cols=cols)
+        torch.cuda.synchronize()
+        assert torch.equal(lk, lp) and torch.equal(pk, pp)
+        assert torch.equal(sf.slic_band_update(cent.clone(), pk, bp, h),
+                           sf.slic_band_update_plain(cent, pp, bp))
+    got = sf.slic_banded(lab, n_sp, 10.0, 10)
+    assert torch.equal(got, sf.slic_banded(lab, n_sp, 10.0, 10))
+    assert torch.equal(got, sf.slic_banded_plain(lab, n_sp, 10.0, 10))
+    assert torch.equal(got, sf.slic_w5(lab, n_sp, 10.0, 10))
 
 
 @pytest.mark.parametrize("geometry", [(96, 128, 64), (37, 53, 10), (321, 481, 400)])

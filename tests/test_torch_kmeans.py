@@ -203,6 +203,40 @@ def test_kmeans_fused_chw_matches_eager(problem, warm_start):
 ACTIVE = (132, 66, 32, 16, 7)
 
 
+@pytest.mark.parametrize("b, n, d, esize, n_sm, expect", [
+    (16, 154401, 243, 2, 132, (128, 3, 8, 151)),  # config1 full resolution bf16
+    (16, 38400, 243, 2, 132, (128, 3, 8, 38)),  # config1's 2x2 twin
+    (16, 154401, 243, 4, 132, (64, 3, 8, 302)),  # config1's rows in float32
+    (1, 154401, 39, 4, 132, (128, 4, 121, 10)),  # config0 f32 batch 1
+    (4, 154401, 243, 2, 114, (128, 3, 28, 44)),  # a card of 114 SMs
+    (2, 45, 10, 2, 132, (128, 4, 1, 1)),  # fewer pixels than one tile
+    (1, 100, 603, 2, 132, (64, 2, 2, 1)),  # 603 rows: two stages of 64 pixels
+    (1, 5000, 1203, 4, 132, (16, 1, 105, 3)),  # the last resort, one stage
+    (300, 1000, 39, 2, 132, (128, 4, 1, 8)),  # more images than SMs
+])
+def test_lloyd_plan(b, n, d, esize, n_sm, expect):
+    """K2's plan: the widest tile (<= 128 pixels) whose two stages fit a
+    CTA's shared memory, then the most stages (<= 4) that fit; every tile
+    in exactly one CTA; the batch's CTAs about one wave, one an SM."""
+    plan = tchw.lloyd_plan(b, n, d, esize, n_sm)
+    assert plan == expect
+    p, stages, ctas, tpc = plan
+    ntiles = -(-n // p)
+    assert (ctas - 1) * tpc < ntiles <= ctas * tpc
+    assert b * ctas <= max(n_sm, b)
+    fits = lambda q, s: tchw._lloyd_smem(d, q, s, esize) <= 227 * 1024  # noqa: E731
+    assert fits(p, stages) and (stages == 4 or not fits(p, stages + 1))
+    assert p == 128 or not fits(2 * p, min(2, stages))
+
+
+def test_lloyd_plan_refuses_rows_past_shared_memory():
+    tchw.lloyd_plan(1, 1000, 1650, 2, 132)
+    with pytest.raises(ValueError, match="do not fit shared memory at D = 1651"):
+        tchw.lloyd_plan(1, 1000, 1651, 2, 132)
+    with pytest.raises(ValueError, match="D = 1345"):
+        tchw.lloyd_plan(1, 1000, 1345, 4, 132)
+
+
 @pytest.mark.parametrize("b, m, active, expect", [
     (16, 9600, ACTIVE, 8),  # config1: 16 clusters of 8 in one wave
     (16, 9600, (132, 66, 32, 14, 7), 16),  # 8: 2 waves of 1,328 px; 16: 3 of 728
