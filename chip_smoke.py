@@ -23,11 +23,19 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    config1's standardised features laid out (16, 154401, 243) in bf16; K1
    (no twin), K5, K6, K8 (the fit grid and full resolution, with moments
    and labels only, each launched twice: bit-equal), K9 and K10 (on the first EM pass's moments and on
-   well-conditioned ones) at config2 (batch 8, f32 and bf16);
+   well-conditioned ones) at config2 (batch 8, f32 and bf16); K9 also at
+   d = 39, 64, 65 and 128 on EM-shaped and well-conditioned matrices (d =
+   129 raises, as the reference's), K8 at D = 51 and 123 on fit-grid
+   buffers in both dtypes with moments and labels only, and K10 at d = 123
+   on a D = 123 pass's moments;
    K1 at config3 (bf16, no twin) and at any radius: config0's bank widened
    to conv radius 16 and to smoothing radius 25, and a bank of radii 32
    and 50 (batch 2, both dtypes), each K1 line with its achieved TFLOP/s
-   beside its bound; K11 (SLIC), K14 (connectivity, on K11's output, on a
+   beside its bound; K11 (SLIC: labels equal to ``slic_plain`` on every
+   pixel and two launches bit-equal at config3, at batch 1 and on a frame
+   of one grid row; one pass with partials and one update bit-equal to
+   their plain versions, each timed beside its bound), K14 (connectivity,
+   on K11's output, on a
    fragmented random map, on the spiral maze with its kept block in a
    corner and on a map with no surviving component, each with the union-
    find rounds, adoption steps, largest adoption distance and absorbed
@@ -54,7 +62,8 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    f32 beside K1's route in bf16, as readings;
 4. ``segment_batch(uint8 -> int32 labels, with_features=False)`` end to end
    at config1 batch 16 bf16, config0 batch 1 f32, config2 batch 8 bf16
-   and f32 (with ``gmm_fused._FUSED_PREP`` off, the default, and on),
+   and f32 (with ``gmm_fused._FUSED_PREP`` off, the default, and on; and
+   with a 16-kernel bank, D = 51 feature rows),
    config3 batch 8 bf16 and f32 and config4 batch 8 of 2160x3840
    bf16 and f32, and one config3 min-cut call of ``segment_images`` (batch
    2): ms/batch and MP/s from host uint8 in to host int32 labels out;
@@ -87,9 +96,9 @@ version in float64, the log-likelihood within max(rtol 1e-5, twice the
 plain version's error) and the moments within max(1e-4 of each
 component's summed magnitude, twice the plain version's error), two K8
 launches bit-equal;
-SLIC labels equal on >= 99.9 % of each image's pixels (K11) or on every
-pixel (K12 and K13 against their plain banded loop, K13's loop against
-K12, two calls of each; K13's pass and update bit-equal); connectivity and
+SLIC labels equal on every pixel (K11 against ``slic_plain``, K12 and K13
+against their plain banded loop, K13's loop against K12, two calls of
+each; K11's and K13's passes and updates bit-equal); connectivity and
 lookup bit-equal; precision Cholesky within 5e-4 relative of cuSOLVER on well-conditioned
 matrices, and on the EM's ill-conditioned covariances, where two float32
 inverses differ entry by entry by up to cond * eps, a backward error
@@ -153,6 +162,10 @@ CHOL_DIAG_TOL = 1e-6
 # than the 5 regions). K1 is held at config3's and config4's shapes in phase
 # 3, and the gate hands both paths the same energies.
 GRAPH_NOTE = ", a reading for the graph stage: the gate is the next line"
+# K11's time at config3 before its tiled redesign (a thread a pixel, a block
+# a superpixel's window; H100 80GB HBM3 at 700 W, this script's reading),
+# printed beside its time now
+K11_BEFORE_MS = 1.4560
 
 
 def fail(msg: str) -> None:
@@ -349,6 +362,118 @@ def main() -> None:
         return bool(torch.isfinite(back).all() and back.max() <= CHOL_BACKWARD_TOL
                     and dg.max() <= CHOL_DIAG_TOL
                     and torch.count_nonzero(torch.triu(pt, 1)) == 0)
+
+    def check_params(moments, m, reg, what, tag, main):
+        """K10 on one EM pass's moments against its plain chain: P^T by its
+        backward error against the float32 covariance the plain chain forms
+        (the kernel forms the same bits), a zero upper triangle, and bias
+        and const against float64 evaluated on the kernel's own P^T,
+        bounded by the magnitudes they sum; against the float64 chain as a
+        reading (cond * eps)."""
+        bsz, k, d = moments[1].shape
+        nmat = bsz * k
+        pk10, bk10, ck10 = chol.precision_chol_params(*moments, m, reg)
+        pp10, bp10, cp10 = chol.precision_chol_params_plain(*moments, m, reg)
+        torch.cuda.synchronize()
+        _, mu32, cov32 = gf._moments_to_params(*moments, m, reg)
+        covs10 = cov32.reshape(nmat, d, d)
+        pt10 = pk10.reshape(nmat, d, d)
+        back10, _ = chol_errors(covs10, pt10, 1.0 / torch.diagonal(pt10, dim1=1, dim2=2))
+        p64, mu64 = pk10.double(), mu32.double()
+        b_err = ((bk10.double() - (p64 @ mu64[..., None])[..., 0]).abs()
+                 / (p64.abs() @ mu64.abs()[..., None])[..., 0].clamp(min=1e-30)).max().item()
+        logw = torch.log((moments[0].double() + 10.0 * torch.finfo(torch.float32).eps) / m)
+        logp = torch.log(torch.diagonal(p64, dim1=2, dim2=3))
+        c_ref = logw + logp.sum(dim=2) - 0.5 * d * 1.8378770664093453
+        c_mag = logw.abs() + logp.abs().sum(dim=2) + 0.5 * d * 1.8378770664093453
+        c_err = ((ck10.double() - c_ref).abs() / c_mag).max().item()
+        m64 = [t.double() for t in moments]
+        w64, mu_64, cov64 = gf._moments_to_params(*m64, m, reg)
+        l64 = torch.linalg.cholesky(cov64)
+        pt64 = torch.linalg.solve_triangular(
+            l64, torch.eye(d, dtype=torch.float64, device=dev).expand_as(cov64), upper=False)
+        bias64 = (pt64 @ mu_64[..., None])[..., 0]
+        const64 = (torch.log(w64) - torch.log(torch.diagonal(l64, dim1=2, dim2=3)).sum(dim=2)
+                   - 0.5 * d * 1.8378770664093453)
+
+        def vs64(b_, c_):
+            return ((b_.double() - bias64).abs().max().item(),
+                    (c_.double() - const64).abs().max().item())
+
+        (bk64, ck64), (bp64, cp64) = vs64(bk10, ck10), vs64(bp10, cp10)
+        print(f"phase 3: precision_chol_params [{what}] backward "
+              f"error {back10.max().item():.3e} (bound {CHOL_BACKWARD_TOL:g}); on its own "
+              f"P^T in float64: bias {b_err:.3e} (bound 1e-5), const {c_err:.3e} (bound "
+              f"1e-5); against the float64 chain (a reading, cond * eps): bias max abs "
+              f"kernel {bk64:.3e}, plain {bp64:.3e}; const kernel {ck64:.3e}, plain "
+              f"{cp64:.3e}", flush=True)
+        ok10 = bool(torch.isfinite(back10).all() and back10.max() <= CHOL_BACKWARD_TOL
+                    and torch.count_nonzero(torch.triu(pk10, 1)) == 0
+                    and b_err <= 1e-5 and c_err <= 1e-5)
+        report("precision_chol_params", f"{tag} d={d}",
+               max((a - r).abs().max().item() for a, r in ((pk10, pp10), (bk10, bp10),
+                                                           (ck10, cp10))),
+               back10.max().item(), f"backward error {CHOL_BACKWARD_TOL:g}; bias and const "
+               "1e-5 of their magnitudes; upper triangle zero", ok10,
+               lambda: chol.precision_chol_params(*moments, m, reg),
+               lambda: chol.precision_chol_params_plain(*moments, m, reg),
+               (nmat * 2 * (d * d + d + 1) * 4, nmat * (d ** 3 + 3 * d * d))
+               if main else None)
+
+    def check_em(buf, inputs, tag, moments, main):
+        """K8 against its plain version on ``buf`` (B, D, N): labels equal on
+        >= 99.99 % of pixels, two launches bit-equal, and with moments the
+        log-likelihood and moments held, with the plain version's, against
+        the plain version in float64."""
+        bsz, d, npx = buf.shape
+        k = inputs[1].shape[1]
+        dt = buf.dtype
+        got = gf.em_pass(buf, *inputs, moments=moments)
+        ref = gf.em_pass_plain(buf, *inputs, moments=moments)
+        again = gf.em_pass(buf, *inputs, moments=moments)
+        torch.cuda.synchronize()
+        if not moments:
+            got, ref, again = (got,), (ref,), (again,)
+        same = (got[0] == ref[0]).float().mean().item()
+        bits = all(torch.equal(g, a) for g, a in zip(got, again))
+        ok, abs_err, err, tol = same >= 0.9999 and bits, 0.0, 0.0, 1e-4
+        if moments:
+            # Long float32 reductions (154,401 pixels at full resolution)
+            # in two orders: both are held against the plain version in
+            # float64. Rounding grows with the summed magnitudes, not
+            # with the sums (normalised features cancel), so each
+            # component's error is scaled by max(count, max_a sum r
+            # x_a^2), which bounds sum |terms| of every one of its
+            # entries.
+            r64 = gf.em_pass_plain(buf, *(t.double() for t in inputs))
+            scale = torch.maximum(r64[2], torch.diagonal(r64[4], dim1=2, dim2=3)
+                                  .amax(dim=2))
+
+            def err64(out):
+                """(ll relative error, moments error) against float64."""
+                e_ll = ((out[1].double() - r64[1]).abs() / r64[1].abs()).max().item()
+                e_m = 0.0
+                for g, r in zip(out[2:], r64[2:]):
+                    diff = (g.double() - r).abs().reshape(bsz, k, -1).amax(dim=2)
+                    e_m = max(e_m, (diff / scale).max().item())
+                return e_ll, e_m
+
+            (ll_k, err), (ll_p, err_p) = err64(got), err64(ref)
+            tol = max(1e-4, 2.0 * err_p)
+            ok = ok and ll_k <= max(1e-5, 2.0 * ll_p)
+            abs_err = max((g - r).abs().max().item() for g, r in zip(got[2:], ref[2:]))
+            print(f"phase 3: em_pass [{tag}] against float64: ll rel kernel "
+                  f"{ll_k:.3e}, plain {ll_p:.3e}; moments (of the summed magnitude) "
+                  f"kernel {err:.3e}, plain {err_p:.3e}", flush=True)
+        flops = bsz * npx * (k * d * (d + 1) + (k * (d + 1) * (d + 2) if moments else 0))
+        report("em_pass", f"{tag} {tuple(buf.shape)} labels equal {same:.6f}, "
+               f"two launches bit-equal {bits}",
+               abs_err, err, f"labels 0.9999; vs float64, ll within max(1e-5, 2 x "
+               f"plain's), moments within max(1e-4, 2 x plain's) = {tol:.3e}",
+               ok and err <= tol,
+               lambda: gf.em_pass(buf, *inputs, moments=moments),
+               lambda: gf.em_pass_plain(buf, *inputs, moments=moments),
+               (bsz * npx * (d * size(dt) + 4), flops) if main else None)
 
     def mosaics(n, h=321, w=481):
         """(rgb (n, h, w, 3) uint8, ground truth (n, h, w)): the bench's
@@ -714,110 +839,87 @@ def main() -> None:
             check(rel < 5e-4 and brel <= 2e-4 and cabs <= 1e-4,
                   "precision_chol_params disagrees with the plain chain on well-conditioned "
                   "moments")
-        pk10, bk10, ck10 = chol.precision_chol_params(*moments, m, reg)
-        pp10, bp10, cp10 = chol.precision_chol_params_plain(*moments, m, reg)
-        torch.cuda.synchronize()
-        # P^T by its backward error against the float32 covariance the plain
-        # chain forms (the kernel forms the same bits); bias and const against
-        # float64 evaluated on the kernel's own P^T, bounded by the magnitudes
-        # they sum; against the float64 chain as a reading (cond * eps)
-        _, mu32, cov32 = gf._moments_to_params(*moments, m, reg)
-        covs10 = cov32.reshape(nmat, d, d)
-        pt10 = pk10.reshape(nmat, d, d)
-        back10, _ = chol_errors(covs10, pt10, 1.0 / torch.diagonal(pt10, dim1=1, dim2=2))
-        p64, mu64 = pk10.double(), mu32.double()
-        b_err = ((bk10.double() - (p64 @ mu64[..., None])[..., 0]).abs()
-                 / (p64.abs() @ mu64.abs()[..., None])[..., 0].clamp(min=1e-30)).max().item()
-        logw = torch.log((moments[0].double() + 10.0 * torch.finfo(torch.float32).eps) / m)
-        logp = torch.log(torch.diagonal(p64, dim1=2, dim2=3))
-        c_ref = logw + logp.sum(dim=2) - 0.5 * d * 1.8378770664093453
-        c_mag = logw.abs() + logp.abs().sum(dim=2) + 0.5 * d * 1.8378770664093453
-        c_err = ((ck10.double() - c_ref).abs() / c_mag).max().item()
-        m64 = [t.double() for t in moments]
-        w64, mu_64, cov64 = gf._moments_to_params(*m64, m, reg)
-        l64 = torch.linalg.cholesky(cov64)
-        pt64 = torch.linalg.solve_triangular(
-            l64, torch.eye(d, dtype=torch.float64, device=dev).expand_as(cov64), upper=False)
-        bias64 = (pt64 @ mu_64[..., None])[..., 0]
-        const64 = (torch.log(w64) - torch.log(torch.diagonal(l64, dim1=2, dim2=3)).sum(dim=2)
-                   - 0.5 * d * 1.8378770664093453)
-
-        def vs64(b_, c_):
-            return ((b_.double() - bias64).abs().max().item(),
-                    (c_.double() - const64).abs().max().item())
-
-        (bk64, ck64), (bp64, cp64) = vs64(bk10, ck10), vs64(bp10, cp10)
-        print(f"phase 3: precision_chol_params [{tag2} first EM pass's moments] backward "
-              f"error {back10.max().item():.3e} (bound {CHOL_BACKWARD_TOL:g}); on its own "
-              f"P^T in float64: bias {b_err:.3e} (bound 1e-5), const {c_err:.3e} (bound "
-              f"1e-5); against the float64 chain (a reading, cond * eps): bias max abs "
-              f"kernel {bk64:.3e}, plain {bp64:.3e}; const kernel {ck64:.3e}, plain "
-              f"{cp64:.3e}", flush=True)
-        ok10 = bool(torch.isfinite(back10).all() and back10.max() <= CHOL_BACKWARD_TOL
-                    and torch.count_nonzero(torch.triu(pk10, 1)) == 0
-                    and b_err <= 1e-5 and c_err <= 1e-5)
-        report("precision_chol_params", f"{tag2} M={nmat} d={d}",
-               max((a - r).abs().max().item() for a, r in ((pk10, pp10), (bk10, bp10),
-                                                           (ck10, cp10))),
-               back10.max().item(), f"backward error {CHOL_BACKWARD_TOL:g}; bias and const "
-               "1e-5 of their magnitudes; upper triangle zero", ok10,
-               lambda: chol.precision_chol_params(*moments, m, reg),
-               lambda: chol.precision_chol_params_plain(*moments, m, reg),
-               (nmat * 2 * (d * d + d + 1) * 4, nmat * (d ** 3 + 3 * d * d))
-               if main2 else None)
-        del moments, pk10, pp10
+        check_params(moments, m, reg, tag2 + " first EM pass's moments", f"{tag2} M={nmat}",
+                     main2)
+        del moments
 
         for buf, where, moments, main in ((fit, "fit grid", True, main2),
                                           (x, "full resolution", True, False),
                                           (x, "full resolution labels only", False, False)):
-            got = gf.em_pass(buf, *inputs, moments=moments)
-            ref = gf.em_pass_plain(buf, *inputs, moments=moments)
-            again = gf.em_pass(buf, *inputs, moments=moments)
-            torch.cuda.synchronize()
-            if not moments:
-                got, ref, again = (got,), (ref,), (again,)
-            same = (got[0] == ref[0]).float().mean().item()
-            bits = all(torch.equal(g, a) for g, a in zip(got, again))
-            ok, abs_err, err, tol = same >= 0.9999 and bits, 0.0, 0.0, 1e-4
-            if moments:
-                # Long float32 reductions (154,401 pixels at full resolution)
-                # in two orders: both are held against the plain version in
-                # float64. Rounding grows with the summed magnitudes, not
-                # with the sums (normalised features cancel), so each
-                # component's error is scaled by max(count, max_a sum r
-                # x_a^2), which bounds sum |terms| of every one of its
-                # entries.
-                r64 = gf.em_pass_plain(buf, *(t.double() for t in inputs))
-                scale = torch.maximum(r64[2], torch.diagonal(r64[4], dim1=2, dim2=3)
-                                      .amax(dim=2))
-
-                def err64(out):
-                    """(ll relative error, moments error) against float64."""
-                    e_ll = ((out[1].double() - r64[1]).abs() / r64[1].abs()).max().item()
-                    e_m = 0.0
-                    for g, r in zip(out[2:], r64[2:]):
-                        diff = (g.double() - r).abs().reshape(bsz, k, -1).amax(dim=2)
-                        e_m = max(e_m, (diff / scale).max().item())
-                    return e_ll, e_m
-
-                (ll_k, err), (ll_p, err_p) = err64(got), err64(ref)
-                tol = max(1e-4, 2.0 * err_p)
-                ok = ok and ll_k <= max(1e-5, 2.0 * ll_p)
-                abs_err = max((g - r).abs().max().item() for g, r in zip(got[2:], ref[2:]))
-                print(f"phase 3: em_pass [{tag2} {where}] against float64: ll rel kernel "
-                      f"{ll_k:.3e}, plain {ll_p:.3e}; moments (of the summed magnitude) "
-                      f"kernel {err:.3e}, plain {err_p:.3e}", flush=True)
-            npx = buf.shape[2]
-            flops = bsz * npx * (k * d * (d + 1) + (k * (d + 1) * (d + 2) if moments else 0))
-            report("em_pass", f"{tag2} {where} {tuple(buf.shape)} labels equal {same:.6f}, "
-                   f"two launches bit-equal {bits}",
-                   abs_err, err, f"labels 0.9999; vs float64, ll within max(1e-5, 2 x "
-                   f"plain's), moments within max(1e-4, 2 x plain's) = {tol:.3e}",
-                   ok and err <= tol,
-                   lambda: gf.em_pass(buf, *inputs, moments=moments),
-                   lambda: gf.em_pass_plain(buf, *inputs, moments=moments),
-                   (bsz * npx * (d * size(dt) + 4), flops) if main else None)
+            check_em(buf, inputs, f"{tag2} {where}", moments, main)
         del x, fit, inputs
+    torch.cuda.empty_cache()
+
+    # K9 past config2's order: d = 39, 64, 65 and 128 (the reference's
+    # limit), M = 40, on covariances shaped as the EM's (clusters of fewer
+    # points than rows, plus reg_covar I: cond ~1e3-1e6) under the backward
+    # error gate, and on well-conditioned ones within 5e-4 of cuSOLVER; two
+    # launches bit-equal; d = 129 raises, as the reference's K9
+    def em_covariances(m, d, seed):
+        rng = np.random.default_rng(seed)
+        covs = []
+        for i in range(m):
+            pts = rng.normal(size=(max(1, d // 2 + i % 7), d)) * rng.uniform(0.2, 3.0, size=d)
+            pts -= pts.mean(axis=0)
+            covs.append(pts.T @ pts / len(pts) + 1e-4 * np.eye(d))
+        return torch.from_numpy(np.stack(covs).astype(np.float32)).to(dev)
+
+    for d9 in (39, 64, 65, 128):
+        covs9 = em_covariances(40, d9, 100 + d9)
+        g = np.random.default_rng(d9).normal(size=(40, d9, 2 * d9))
+        wc9 = torch.from_numpy((g @ g.transpose(0, 2, 1) / (2 * d9) + 1e-3 * np.eye(d9))
+                               .astype(np.float32)).to(dev)
+        (pw, _), (pr, _) = chol.precision_chol(wc9), chol.precision_chol_plain(wc9)
+        pt9, dg9 = chol.precision_chol(covs9)
+        again9 = chol.precision_chol(covs9)
+        torch.cuda.synchronize()
+        rel = ((pw - pr).abs() / (pr.abs() + 1e-3)).max().item()
+        (bk9, gk9), (bp9, _) = (chol_errors(covs9, pt9, dg9),
+                                chol_errors(covs9, *chol.precision_chol_plain(covs9)))
+        bits = torch.equal(pt9, again9[0]) and torch.equal(dg9, again9[1])
+        cond = torch.linalg.cond(covs9.double())
+        ms9 = timed(lambda: chol.precision_chol(covs9))[0]
+        ms9p = timed(lambda: chol.precision_chol_plain(covs9))[0]
+        b9 = bound(40 * d9 * (2 * d9 + 1) * 4, 40 * d9 ** 3)
+        print(f"phase 3: precision_chol [EM-shaped M=40 d={d9}] cond {cond.min().item():.3e}.."
+              f"{cond.max().item():.3e}; backward error kernel {bk9.max().item():.3e}, cuSOLVER "
+              f"{bp9.max().item():.3e} (bound {CHOL_BACKWARD_TOL:g}), diag error "
+              f"{gk9.max().item():.3e} (bound {CHOL_DIAG_TOL:g}), upper triangle zero, two "
+              f"launches bit-equal {bits}; well-conditioned against cuSOLVER max rel {rel:.3e} "
+              f"(bound 5e-4); kernel {ms9:.4f} ms, cuSOLVER {ms9p:.4f} ms, bound {b9[0]:.5f} ms "
+              f"({b9[1]}) ({card})", flush=True)
+        check(chol_ok(covs9, pt9, dg9) and rel < 5e-4 and bits,
+              f"precision_chol fails its gate at d = {d9}")
+    try:
+        chol.precision_chol(torch.eye(129, device=dev).expand(2, 129, 129).contiguous())
+    except ValueError as exc:
+        print(f"phase 3: precision_chol [d=129] raises, as the reference's: {exc}", flush=True)
+    else:
+        fail("precision_chol took d = 129, past the reference's limit")
+
+    # K8 past the 40 rows its first kernel holds in registers: D = 51 (a
+    # 16-kernel bank) and D = 123 on buffers of config2's fit grid (8 x 9,600
+    # pixels, three blobs), in both dtypes, with moments and labels only,
+    # from a hard split's parameters (K9 at d = D); K10 at d = 123 on the
+    # moments of the D = 123 pass
+    rng = np.random.default_rng(51)
+    for dw in (51, 123):
+        means = rng.normal(scale=2.0, size=(8, 3, dw))
+        xw = (np.take_along_axis(means, rng.integers(0, 3, size=(8, 9600))[:, :, None], 1)
+              + rng.normal(size=(8, 9600, dw)))
+        x32 = torch.from_numpy(np.swapaxes(xw, 1, 2).astype(np.float32)).to(dev)
+        hard = torch.from_numpy(rng.integers(0, c2.k, size=(8, 9600))).to(dev)
+        inputs = gf._params_to_kernel_inputs(*gf._moments_to_params(
+            *gf._init_moments(x32, hard, c2.k), 9600, c2.gmm_reg_covar))
+        for dt in (torch.bfloat16, torch.float32):
+            for moments in (True, False):
+                check_em(x32.to(dt), inputs, f"D={dw} fit grid "
+                         f"{'bf16' if dt == torch.bfloat16 else 'f32'} "
+                         f"{'with moments' if moments else 'labels only'}", moments, False)
+        if dw == 123:
+            check_params(gf.em_pass(x32, *inputs)[2:], 9600, c2.gmm_reg_covar,
+                         "D=123 pass's moments", "8x5 matrices", False)
+        del x32, inputs
     torch.cuda.empty_cache()
 
     cfg3 = preset("config3")  # batch 8
@@ -847,21 +949,68 @@ def main() -> None:
     # K11, the least work: in each of the n_iter + 1 assignments, a score per
     # candidate (5 products and 4 sums for the dot, a product and a
     # difference, a compare) and |cs|^2 per centroid (2 spatial weights, 5
-    # products, 4 sums); in each update 6 sums per pixel
-    def run_slic(fn):
-        return fn(lab3, g3.n_superpixels, g3.slic_compactness, g3.slic_iters)
+    # products, 4 sums); in each update 6 sums per pixel. Labels equal to
+    # slic_plain's on every pixel and two launches bit-equal, at config3,
+    # at batch 1 and on a frame of one grid row
+    def run_slic(fn, lab=None, n_sp=None):
+        return fn(lab3 if lab is None else lab, n_sp or g3.n_superpixels, g3.slic_compactness,
+                  g3.slic_iters)
 
-    spk, spp = run_slic(sf.slic_w3), run_slic(sl.slic_plain)
+    spk, spk2, spp = run_slic(sf.slic_w3), run_slic(sf.slic_w3), run_slic(sl.slic_plain)
     torch.cuda.synchronize()
-    each = (spk == spp).float().mean(dim=(1, 2))
+    ndiff, twice = int((spk != spp).sum()), torch.equal(spk, spk2)
     n_cand = int(sl._candidates(h3, w3, gh3, gw3, dev)[1].sum()) * bsz
     flops = ((g3.slic_iters + 1) * (n_cand * 12 + bsz * s3 * 11)
              + g3.slic_iters * bsz * n3 * 6)
-    report("slic_w3", f"{tag3} S={s3}, {g3.slic_iters} iterations, labels equal per "
-           f"image min {each.min().item():.6f}", float((spk - spp).abs().max()),
-           1.0 - each.min().item(), "0.001 of each image's pixels", each.min() >= 0.999,
+    report("slic_w3", f"{tag3} S={s3}, {g3.slic_iters} iterations, {ndiff} pixels differ, two "
+           f"launches bit-equal {twice}; the thread-a-pixel design it replaced read "
+           f"{K11_BEFORE_MS} ms here",
+           float((spk - spp).abs().max()), ndiff, "labels equal on every pixel, two launches "
+           "bit-equal", ndiff == 0 and twice,
            lambda: run_slic(sf.slic_w3), lambda: run_slic(sl.slic_plain),
            (lab3.numel() * 4 + spk.numel() * 4, flops))
+    lab_row = pl._color_transform(torch.from_numpy(mosaics(2, 20, 301)[0]).to(dev), "lab")
+    for tagx, labx, n_spx in ((f"config3 1x{h3}x{w3} (batch 1)", lab3[:1], None),
+                              ("2x20x301 (one grid row: gh = 1)", lab_row, 30)):
+        got, got2, ref = (run_slic(sf.slic_w3, labx, n_spx), run_slic(sf.slic_w3, labx, n_spx),
+                          run_slic(sl.slic_plain, labx, n_spx))
+        torch.cuda.synchronize()
+        ndx, twx = int((got != ref).sum()), torch.equal(got, got2)
+        print(f"phase 3: slic_w3 [{tagx}] {ndx} pixels differ from slic_plain, two launches "
+              f"bit-equal {twx}, {timed(lambda: run_slic(sf.slic_w3, labx, n_spx))[0]:.4f} ms "
+              f"({card})", flush=True)
+        check(ndx == 0 and twx, f"slic_w3 is not bit-equal to slic_plain at {tagx}")
+    # one pass (labels and partials) and one update bit-equal to their plain
+    # versions at centroids three plain iterations off the grid, each timed
+    # beside its bound (the pass: the Lab read and the labels written, or
+    # its candidate scores; the update: the partials read, the centroids
+    # read and written)
+    plan3 = sf.slic_w3_plan(h3, w3, g3.n_superpixels)
+    sw3 = sl.slic_geometry(h3, w3, g3.n_superpixels, g3.slic_compactness)[2]
+    cent3 = sl.slic_init_centroids(lab3, gh3, gw3)
+    for _ in range(3):
+        cent3 = sf.slic_w3_update_plain(cent3, sf.slic_w3_pass_plain(lab3, cent3, plan3, sw3)[1],
+                                        plan3)
+    lk3, pk3 = sf.slic_w3_pass(lab3, cent3, g3.n_superpixels, sw3)
+    lp3, pp3 = sf.slic_w3_pass_plain(lab3, cent3, plan3, sw3)
+    up_ok = torch.equal(sf.slic_w3_update(cent3.clone(), pk3, h3, w3, g3.n_superpixels),
+                        sf.slic_w3_update_plain(cent3, pp3, plan3))
+    torch.cuda.synchronize()
+    pass_ok = torch.equal(lk3, lp3) and torch.equal(pk3, pp3)
+    pass_b = bound(lab3.numel() * 4 + lk3.numel() * 4, n_cand * 12)
+    upd_b = bound(pk3.numel() * 8 + cent3.numel() * 8, 0)
+    t_pass = timed(lambda: sf.slic_w3_pass(lab3, cent3, g3.n_superpixels, sw3))[0]
+    t_only = timed(lambda: sf.slic_w3_pass(lab3, cent3, g3.n_superpixels, sw3,
+                                           partials=False))[0]
+    t_update = timed(lambda: sf.slic_w3_update(cent3.clone(), pk3, h3, w3, g3.n_superpixels))[0]
+    print(f"phase 3: slic_w3 [{tag3}] plan: tiles of {plan3['ty']}x{plan3['tx']} cells, "
+          f"{plan3['nty']}x{plan3['ntx']} a frame, {plan3['cells']} hoisted cells a tile; one "
+          f"pass: labels and partials bit-equal to the plain pass {pass_ok}, update bit-equal "
+          f"{up_ok}; with partials {t_pass:.4f} ms, labels only {t_only:.4f} ms, bound "
+          f"{pass_b[0]:.4f} ms ({pass_b[1]}); one update {t_update:.4f} ms (a centroid clone "
+          f"included), bound {upd_b[0]:.5f} ms ({upd_b[1]}) ({card})", flush=True)
+    check(pass_ok and up_ok, "K11's pass or update is not bit-equal to its plain version")
+    del spk2, lab_row, lk3, pk3, lp3, pp3, cent3
 
     # K14 on K11's output (the main path's input), on a fragmented map, on
     # the spiral maze (a corridor ~h * w / 2 long, the kept block in a
@@ -1273,6 +1422,16 @@ def main() -> None:
                          + (" _FUSED_PREP on" if prep else ""),
                          gmm_path + ["precision_chol_params" if prep else "precision_chol"],
                          ["precision_chol" if prep else "precision_chol_params"], prep))
+    # config2 with a 16-kernel bank (4 scales x 4 orientations): D = 51
+    # feature rows, past the 40 of K8's first kernel (its wide kernel, K9 at
+    # d = 51)
+    bank16 = dataclasses.replace(cfg2.bank, scales=(2.0, 3.0, 4.0, 8.0))
+    check(bank16.n_kernels == 16, "the 16-kernel bank has another size")
+    for dtype in ("bfloat16", "float32"):
+        runs.append((cfg2.replace(dtype=dtype, bank=bank16), rgb8, gt8,
+                     f"config2 batch 8 {'bf16' if dtype == 'bfloat16' else 'f32'} 16-kernel "
+                     "bank (D = 51)", gmm_path + ["precision_chol"], ["precision_chol_params"],
+                     False))
     # the graph stage's energies: K1 for bf16 batches, the reference's
     # modulated route (no K1) in float32
     for dtype in ("bfloat16", "float32"):
@@ -1359,7 +1518,7 @@ def main() -> None:
         check(counts[name] > 0, f"{name} was never launched on the config3 min-cut path")
         totals[name] += counts[name]
 
-    switch_off = {(cfg.cluster.method, cfg.dtype): (o, t)
+    switch_off = {(cfg.cluster.method, cfg.dtype, cfg.bank): (o, t)
                   for cfg, _, _, _, o, prep, t in outputs if not cfg.graph.enabled and not prep}
     for cfg, rgb, gt, label, out, prep, ms in outputs:
         check(out.dtype == torch.int32 and tuple(out.shape) == rgb.shape[:3],
@@ -1371,7 +1530,7 @@ def main() -> None:
         if prep:
             # the gate: the switch on against the switch off, both through
             # the kernels; the times both ways are a reading
-            ref, ms_off = switch_off[(cfg.cluster.method, cfg.dtype)]
+            ref, ms_off = switch_off[(cfg.cluster.method, cfg.dtype, cfg.bank)]
             each = [aligned_agreement(out[i].numpy(), ref[i].numpy()) for i in range(len(ref))]
             print(f"phase 4: {label}: against _FUSED_PREP off, min aligned agreement "
                   f"{min(each):.6f} (floor {floor}; per image {[round(v, 6) for v in each]}); "

@@ -40,7 +40,9 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry point, in csrc/ declaration order
 _SIGNATURES = {
-    "gcis_slic": [_P] * 3 + [_I] * 6 + [_F] * 3 + [_P],
+    "gcis_slic": [_P] * 6 + [_I] * 8 + [_F] * 3 + [_P],
+    "gcis_slic_w3_pass": [_P] * 6 + [_I] * 7 + [_F] * 3 + [_P],
+    "gcis_slic_w3_update": [_P] * 2 + [_I] * 5 + [_P],
     "gcis_slic_band_pass": [_P] * 4 + [_I] * 8 + [_F] * 3 + [_P],
     "gcis_slic_band_update": [_P] * 2 + [_I] * 7 + [_P],
     "gcis_slic_w5": [_P] * 4 + [_I] * 9 + [_F] * 3 + [_P],

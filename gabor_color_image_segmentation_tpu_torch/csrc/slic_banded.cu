@@ -37,7 +37,7 @@
 //     block first hoists the candidates its piece can reach (the window's
 //     w_rows grid rows by the piece's cell columns +- 1) into shared memory
 //     with their spatial terms sw * y, sw * x and |c|^2 computed once, in
-//     slic_assign_pixel's order (no fused multiply-add), so a pixel scores
+//     slic_plain's order (no fused multiply-add), so a pixel scores
 //     from the table and its labels stay bit-equal. Each thread then takes
 //     a run of consecutive pixels of one row (the piece's width over the
 //     band row's NT / band_rows threads, a multiple of 4; lanes on
@@ -73,23 +73,14 @@ namespace {
 constexpr int NT = 256;  // threads per block
 constexpr int NWARP = NT / 32;
 constexpr int MAXC = 128;  // candidates per band window, w_rows * gw
-constexpr int REC = 1;     // closed records a lane holds before a flush
 constexpr int MASKW = MAXC / 32;  // words of a warp's touched-slot mask
-constexpr unsigned FULL = 0xffffffffu;
 
-struct Cand {  // a window candidate as a pixel scores it
-  float c0, c1, c2, c3, c4, csq, pad0, pad1;
-};
-
-struct Rec {  // moments of a closed run of one id
-  double s[3];
-  int id, sx, cnt, y;
-};
-
-struct Slot {  // a warp's moments of one candidate
-  double s[3];
-  int sx, sy, cnt, pad;
-};
+using gcis::Cand;
+using gcis::FULL;
+using gcis::flush;
+using gcis::Rec;
+using gcis::REC;
+using gcis::Slot;
 
 // Shared memory of a pass block whose pieces reach at most `nloc` window
 // candidates (w_rows x the piece's cell columns +- 1).
@@ -131,45 +122,6 @@ __device__ __forceinline__ int band_first_row(int t, int br, int gh, int h, int 
   return max(0, min(base, gh - wr));
 }
 
-// The warp adds its lanes' staged records (nrec each) into its slots; a
-// slot's first record is stored, and its bit set in the warp's mask.
-__device__ __forceinline__ void flush(Rec* stage, Slot* slots, unsigned* mask, int nrec,
-                                      int lane) {
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < REC; ++r) {
-    const int id = r < nrec ? stage[r * 32 + lane].id : -1;
-    const unsigned grp = __match_any_sync(FULL, id);
-    if (id >= 0 && __ffs(grp) - 1 == lane) {
-      double s0 = 0.0, s1 = 0.0, s2 = 0.0;
-      int sx = 0, sy = 0, cnt = 0;
-      for (unsigned m = grp; m; m &= m - 1) {
-        const Rec& q = stage[r * 32 + __ffs(m) - 1];
-        s0 += q.s[0];
-        s1 += q.s[1];
-        s2 += q.s[2];
-        sx += q.sx;
-        sy += q.y * q.cnt;
-        cnt += q.cnt;
-      }
-      Slot& o = slots[id];
-      const unsigned bit = 1u << (id & 31);
-      if (mask[id >> 5] & bit) {
-        o.s[0] += s0;
-        o.s[1] += s1;
-        o.s[2] += s2;
-        o.sx += sx;
-        o.sy += sy;
-        o.cnt += cnt;
-      } else {  // other leaders may set other bits of the word meanwhile
-        o = Slot{{s0, s1, s2}, sx, sy, cnt, 0};
-        atomicOr(mask + (id >> 5), bit);
-      }
-    }
-    __syncwarp();  // the next step's leader of an id may be another lane
-  }
-}
-
 // One (image, band, column piece): assign its pixels (labels out) and, when
 // parts is not null, write its partials. All threads of the block call it;
 // smem holds pass_smem(nmax, parts != nullptr) bytes, nmax the most local
@@ -203,20 +155,8 @@ __device__ void band_pass(const float* __restrict__ lab, const float* cent, int*
   __syncthreads();  // the block's previous piece (K12) is done with smem
   for (int j = tid; j < nloc; j += NT) {
     const int gyr = j / ncw;
-    const float* cs = cent + ((long)b * gh * gw + (rb + gyr) * gw + gx_lo + j - gyr * ncw) * 5;
-    Cand c;
-    c.c0 = cs[0];
-    c.c1 = cs[1];
-    c.c2 = cs[2];
-    c.c3 = __fmul_rn(sw, cs[3]);
-    c.c4 = __fmul_rn(sw, cs[4]);
-    float q = __fmul_rn(c.c0, c.c0);
-    q = __fadd_rn(q, __fmul_rn(c.c1, c.c1));
-    q = __fadd_rn(q, __fmul_rn(c.c2, c.c2));
-    q = __fadd_rn(q, __fmul_rn(c.c3, c.c3));
-    c.csq = __fadd_rn(q, __fmul_rn(c.c4, c.c4));
-    c.pad0 = c.pad1 = 0.f;
-    cand[j] = c;
+    cand[j] = gcis::slic_cand(
+        cent + ((long)b * gh * gw + (rb + gyr) * gw + gx_lo + j - gyr * ncw) * 5, sw);
   }
   if (want && tid < NWARP * MASKW) masks[tid] = 0u;  // no slot touched yet
   __syncthreads();
@@ -273,14 +213,7 @@ __device__ void band_pass(const float* __restrict__ lab, const float* cent, int*
           for (int gy = gy0; gy <= gy1; ++gy) {
             for (int gx = gx0; gx <= gx1; ++gx) {
               const int j = gy * ncw + gx;  // local index, ascending with the id
-              const float4 ca = *reinterpret_cast<const float4*>(&cand[j].c0);
-              const float2 cb = *reinterpret_cast<const float2*>(&cand[j].c4);
-              float dot = __fmul_rn(z0, ca.x);
-              dot = __fadd_rn(dot, __fmul_rn(z1, ca.y));
-              dot = __fadd_rn(dot, __fmul_rn(z2, ca.z));
-              dot = __fadd_rn(dot, __fmul_rn(z3, ca.w));
-              dot = __fadd_rn(dot, __fmul_rn(z4, cb.x));
-              const float score = __fsub_rn(cb.y, __fmul_rn(2.f, dot));
+              const float score = gcis::slic_score(cand[j], z0, z1, z2, z3, z4);
               if (s < 0 || score < best) {  // ascending ids: the first minimum wins
                 best = score;
                 s = j;

@@ -8,9 +8,11 @@ L = cholesky(cov): sklearn's precision Cholesky, whose log-determinant is
 -sum(log diag L). The GMM's EM loop factors B * k covariances per
 iteration (M = 40 at config2's batch 8, d = 39).
 
-K9 (csrc/precision_chol.cu) replaces ``_kernel``: one thread block per
-matrix, the matrix in shared memory, a right-looking Cholesky, then forward
-substitution for L^-1, in the reference kernel's order of operations. The
+K9 (csrc/precision_chol.cu) replaces ``_kernel``: one warp per matrix,
+the matrix and its inverse in shared memory sized at launch, L and L^-1
+formed in one right-looking LDL^T sweep of four columns a step (each
+step's rank-4 updates of the trailing rows at once, lanes over columns,
+no serial dot, one warp sync a step), for d <= 128 as the reference. The
 plain version is ``torch.linalg.cholesky`` + ``solve_triangular`` (LAPACK on
 the CPU, cuSOLVER on the card): it serves CPU tensors and the comparison,
 and is no part of the CUDA route.
@@ -18,8 +20,8 @@ and is no part of the CUDA route.
 K10 (the same source) replaces ``_params_kernel``: one EM pass's moments
 (counts, sums, scatter) -> sklearn's parameters (``_moments_to_params``)
 -> K8's inputs (P^T, bias = P^T mu, const = log w + log det P - d/2 log
-2 pi; ``_params_to_kernel_inputs``) in one launch, one block per matrix
-with K9's factorisation. The EM loop runs it only behind
+2 pi; ``_params_to_kernel_inputs``) in one launch, one block per matrix,
+for d <= 127 as the reference. The EM loop runs it only behind
 models/gmm_fused.py's ``_FUSED_PREP`` switch, off by default as in the
 reference. Its plain version is the two steps with ``precision_chol_plain``.
 """
@@ -31,7 +33,11 @@ import torch
 from gabor_color_image_segmentation_tpu_torch import _kernels
 from gabor_color_image_segmentation_tpu_torch.models.gmm import _LOG2PI
 
-D_MAX = 64  # matrix order the kernel's shared memory is sized for
+# The card's limits are the reference's: precision_chol_pallas takes
+# d <= 128 (its lane width) and precision_chol_params_pallas dp <= 128 with
+# the ones row at index d < dp.
+D_MAX = 128
+D_PARAMS_MAX = D_MAX - 1
 
 
 def precision_chol_plain(covs: torch.Tensor):
@@ -51,7 +57,8 @@ def precision_chol(covs: torch.Tensor):
     if _kernels.use_plain(covs):
         return precision_chol_plain(covs)
     m, d, _ = covs.shape
-    _kernels.check(1 <= d <= D_MAX, f"the CUDA kernel takes 1 <= d <= {D_MAX}, got {d}")
+    _kernels.check(1 <= d <= D_MAX, f"the CUDA kernel takes 1 <= d <= {D_MAX} (the "
+                   f"reference's precision_chol_pallas limit), got {d}")
     covs = covs.contiguous()
     pt = torch.empty_like(covs)
     diag = torch.empty((m, d), dtype=torch.float32, device=covs.device)
@@ -110,7 +117,8 @@ def precision_chol_params(counts: torch.Tensor, sums: torch.Tensor, scatter: tor
     _kernels.check(m_rows >= 1, f"m_rows must be >= 1, got {m_rows}")
     if _kernels.use_plain(counts, sums, scatter):
         return precision_chol_params_plain(counts, sums, scatter, m_rows, reg_covar)
-    _kernels.check(1 <= d <= D_MAX, f"the CUDA kernel takes 1 <= d <= {D_MAX}, got {d}")
+    _kernels.check(1 <= d <= D_PARAMS_MAX, f"the CUDA kernel takes 1 <= d <= {D_PARAMS_MAX} "
+                   f"(the reference's precision_chol_params_pallas limit), got {d}")
     counts, sums, scatter = counts.contiguous(), sums.contiguous(), scatter.contiguous()
     pt = torch.empty_like(scatter)
     bias = torch.empty_like(sums)

@@ -12,7 +12,11 @@ kernel sums the moments in 4 x 8 register tiles of the extended scatter
 (``tile_map``) over chunks of 640 pixels (``em_plan`` spreads the chunks
 over one wave of blocks); partials are per block and reduced in block
 order, with no float atomics, so a run repeats bit for bit: EM's basin
-depends on these sums over 30 iterations.
+depends on these sums over 30 iterations. It takes D <= 128 feature rows,
+the reference's range (its K9 limit): up to ``D_REGS`` = 40 rows (config2:
+39) x sits in registers; wider rows (a 16-kernel bank gives 51) take a
+second, simple kernel in the same source that walks chunks of 256 pixels
+and stages the components' triangles one at a time.
 
 The solver ``gmm_fused_t_xt`` mirrors the reference's sklearn semantics:
 k-means init (K6 + K5), hard one-hot moments, ``n_iter`` EM iterations with
@@ -47,7 +51,8 @@ from gabor_color_image_segmentation_tpu_torch.models.chol import (
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import K_MAX
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import kmeans_fused_t_xt
 
-D_MAX = 40  # feature rows the kernel holds per pixel (config2: 39)
+D_MAX = 128  # feature rows the card takes: the reference's K9 limit (its _LANES)
+D_REGS = 40  # feature rows the first kernel holds in registers (config2: 39)
 _FUSED_PREP = False  # the EM loop's moments -> K8 inputs step as one K10 launch
 
 
@@ -56,16 +61,22 @@ def _use_fused_prep() -> bool:
 
 
 _EM_CHUNK = 640  # pixels a chunk of K8 (320 threads, two pixels each)
+_EM_CHUNK_WIDE = 256  # pixels a chunk of K8's wide kernel (D > D_REGS), one a thread
 _EM_TILE = (4, 8)  # rows and columns of one of K8's moments tiles
 
 
-def em_plan(b: int, n: int, n_sm: int):
+def em_chunk(d: int) -> int:
+    """Pixels a chunk of the K8 kernel that takes d feature rows."""
+    return _EM_CHUNK if d <= D_REGS else _EM_CHUNK_WIDE
+
+
+def em_plan(b: int, n: int, n_sm: int, chunk: int = _EM_CHUNK):
     """K8's blocks: (chunks a block walks, blocks an image). Each image's
-    ceil(n / 640) chunks are split into runs of consecutive chunks so that
-    the b images' blocks make about one wave over the card's n_sm SMs (one
-    block an SM: each holds ~180 KB of shared memory), one block an image
-    when the batch alone fills the card."""
-    nchunks = -(-n // _EM_CHUNK)
+    ceil(n / chunk) chunks are split into runs of consecutive chunks so
+    that the b images' blocks make about one wave over the card's n_sm SMs
+    (one block an SM: each holds ~180 KB of shared memory), one block an
+    image when the batch alone fills the card."""
+    nchunks = -(-n // chunk)
     chunks = -(-nchunks // max(1, n_sm // b))
     return chunks, -(-nchunks // chunks)
 
@@ -76,6 +87,16 @@ def tile_map(d: int):
     extended (d + 1) x (d + 1) scatter [x 1][x 1]^T, row-major."""
     ta, tc = _EM_TILE
     return [(a0, c0) for a0 in range(0, d + 1, ta) for c0 in range(0, a0 + ta, tc)]
+
+
+def em_wide_stride(d: int) -> int:
+    """Floats a pixel's extended column takes in the wide kernel's shared
+    memory (csrc/em_pass.cu's wide_stride): every tile's rows a0 .. a0 + 3
+    and columns c0 .. c0 + 7, rounded to 4 (mod 8) floats so that a
+    thread's float4 reads of its own column hit distinct banks."""
+    a0 = 4 * (d // 4)
+    c0 = 8 * ((a0 + 3) // 8)
+    return 4 * ((-(-max(a0 + 4, c0 + 8) // 4)) | 1)
 
 
 @functools.lru_cache(maxsize=16)
@@ -110,7 +131,11 @@ def _unpack_index(d: int, device: str):
 def em_pass_plain(x, pt, bias, const, moments: bool = True):
     """Plain PyTorch version of K8 (same contract as em_pass). It computes in
     the parameters' dtype (float32; float64 parameters give a float64
-    reference)."""
+    reference), but for the moments, which it sums in float64 and rounds
+    once: summed in float32 over a full image (one cuBLAS product), a
+    51-row buffer's moments were off by ~3e-6 of their summed magnitude and
+    sklearn's E[x x^T] - mu mu^T went indefinite past reg_covar, where the
+    kernel's blocked sums (~2e-7) did not."""
     xf = x.to(torch.promote_types(x.dtype, pt.dtype))
     y = torch.matmul(pt, xf[:, None]) - bias[..., None]  # (B, k, D, N)
     lp = const[..., None] - 0.5 * y.square().sum(dim=2)  # (B, k, N)
@@ -123,9 +148,11 @@ def em_pass_plain(x, pt, bias, const, moments: bool = True):
     se = ex.sum(dim=1, keepdim=True)
     resp = ex / se
     ll = (m + torch.log(se)).sum(dim=(1, 2))
-    sums = torch.bmm(resp, xf.transpose(1, 2))  # (B, k, D)
-    scatter = torch.matmul(xf[:, None] * resp[:, :, None], xf.transpose(1, 2)[:, None])
-    return labels, ll, resp.sum(dim=2), sums, scatter
+    x64, r64 = xf.to(torch.float64), resp.to(torch.float64)
+    sums = torch.bmm(r64, x64.transpose(1, 2))  # (B, k, D)
+    scatter = torch.matmul(x64[:, None] * r64[:, :, None], x64.transpose(1, 2)[:, None])
+    return (labels, ll, r64.sum(dim=2).to(xf.dtype), sums.to(xf.dtype),
+            scatter.to(xf.dtype))
 
 
 def em_pass(x, pt, bias, const, moments: bool = True):
@@ -149,14 +176,16 @@ def em_pass(x, pt, bias, const, moments: bool = True):
     if _kernels.use_plain(x, pt, bias, const):
         return em_pass_plain(x, pt, bias, const, moments)
     _kernels.check(d <= D_MAX and n >= 1,
-                   f"the CUDA kernel takes D <= {D_MAX} and N >= 1, got {d}, {n}")
+                   f"the CUDA kernel takes D <= {D_MAX} (the reference's limit, its K9's) "
+                   f"and N >= 1, got {d}, {n}")
     x, pt, bias, const = x.contiguous(), pt.contiguous(), bias.contiguous(), const.contiguous()
     labels = torch.empty((b, n), dtype=torch.int32, device=x.device)
     dev = str(x.device)
     scat_idx, sums_idx, count_idx, tri = _unpack_index(d, dev)
     codes = _tile_codes(d, k, dev)
     width = k * tri + 1  # packed moments, then the log-likelihood
-    chunks, nblk = em_plan(b, n, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    chunks, nblk = em_plan(b, n, torch.cuda.get_device_properties(x.device).multi_processor_count,
+                           em_chunk(d))
     partial = packed = None
     if moments:
         partial = torch.empty((b, nblk, width), dtype=torch.float32, device=x.device)

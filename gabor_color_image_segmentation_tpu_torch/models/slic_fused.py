@@ -9,7 +9,12 @@ so each frame runs the counterpart of the kernel the reference runs there
 
 - K11 ``slic_w3`` (csrc/slic.cu) replaces ``_slic_all_kernel_w3``, the
   reference's default under its 8.5 MB whole-image gate: every iteration
-  of a batch from one C call, 2 * n_iter + 1 launches.
+  of a batch from one C call, 2 * n_iter + 1 launches: n_iter passes that
+  assign the pixels of each tile of grid cells (``slic_w3_plan``) and
+  write the tile's partial moments, each followed by an update of one warp
+  a superpixel, then a pass that only assigns. ``slic_w3_pass`` and
+  ``slic_w3_update`` launch one of each (their plain versions
+  ``slic_w3_pass_plain`` and ``slic_w3_update_plain``).
 - K12 ``slic_w5`` (csrc/slic_banded.cu) replaces ``_slic_all_kernel``, the
   whole-image kernel on uniform ``w_rows`` bands that ``plan="w5"``
   selects under the gate: one cooperative launch for every iteration.
@@ -186,7 +191,8 @@ def _check_lab(lab: torch.Tensor) -> None:
 
 
 def _scales(h: int, w: int, bp: dict, sw: float):
-    """The kernels' float32 cell scales gh / h, gw / w and spatial weight."""
+    """The kernels' float32 cell scales gh / h, gw / w and spatial weight
+    (``bp``: a band plan or K11's plan)."""
     return (float(np.float32(bp["gh"] / h)), float(np.float32(bp["gw"] / w)),
             float(np.float32(sw)))
 
@@ -195,23 +201,177 @@ def _scales(h: int, w: int, bp: dict, sw: float):
 # K11: cell-aligned whole-image SLIC
 # ---------------------------------------------------------------------------
 
+_W3_TILE_PX = (24, 48)  # pixel rows and columns a K11 pass block aims at
+_W3_MAX_CELLS = 128  # hoisted cells a tile, (ty + 2)(tx + 2): csrc/slic.cu's LWMAX
+
+
+@functools.lru_cache(maxsize=None)
+def slic_w3_plan(h: int, w: int, n_superpixels: int) -> dict:
+    """K11's geometry, mirrored by csrc/slic.cu. A pass block takes a tile
+    of ``ty`` x ``tx`` grid cells (about ``_W3_TILE_PX`` pixels; the last
+    tiles of a row or column take what is left): the pixels whose float32
+    cell (``cell_index``) lies in it, pixel rows ``rows[a]`` ..
+    ``rows[a + 1]`` by columns ``cols[c]`` .. ``cols[c + 1]``. It hoists the
+    centroids of its cells +- 1, ``cells`` = (ty + 2)(tx + 2) of them
+    (local index (gy - a ty + 1)(tx + 2) + gx - c tx + 1, those outside
+    the grid unused), which hold every candidate of its pixels, and writes
+    a partial [L, a, b, y, x, count] for each: (B,) + ``parts_shape``."""
+    gh, gw, _ = grid_shape(h, w, n_superpixels)
+    ty = max(1, min(gh, round(_W3_TILE_PX[0] * gh / h)))
+    tx = max(1, min(gw, round(_W3_TILE_PX[1] * gw / w)))
+    while (ty + 2) * (tx + 2) > _W3_MAX_CELLS:
+        if tx > ty:
+            tx -= 1
+        else:
+            ty -= 1
+    nty, ntx = -(-gh // ty), -(-gw // tx)
+
+    def bounds(n, g, t, nt):
+        cells = cell_index(n, g, "cpu").numpy()
+        return tuple(int(np.searchsorted(cells, a * t, side="left")) for a in range(nt)) + (n,)
+
+    cells = (ty + 2) * (tx + 2)
+    return dict(gh=gh, gw=gw, ty=ty, tx=tx, nty=nty, ntx=ntx,
+                rows=bounds(h, gh, ty, nty), cols=bounds(w, gw, tx, ntx), cells=cells,
+                parts_shape=(nty, ntx, cells, 6))
+
+
+@functools.lru_cache(maxsize=None)
+def _w3_bounds(h: int, w: int, n_superpixels: int, device: str):
+    """The plan's tile rows and columns as int32 tensors on ``device``."""
+    plan = slic_w3_plan(h, w, n_superpixels)
+    return tuple(torch.tensor(plan[k], dtype=torch.int32, device=device)
+                 for k in ("rows", "cols"))
+
+
+def _w3_args(lab: torch.Tensor, plan: dict, n_superpixels: int, sw: float):
+    """The plan's arguments of the C entry points, after the tensors."""
+    b, h, w, _ = lab.shape
+    rows, cols = _w3_bounds(h, w, n_superpixels, str(lab.device))
+    return ((rows.data_ptr(), cols.data_ptr(), b, h, w, plan["gh"], plan["gw"], plan["ty"],
+             plan["tx"]), _scales(h, w, plan, sw))
+
+
+def slic_w3_pass_plain(lab: torch.Tensor, cent: torch.Tensor, plan: dict, sw: float,
+                       partials: bool = True):
+    """Plain version of one K11 pass: (labels (B, H, W) int32 of one
+    assignment under ``cent`` (B, S, 5), partials (B,) + plan
+    ``parts_shape`` float64 or None)."""
+    b, h, w, _ = lab.shape
+    gh, gw, dev = plan["gh"], plan["gw"], lab.device
+    swt = _f32(sw, dev)
+    rows = _pixel_rows(lab)
+    cand, ok = _candidates(h, w, gh, gw, dev)
+    labels = _assign(_weighted(rows, swt), cent, cand, ok, swt)  # (B, N) int64
+    out = labels.to(torch.int32).reshape(b, h, w)
+    if not partials:
+        return out, None
+    ty, tx, nty, ntx, cells = (plan[k] for k in ("ty", "tx", "nty", "ntx", "cells"))
+    ta = (cell_index(h, gh, dev) // ty)[:, None].expand(h, w).reshape(-1)  # (N,)
+    tc = (cell_index(w, gw, dev) // tx)[None, :].expand(h, w).reshape(-1)
+    local = (labels // gw - ta * ty + 1) * (tx + 2) + labels % gw - tc * tx + 1
+    slot = ((torch.arange(b, device=dev)[:, None] * nty + ta) * ntx + tc) * cells + local
+    vals = torch.cat([rows.to(torch.float64),
+                      torch.ones((b, h * w, 1), dtype=torch.float64, device=dev)], dim=2)
+    sums = torch.zeros((b * nty * ntx * cells, 6), dtype=torch.float64, device=dev)
+    sums.index_add_(0, slot.reshape(-1), vals.reshape(-1, 6))
+    return out, sums.reshape((b,) + plan["parts_shape"])
+
+
+def slic_w3_moments(parts: torch.Tensor, plan: dict) -> torch.Tensor:
+    """(B, S, 6) float64 [L, a, b, y, x, count] of each superpixel: its
+    partials added over the tiles that hoist it, tile rows then tile
+    columns in order."""
+    gh, gw, ty, tx = plan["gh"], plan["gw"], plan["ty"], plan["tx"]
+    g = torch.zeros((parts.shape[0], gh * gw, 6), dtype=torch.float64, device=parts.device)
+    for a in range(plan["nty"]):
+        for c in range(plan["ntx"]):
+            gy = torch.arange(a * ty - 1, a * ty + ty + 1)
+            gx = torch.arange(c * tx - 1, c * tx + tx + 1)
+            gy, gx = gy[(gy >= 0) & (gy < gh)], gx[(gx >= 0) & (gx < gw)]
+            ids = (gy[:, None] * gw + gx[None, :]).reshape(-1)
+            local = ((gy - a * ty + 1)[:, None] * (tx + 2) + gx - c * tx + 1).reshape(-1)
+            g[:, ids.to(parts.device)] += parts[:, a, c, local.to(parts.device)]
+    return g
+
+
+def slic_w3_update_plain(cent: torch.Tensor, parts: torch.Tensor, plan: dict) -> torch.Tensor:
+    """Plain version of K11's update: ``slic_w3_moments``, then the centroid
+    step."""
+    g = slic_w3_moments(parts, plan)
+    return slic_update(cent, g[..., :5], g[..., 5])
+
+
+def slic_w3_pass(lab: torch.Tensor, cent: torch.Tensor, n_superpixels: int, sw: float,
+                 partials: bool = True):
+    """One K11 pass: (B, H, W, 3) float32 Lab and (B, S, 5) float32
+    centroids -> ((B, H, W) int32 labels, (B,) + ``slic_w3_plan``'s
+    ``parts_shape`` float64 partials or None)."""
+    _check_lab(lab)
+    b, h, w, _ = lab.shape
+    plan = slic_w3_plan(h, w, n_superpixels)
+    n_sp = plan["gh"] * plan["gw"]
+    _kernels.check(tuple(cent.shape) == (b, n_sp, 5) and cent.dtype == torch.float32,
+                   f"cent must be ({b}, {n_sp}, 5) float32")
+    if _kernels.use_plain(lab, cent):
+        return slic_w3_pass_plain(lab, cent, plan, sw, partials)
+    lab, cent = lab.contiguous(), cent.contiguous()
+    labels = torch.empty((b, h, w), dtype=torch.int32, device=lab.device)
+    parts = (torch.empty((b,) + plan["parts_shape"], dtype=torch.float64, device=lab.device)
+             if partials else None)
+    geom, scales = _w3_args(lab, plan, n_superpixels, sw)
+    _kernels.launch("gcis_slic_w3_pass", lab.data_ptr(), cent.data_ptr(), labels.data_ptr(),
+                    parts.data_ptr() if partials else None, *geom, *scales)
+    slic_w3_pass.launches += 1
+    return labels, parts
+
+
+slic_w3_pass.launches = 0
+
+
+def slic_w3_update(cent: torch.Tensor, parts: torch.Tensor, h: int, w: int,
+                   n_superpixels: int) -> torch.Tensor:
+    """One K11 update (one warp a superpixel): the new (B, S, 5) centroids
+    from a pass's partials. On the card ``cent`` is updated in place and
+    returned."""
+    plan = slic_w3_plan(h, w, n_superpixels)
+    b = cent.shape[0]
+    _kernels.check(tuple(cent.shape) == (b, plan["gh"] * plan["gw"], 5)
+                   and cent.dtype == torch.float32, "cent must be (B, S, 5) float32")
+    _kernels.check(tuple(parts.shape) == (b,) + plan["parts_shape"]
+                   and parts.dtype == torch.float64, "parts must be the pass's partials")
+    if _kernels.use_plain(cent, parts):
+        return slic_w3_update_plain(cent, parts, plan)
+    _kernels.check(cent.is_contiguous() and parts.is_contiguous(),
+                   "cent and parts must be contiguous")
+    _kernels.launch("gcis_slic_w3_update", parts.data_ptr(), cent.data_ptr(), b, plan["gh"],
+                    plan["gw"], plan["ty"], plan["tx"])
+    slic_w3_update.launches += 1
+    return cent
+
+
+slic_w3_update.launches = 0
+
 
 def slic_w3(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
             n_iter: int = 10) -> torch.Tensor:
     """K11: (B, H, W, 3) float32 Lab -> (B, H, W) int32 superpixel labels in
-    [0, gh * gw)."""
+    [0, gh * gw): n_iter passes with partials and updates and a last
+    assignment, 2 n_iter + 1 launches from one C call."""
     _check_lab(lab)
     _kernels.check(n_iter >= 0, f"n_iter must be >= 0, got {n_iter}")
     if _kernels.use_plain(lab):
         return slic_plain(lab, n_superpixels, ruler, n_iter)
     b, h, w, _ = lab.shape
-    gh, gw, sw = slic_geometry(h, w, n_superpixels, ruler)
+    plan = slic_w3_plan(h, w, n_superpixels)
+    _, _, sw = slic_geometry(h, w, n_superpixels, ruler)
     lab = lab.contiguous()
-    cent = slic_init_centroids(lab, gh, gw)  # updated in place by the kernel
+    cent = slic_init_centroids(lab, plan["gh"], plan["gw"])  # updated in place
     labels = torch.empty((b, h, w), dtype=torch.int32, device=lab.device)
+    parts = torch.empty((b,) + plan["parts_shape"], dtype=torch.float64, device=lab.device)
+    geom, scales = _w3_args(lab, plan, n_superpixels, sw)
     _kernels.launch("gcis_slic", lab.data_ptr(), cent.data_ptr(), labels.data_ptr(),
-                    b, h, w, gh, gw, n_iter, float(np.float32(gh / h)),
-                    float(np.float32(gw / w)), float(np.float32(sw)))
+                    parts.data_ptr(), *geom, n_iter, *scales)
     slic_w3.launches += 1
     return labels
 

@@ -268,6 +268,14 @@ EM_CASES = {
     "b1_n1": (1, 39, 1, 5),
     "b1_n257": (1, 39, 257, 5),
     "b1_n200003": (1, 39, 200003, 5),  # ragged: 313 chunks of 640, two a block
+    # the wide kernel (D > 40): a 16-kernel bank's 51 rows, and 123 rows
+    # (the k = 8 triangles no longer fit in shared memory; ~2,000 tiles)
+    "d41": (2, 41, 3001, 5),
+    "d51": (2, 51, 3001, 5),
+    "d51_n200003": (1, 51, 200003, 5),
+    "d123": (2, 123, 3001, 5),
+    "d123_k8": (2, 123, 1001, 8),
+    "d128": (1, 128, 700, 3),
 }
 
 
@@ -312,7 +320,14 @@ def test_em_pass_kernel(device, dtype, case):
     assert torch.equal(only, only_again)
 
 
-@pytest.mark.parametrize("d", [3, 39, 64])
+def test_em_pass_kernel_refuses_d_above_128(device):
+    x = _buffer(device, torch.float32, b=1, d=129, n=100)
+    pt, bias, const = _em_inputs(x.cpu(), k=2)
+    with pytest.raises(ValueError, match="128"):
+        gf.em_pass(x, pt.to(device), bias.to(device), const.to(device))
+
+
+@pytest.mark.parametrize("d", [3, 39, 64, 65, 128])
 def test_precision_chol_kernel(device, d):
     # 2d samples keep the condition number near 34 at every d, so float32
     # rounding (cond * eps) stays far below the bound
@@ -327,6 +342,48 @@ def test_precision_chol_kernel(device, d):
     assert rel.max().item() < 5e-4
     assert torch.allclose(diag, ref_diag, rtol=1e-5)
     assert torch.count_nonzero(torch.triu(pt, 1)) == 0
+
+
+CHOL_BACKWARD_TOL, CHOL_DIAG_TOL = 2e-5, 1e-6  # chip_smoke.py's K9 gate
+
+
+def _chol_errors(covs, pt, diag):
+    """Per matrix: (||L L^T - C||_F / ||C||_F with L the float64 inverse of
+    P^T, max_i |diag_i P^T_ii - 1|), as chip_smoke.py's gate."""
+    c64, x = covs.double(), pt.double()
+    eye = torch.eye(c64.shape[-1], dtype=torch.float64, device=c64.device).expand_as(c64)
+    lt = torch.linalg.solve_triangular(x, eye, upper=False)
+    back = torch.linalg.matrix_norm(lt @ lt.transpose(1, 2) - c64) / torch.linalg.matrix_norm(c64)
+    return back, (diag.double() * torch.diagonal(x, dim1=1, dim2=2) - 1).abs().amax(dim=1)
+
+
+@pytest.mark.parametrize("d", [1, 39, 64, 65, 128])
+def test_precision_chol_kernel_ill_conditioned(device, d):
+    """K9 on covariances shaped as the EM's: clusters of fewer points than
+    rows plus reg_covar I (cond ~1e3-1e6), held by the backward error, the
+    diag error and a zero upper triangle; two launches bit-equal."""
+    rng = np.random.default_rng(100 + d)
+    m = 40
+    covs = []
+    for i in range(m):
+        pts = rng.normal(size=(max(1, d // 2 + i % 7), d)) * rng.uniform(0.2, 3.0, size=d)
+        pts -= pts.mean(axis=0)
+        covs.append(pts.T @ pts / len(pts) + 1e-4 * np.eye(d))
+    covs = torch.from_numpy(np.stack(covs).astype(np.float32)).to(device)
+    pt, diag = chol.precision_chol(covs)
+    again = chol.precision_chol(covs)
+    torch.cuda.synchronize()
+    back, dg = _chol_errors(covs, pt, diag)
+    assert torch.isfinite(back).all() and back.max().item() <= CHOL_BACKWARD_TOL
+    assert dg.max().item() <= CHOL_DIAG_TOL
+    assert torch.count_nonzero(torch.triu(pt, 1)) == 0
+    assert torch.equal(pt, again[0]) and torch.equal(diag, again[1])
+
+
+def test_precision_chol_kernel_refuses_d_above_128(device):
+    covs = torch.eye(129, device=device)[None].repeat(2, 1, 1)
+    with pytest.raises(ValueError, match="128"):
+        chol.precision_chol(covs)
 
 
 def _lab(device, h, w, b=2):
@@ -346,6 +403,42 @@ def test_slic_kernel(device, geometry):
     gh, gw, _ = sl.grid_shape(h, w, n_sp)
     assert got.dtype == torch.int32 and int(got.max()) < gh * gw
     assert (got == ref).float().mean(dim=(1, 2)).min() >= 0.999
+
+
+# K11's geometries: config3's frame and batch; a frame with one grid row
+# (gh < 3) and one with one grid column; a frame smaller than one tile;
+# ragged tiles on odd sizes; and tiles of one cell (big cells)
+W3_GEOMETRIES = {"config3": (321, 481, 925, 5.0, 8), "one_grid_row": (20, 301, 30, 10.0, 2),
+                 "one_grid_column": (301, 20, 30, 10.0, 2), "under_a_tile": (9, 13, 4, 10.0, 3),
+                 "odd": (161, 77, 60, 10.0, 2), "one_cell_tiles": (321, 481, 40, 10.0, 1)}
+
+
+@pytest.mark.parametrize("case", list(W3_GEOMETRIES))
+def test_slic_w3_kernel_bit_equal(device, case):
+    """K11 bit-equal to slic_plain (0 pixels differ), two launches
+    bit-equal, and one pass (labels and partials) and one update bit-equal
+    to their plain versions at centroids moved off the grid."""
+    h, w, n_sp, ruler, b = W3_GEOMETRIES[case]
+    lab = _lab(device, h, w, b)
+    got = sf.slic_w3(lab, n_sp, ruler, 10)
+    again = sf.slic_w3(lab, n_sp, ruler, 10)
+    ref = sl.slic_plain(lab, n_sp, ruler, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    plan = sf.slic_w3_plan(h, w, n_sp)
+    _, _, sw = sl.slic_geometry(h, w, n_sp, ruler)
+    cent = sl.slic_init_centroids(lab, plan["gh"], plan["gw"])
+    for _ in range(3):
+        cent = sf.slic_w3_update_plain(cent, sf.slic_w3_pass_plain(lab, cent, plan, sw)[1],
+                                       plan)
+    lk, pk = sf.slic_w3_pass(lab, cent, n_sp, sw)
+    lp, pp = sf.slic_w3_pass_plain(lab, cent, plan, sw)
+    only, none = sf.slic_w3_pass(lab, cent, n_sp, sw, partials=False)
+    up = sf.slic_w3_update(cent.clone(), pk, h, w, n_sp)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(only, lk)
+    assert torch.equal(lk, lp) and torch.equal(pk, pp)
+    assert torch.equal(up, sf.slic_w3_update_plain(cent, pp, plan))
 
 
 @pytest.mark.parametrize("geometry", [(96, 128, 64), (37, 53, 10), (64, 96, 30),
@@ -577,7 +670,7 @@ def test_superpixel_moments_kernel_large_s(device, name, n_sp, labels):
         assert torch.equal(sums, rs) if dt == torch.bfloat16 else _within_one_ulp(sums, rs)
 
 
-@pytest.mark.parametrize("d", [3, 39, 64])
+@pytest.mark.parametrize("d", [3, 39, 64, 123, 127])
 def test_precision_chol_params_kernel(device, d):
     """K10 on moments of well-conditioned data (cond of the covariance near
     the K9 test's): P^T within 5e-4 relative of the plain version, bias and
@@ -596,6 +689,15 @@ def test_precision_chol_params_kernel(device, d):
     assert torch.count_nonzero(torch.triu(pt, 1)) == 0
     assert torch.allclose(bias, rb, rtol=2e-4, atol=2e-4 * rb.abs().max().item())
     assert torch.allclose(const, rc, rtol=1e-5, atol=1e-4)
+
+
+def test_precision_chol_params_kernel_refuses_d_above_127(device):
+    b, k, d = 1, 2, 128
+    counts = torch.full((b, k), 10.0, device=device)
+    sums = torch.zeros((b, k, d), device=device)
+    scatter = torch.eye(d, device=device).expand(b, k, d, d).contiguous()
+    with pytest.raises(ValueError, match="127"):
+        chol.precision_chol_params(counts, sums, scatter, 100, 1e-4)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

@@ -112,7 +112,17 @@ def _gmm_params(xb, k=4, seed=3):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_em_pass_matches_kernel(dtype):
-    x = _blobs(seed=4)
+    _check_em_pass(dtype, _blobs(seed=4))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_em_pass_matches_kernel_wide(dtype):
+    """A 16-kernel bank's 51 feature rows, which the card's wide K8 kernel
+    takes."""
+    _check_em_pass(dtype, _blobs(n=1500, d=51, seed=51))
+
+
+def _check_em_pass(dtype, x):
     b, n, d = x.shape
     k = 4
     xt, xb = _both(x, dtype)
@@ -151,6 +161,48 @@ def test_precision_chol_matches_kernel():
     assert rel.max() < 5e-4, rel.max()
     np.testing.assert_allclose(diag.numpy(), _np(ref_diag), rtol=1e-5)
     assert np.abs(np.triu(pt.numpy(), 1)).max() == 0.0
+
+
+def test_precision_chol_matches_kernel_wide():
+    """K9's plain version against the Pallas kernel at a 16-kernel bank's
+    d = 51, past the 40 rows of the card's first EM kernel (2d samples keep
+    cond near 34, so float32 rounding stays far below the bound; the
+    reference's interpret mode takes ~80 s at d = 128, which the card tests
+    cover)."""
+    rng = np.random.default_rng(51)
+    d = 51
+    a = rng.standard_normal((4, d, 2 * d))
+    cov = (a @ a.transpose(0, 2, 1) / (2 * d) + 1e-3 * np.eye(d)).astype(np.float32)
+    ref_pt, ref_diag = precision_chol_pallas(jnp.asarray(cov), d=d)
+    pt, diag = chol.precision_chol(torch.from_numpy(cov))
+    rel = np.abs(pt.numpy() - _np(ref_pt)[:, :d, :d]) / (np.abs(_np(ref_pt)[:, :d, :d]) + 1e-3)
+    assert rel.max() < 5e-4, rel.max()
+    np.testing.assert_allclose(diag.numpy(), _np(ref_diag)[:, :d], rtol=1e-5)
+    assert np.abs(np.triu(pt.numpy(), 1)).max() == 0.0
+
+
+def test_precision_chol_params_matches_kernel_wide():
+    """K10's plain version against the Pallas kernel at a 16-kernel bank's
+    d = 51 (dp = 56), B = 1, k = 3, 2,000 pixels."""
+    rng = np.random.default_rng(51)
+    b, k, d, dp, m_rows = 1, 3, 51, 56, 2000
+    xe = np.zeros((b, m_rows, dp))
+    xe[:, :, :d] = rng.normal(size=(b, m_rows, d))
+    xe[:, :, d] = 1.0
+    resp = rng.random((b, k, m_rows)) + 0.05
+    covs_m = np.einsum("bkn,bni,bnj->bkij", resp, xe, xe).astype(np.float32)
+    ref_pt, _, ref_bias, ref_const = precision_chol_params_pallas(
+        jnp.asarray(covs_m), d, m_rows, 1e-4)
+    counts, sums, scatter = (torch.from_numpy(a.copy()) for a in (
+        covs_m[:, :, d, d], covs_m[:, :, d, :d], covs_m[:, :, :d, :d]))
+    pt, bias, const = chol.precision_chol_params(counts, sums, scatter, m_rows, 1e-4)
+    want = _np(ref_pt).reshape(b, k, dp, 128)[:, :, :d, :d]
+    rel = np.abs(pt.numpy() - want) / (np.abs(want) + 1e-3)
+    assert rel.max() < 5e-4, rel.max()
+    np.testing.assert_allclose(bias.numpy(), _np(ref_bias).reshape(b, k, dp)[:, :, :d],
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(const.numpy(), _np(ref_const)[:, 0].reshape(b, k),
+                               rtol=1e-5, atol=1e-4)
 
 
 def _aligned(got, ref):
@@ -286,7 +338,26 @@ def test_em_tile_map_covers_the_triangle(d):
     assert 8 * len(gf.tile_map(d)) <= 320
 
 
-@pytest.mark.parametrize("d", [3, 39, 40])
+@pytest.mark.parametrize("d", [41, 51, 123, 128])
+def test_em_wide_columns_hold_every_tile(d):
+    """The wide kernel (D > 40): its chunks of 256 pixels, and its columns
+    in shared memory hold every tile's rows and columns at a stride of 4
+    (mod 8) floats; the tiles cover the triangle as for the first kernel."""
+    assert gf.em_chunk(d) == 256 and gf.em_chunk(gf.D_REGS) == 640
+    stride = gf.em_wide_stride(d)
+    assert stride % 8 == 4 and stride >= d + 1
+    ta, tc = gf._EM_TILE
+    e = d + 1
+    cover = np.zeros((e, e), int)
+    for a0, c0 in gf.tile_map(d):
+        assert a0 + ta <= stride and c0 + tc <= stride and a0 < 256 and c0 < 256
+        for a in range(a0, min(a0 + ta, e)):
+            for c in range(c0, min(c0 + tc, a + 1)):
+                cover[a, c] += 1
+    assert np.array_equal(cover, np.tril(np.ones((e, e), int)))
+
+
+@pytest.mark.parametrize("d", [3, 39, 40, 51, 123])
 @pytest.mark.parametrize("k", [1, 5, 8])
 def test_em_unpack_reads_the_tile_layout(d, k):
     """The wrapper's unpacking of K8's packed moments, on moments packed the
@@ -330,3 +401,15 @@ def test_em_plan(b, n, n_sm, expect):
     nchunks = -(-n // 640)
     assert (nblk - 1) * chunks < nchunks <= nblk * chunks
     assert b * nblk <= max(n_sm, b)
+
+
+@pytest.mark.parametrize("b, n, n_sm, expect", [
+    (8, 9600, 132, (3, 13)),  # config2's fit grid, 38 chunks of 256 an image
+    (8, 154401, 132, (38, 16)),
+    (1, 257, 132, (1, 2)),
+])
+def test_em_plan_wide(b, n, n_sm, expect):
+    chunks, nblk = gf.em_plan(b, n, n_sm, gf.em_chunk(51))
+    assert (chunks, nblk) == expect
+    nchunks = -(-n // 256)
+    assert (nblk - 1) * chunks < nchunks <= nblk * chunks

@@ -9,7 +9,13 @@ labels-only pass all run at the preset's own n_iter (30). Bounds after
 Hungarian alignment: >= 0.999 in float32 and >= 0.99 in bfloat16, on an
 image whose JAX bf16 and f32 labels themselves agree >= 0.99 (see
 test_torch_pipeline.py). A file of its own because the JAX reference takes
-~10-20 s per dtype on the CPU."""
+~10-20 s per dtype on the CPU.
+
+Also config2 with a 16-kernel bank (4 scales x 4 orientations, D = 51
+feature rows, past the 40 the card's first EM kernel holds in registers)
+on 96x128 mosaics, at the same bounds."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -96,3 +102,44 @@ def test_gmm_path_runs_every_stage(batch, monkeypatch):
     assert calls.count(("em_pass_plain", n, True)) == 1
     assert calls.count(("em_pass_plain", n, False)) == 1
     assert len(calls) == 48
+
+
+SIXTEEN = (2.0, 3.0, 4.0, 8.0)  # scales of a 16-kernel bank (4 orientations)
+
+
+def _sixteen(cfg):
+    return cfg.replace(bank=dataclasses.replace(cfg.bank, scales=SIXTEEN))
+
+
+@pytest.fixture(scope="module")
+def batch16():
+    return np.stack([synthetic_mosaic(h=96, w=128, n_regions=5, seed=100 + i)[0]
+                     for i in range(2)])
+
+
+@pytest.fixture(scope="module")
+def reference16(batch16):
+    cache = {}
+
+    def get(dtype):
+        if dtype not in cache:
+            cfg = _sixteen(jax_preset("config2").replace(batch_size=2, dtype=dtype))
+            cache[dtype] = np.asarray(jax_segment(batch16, cfg, jax_make_bank(cfg.bank)))
+        return cache[dtype]
+
+    return get
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sixteen_kernel_bank_matches_jax(batch16, reference16, dtype):
+    cfg = _sixteen(preset("config2").replace(batch_size=2, dtype=dtype))
+    assert cfg.bank.n_kernels == 16
+    ref = reference16(dtype)
+    if dtype == "bfloat16":
+        stable = _agreement(ref, reference16("float32"))
+        assert min(stable) >= FLOOR[dtype], f"borderline test image: {stable}"
+    labels, _ = segment_batch(batch16, cfg, with_features=False, device="cpu")
+    got = labels.numpy()
+    assert got.min() >= 0 and got.max() < cfg.cluster.k
+    agree = _agreement(got, ref)
+    assert min(agree) >= FLOOR[dtype], agree

@@ -10,6 +10,10 @@ work and never a move to the CPU.
   the card too. The check allocates nothing, so a CPU machine can ask it
   about ``torch.device("cuda")``; on the CPU the same config runs through
   the plain K1.
+- No refusal of a wide feature buffer: on the card the GMM route takes the
+  reference's range of feature rows (K8 and K9 D <= 128, K10 d <= 127, the
+  limits of the reference's K9 and K10; ROADMAP queue 3 fault 6,
+  repaired), so config2 with a 16-kernel bank (D = 51) passes the check.
 - ``segment_batch``'s default ``with_features=True`` (the reference's):
   the features are item 14's, so the default raises instead of returning
   ``(labels, None)``."""
@@ -22,7 +26,8 @@ import torch
 
 from gabor_color_image_segmentation_tpu_torch.config import preset
 from gabor_color_image_segmentation_tpu_torch.data import synthetic_mosaic
-from gabor_color_image_segmentation_tpu_torch.models import pipeline
+from gabor_color_image_segmentation_tpu_torch.models import chol, pipeline
+from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
 from gabor_color_image_segmentation_tpu_torch.models.pipeline import segment_batch
 
 torch.set_num_threads(2)
@@ -68,6 +73,23 @@ def test_wide_bank_passes_the_card_check(case):
     pipeline._check_supported(cfg, False, (32, 40), CUDA)
     pipeline._check_supported(cfg, False, (32, 40), CPU)
     pipeline._check_supported(_with_bank("config3", **fields), False, (32, 40), CUDA)
+
+
+def test_card_feature_row_limits_are_the_references():
+    """The wrappers' card-side limits: K8 and K9 at the reference K9's lane
+    width, K10 one less (its ones row sits at index d < dp <= 128)."""
+    from gabor_color_image_segmentation_tpu.models.chol_pallas import _LANES
+
+    assert gf.D_MAX == chol.D_MAX == _LANES
+    assert chol.D_PARAMS_MAX == _LANES - 1
+
+
+def test_sixteen_kernel_bank_passes_the_card_check():
+    cfg = _with_bank("config2", scales=(2.0, 3.0, 4.0, 8.0))
+    assert cfg.bank.n_kernels == 16
+    assert gf.D_REGS < 3 * cfg.bank.n_kernels + 3 == 51 <= gf.D_MAX
+    pipeline._check_supported(cfg, False, (32, 40), CUDA)
+    pipeline._check_supported(cfg, False, (32, 40), CPU)
 
 
 @pytest.mark.parametrize("case", sorted(WIDE_BANKS))
