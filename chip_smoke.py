@@ -21,9 +21,13 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    beside its design floor (k + 1 + iters reads of its buffer); K7 (one pass and the whole ``kmeans_fused``, whose run with
    the counts set to 0 just before it and read just after is K7's path) on
    config1's standardised features laid out (16, 154401, 243) in bf16; K1
-   (no twin), K5, K6, K8 (the fit grid and full resolution, with moments
-   and labels only, each launched twice: bit-equal), K9 and K10 (on the first EM pass's moments and on
-   well-conditioned ones) at config2 (batch 8, f32 and bf16); K9 also at
+   (no twin), K5 (launched twice: bit-equal; one device kernel in a
+   profile of one call, with its CTAs an image), K6, K8 (the fit grid and
+   full resolution, with moments and labels only, each launched twice:
+   bit-equal), K9 and K10 (on the first EM pass's moments and on
+   well-conditioned ones; K10 launched twice: bit-equal, its P^T bit-equal
+   to K9's on the plain chain's C, so its C is the plain chain's) at
+   config2 (batch 8, f32 and bf16); K9 also at
    d = 39, 64, 65 and 128 on EM-shaped and well-conditioned matrices (d =
    129 raises, as the reference's), K8 at D = 51 and 123 on fit-grid
    buffers in both dtypes with moments and labels only, and K10 at d = 123
@@ -78,9 +82,10 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    the Rand index against the mosaics' ground truth (a reading, not a
    gate); the eight 4K mosaics (bench seeds 100-107) are made on the host
    in worker processes while the kernels build, outside any timed window;
-5. where the time goes: ``torch.profiler`` tables of one config1, one
-   config2 call, one config3 call in each dtype and one config4 bf16 call
-   (the full tables go to ``out_dir``);
+5. where the time goes: ``torch.profiler`` tables of one config1 call,
+   one config2 bf16 call with ``_FUSED_PREP`` off and one with it on, one
+   config3 call in each dtype and one config4 bf16 call (the full tables go
+   to ``out_dir``);
 6. a JSON line of the kernels (time, plain time, bound, library call), then
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -88,7 +93,7 @@ Tolerances (also in the tests): energies <= 1e-4 * peak (f32), <= 2e-2 *
 peak (bf16); Lloyd labels equal on >= 99.99 % of pixels, sums within rtol
 1e-4 (f32) / 1e-3 (bf16), two K2 launches bit-equal; coarse centres within rtol and atol 2e-3 and
 two K3 launches bit-equal;
-maximin picks the same pixels, running minima within rtol 1e-5 (K4) or
+two K5 launches bit-equal; maximin picks the same pixels, running minima within rtol 1e-5 (K4) or
 within 1e-5 of the largest distance (K6, whose expanded form cancels near
 the probe); EM labels
 equal on >= 99.99 %, and, held with the plain version against the plain
@@ -104,7 +109,8 @@ matrices, and on the EM's ill-conditioned covariances, where two float32
 inverses differ entry by entry by up to cond * eps, a backward error
 ||L L^T - C||_F / ||C||_F <= 2e-5 (L the float64 inverse of P^T) and
 |diag * P^T_ii - 1| <= 1e-6, a gate the run checks rejects a P^T perturbed
-by 1e-5 or zeroed; K10 the same on its P^T, and against float64 on its own
+by 1e-5 or zeroed; K10 the same on its P^T, two launches bit-equal, its P^T
+bit-equal to K9's on the plain chain's C, and against float64 on its own
 P^T: bias within 1e-5 of sum |P^T_ij mu_j|, const within 1e-5 of the sum
 of its terms' magnitudes (entry by entry within 5e-4, 2e-4 and 1e-4 of the
 plain version on well-conditioned moments); K7's pass labels equal on
@@ -251,6 +257,9 @@ def main() -> None:
     print(f"phase 2: built {_kernels.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     set_policy()
     dev = torch.device("cuda")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -374,9 +383,20 @@ def main() -> None:
         nmat = bsz * k
         pk10, bk10, ck10 = chol.precision_chol_params(*moments, m, reg)
         pp10, bp10, cp10 = chol.precision_chol_params_plain(*moments, m, reg)
-        torch.cuda.synchronize()
+        again10 = chol.precision_chol_params(*moments, m, reg)
         _, mu32, cov32 = gf._moments_to_params(*moments, m, reg)
         covs10 = cov32.reshape(nmat, d, d)
+        pt9 = chol.precision_chol(covs10)[0]
+        torch.cuda.synchronize()
+        # K10 shares K9's factorisation, so its P^T equals K9's on the plain
+        # chain's C bit for bit exactly when it forms that C bit for bit
+        bits10 = all(torch.equal(g, a) for g, a in zip((pk10, bk10, ck10), again10))
+        c_bits = torch.equal(pk10.reshape(nmat, d, d), pt9)
+        print(f"phase 3: precision_chol_params [{what}] two launches bit-equal {bits10}, "
+              f"P^T bit-equal to precision_chol's on the plain chain's C (its C bit-equal) "
+              f"{c_bits}", flush=True)
+        check(bits10 and c_bits, f"precision_chol_params [{what}] is not bit-stable or does not "
+              "form the plain chain's C")
         pt10 = pk10.reshape(nmat, d, d)
         back10, _ = chol_errors(covs10, pt10, 1.0 / torch.diagonal(pt10, dim1=1, dim2=2))
         p64, mu64 = pk10.double(), mu32.double()
@@ -738,12 +758,23 @@ def main() -> None:
                lambda: kf.maximin_t_pass_plain(fit, probe, dp, False),
                (bsz * m * (d * size(dt) + 8), bsz * m * 4 * d) if main2 else None)
 
-        # K5: a Lloyd pass from those seeds
+        # K5: a Lloyd pass from those seeds, one launch a call (counted in a
+        # profile of one call), two launches bit-equal
         centers = torch.stack(seeds, dim=1)
         lk, sk, nk = kf.lloyd_t_pass(fit, centers)
         lp, sp, np_ = kf.lloyd_t_pass_plain(fit, centers)
         only = kf.lloyd_t_pass(fit, centers, assign_only=True)
+        again = kf.lloyd_t_pass(fit, centers)
         torch.cuda.synchronize()
+        bits = all(torch.equal(a, g) for a, g in zip(again, (lk, sk, nk)))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kf.lloyd_t_pass(fit, centers)
+            torch.cuda.synchronize()
+        k5_kernels = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        print(f"phase 3: lloyd_t_pass [{gtag}] {kf.lloyd_t_plan(bsz, m, n_sm)} CTAs an image; device "
+              f"kernels in one call {len(k5_kernels)} ({k5_kernels}); two launches "
+              f"bit-equal {bits}", flush=True)
+        check(len(k5_kernels) == 1, f"lloyd_t_pass ran {len(k5_kernels)} kernels in one call")
         same = (lk == lp).float().mean().item()
         rtol = 1e-4 if dt == torch.float32 else 1e-3
         scale = sp.abs().max().item()
@@ -751,7 +782,7 @@ def main() -> None:
         report("lloyd_t_pass", f"{gtag} labels equal {same:.6f}", err, err,
                f"{rtol}*{scale:.4g}",
                same >= 0.9999 and err <= rtol * scale and torch.equal(nk, np_)
-               and torch.equal(only, lk),
+               and torch.equal(only, lk) and bits,
                lambda: kf.lloyd_t_pass(fit, centers),
                lambda: kf.lloyd_t_pass_plain(fit, centers),
                (bsz * m * (d * size(dt) + 4), bsz * m * (2 * k * d + d)) if main2 else None)
@@ -1564,27 +1595,27 @@ def main() -> None:
               f"the gate is the agreement above)", flush=True)
 
     # ---- phase 5: where the time goes -------------------------------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     os.makedirs(out_dir, exist_ok=True)
-    for cfg, rgb, label in ((cfg1, rgb16, "config1 batch 16 bf16"),
-                            (cfg2.replace(dtype="bfloat16"), rgb8, "config2 batch 8 bf16"),
-                            (cfg3.replace(dtype="bfloat16"), rgb8, "config3 batch 8 bf16"),
-                            (cfg3, rgb8, "config3 batch 8 f32"),
-                            (cfg4.replace(dtype="bfloat16"), rgb4, "config4 batch 8 bf16")):
-        pl.segment_batch(rgb, cfg, with_features=False, device="cuda")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            pl.segment_batch(rgb, cfg, with_features=False, device="cuda")[0].cpu()
-            wall = (time.perf_counter() - t0) * 1e3
+    for cfg, rgb, label, prep in (
+            (cfg1, rgb16, "config1 batch 16 bf16", False),
+            (cfg2.replace(dtype="bfloat16"), rgb8, "config2 batch 8 bf16", False),
+            (cfg2.replace(dtype="bfloat16"), rgb8, "config2 batch 8 bf16 _FUSED_PREP on", True),
+            (cfg3.replace(dtype="bfloat16"), rgb8, "config3 batch 8 bf16", False),
+            (cfg3, rgb8, "config3 batch 8 f32", False),
+            (cfg4.replace(dtype="bfloat16"), rgb4, "config4 batch 8 bf16", False)):
+        with fused_prep(prep):
+            pl.segment_batch(rgb, cfg, with_features=False, device="cuda")
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                pl.segment_batch(rgb, cfg, with_features=False, device="cuda")[0].cpu()
+                wall = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages()
         device_ms = sum(ev.self_device_time_total for ev in events  # kernels only
                         if ev.device_type == DeviceType.CUDA
                         and not getattr(ev, "is_user_annotation", False)) / 1e3
         table = events.table(sort_by="self_cuda_time_total", row_limit=15)
-        name = "_".join(label.split()[::3])  # e.g. config3_bf16
+        name = "_".join(label.split()[:4][::3]) + ("_prep" if prep else "")  # config3_bf16
         with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
             f.write(f"{label} ({card})\n{events.table(sort_by='self_cuda_time_total')}")
         print(f"phase 5: one {label} call under torch.profiler ({card}): device time "

@@ -75,10 +75,8 @@ from gabor_color_image_segmentation_tpu_torch.ops import features as ft  # noqa:
 from gabor_color_image_segmentation_tpu_torch.ops import fused  # noqa: E402
 from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank  # noqa: E402
 from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy  # noqa: E402
+from _turns import bound, card_line, cuda_ms, ptxas  # noqa: E402
 
-HBM_BYTES_PER_MS = 3.35e9  # H100 SXM HBM3
-F32_FLOP_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores
-CYCLES_PER_MS = 2.0e6
 K2_VARIANTS = ((128, 2), (128, 3), (128, 4), (64, 3), (32, 3))
 # (name, [(source text, its replacement), ...]): each probe switches one K2
 # phase off (the staging probe turns the TMA path off too, so that no wait
@@ -96,41 +94,9 @@ K2_PROBES = [
 ]
 
 
-def cuda_ms(fn, inner=1, hold_ms=0.0, reps=5):
-    fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if hold_ms:
-            torch.cuda._sleep(int(hold_ms * CYCLES_PER_MS))
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
-
-
 def timed(fn):
     single = cuda_ms(fn)
     return single if single >= 1.0 else cuda_ms(fn, inner=50, hold_ms=50 * single)
-
-
-def bound(nbytes, flops):
-    t_b, t_o = nbytes / HBM_BYTES_PER_MS, flops / F32_FLOP_PER_MS
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
-def ptxas() -> None:
-    nvcc = _kernels._find_nvcc()
-    for src in ("lloyd_chw.cu", "slic_banded.cu"):
-        res = subprocess.run([nvcc, *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-                              str(_kernels._CSRC / src), "-o", "/dev/null"],
-                             capture_output=True, text=True)
-        lines = [ln for ln in (res.stdout + res.stderr).splitlines()
-                 if "registers" in ln or "spill" in ln or "rror" in ln or "Compiling" in ln]
-        print(f"ptxas {src}:\n  " + "\n  ".join(lines), flush=True)
 
 
 # (name, edits) of slic_banded.cu: the pass kernel's launch bounds, and
@@ -436,12 +402,10 @@ def e2e(dev, card) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = card_line()
     print(card, flush=True)
     if "--ptxas" in sys.argv:
-        ptxas()
+        ptxas(_kernels._CSRC, ["lloyd_chw.cu", "slic_banded.cu"], "change")
     _kernels.library()
     set_policy()
     dev = torch.device("cuda")

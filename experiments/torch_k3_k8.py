@@ -27,8 +27,6 @@ differently.
 
 from __future__ import annotations
 
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -50,47 +48,13 @@ from gabor_color_image_segmentation_tpu_torch.ops import features as ft  # noqa:
 from gabor_color_image_segmentation_tpu_torch.ops import fused  # noqa: E402
 from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank  # noqa: E402
 from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy  # noqa: E402
+from _turns import HBM_BYTES_PER_MS, bound, card_line, cuda_ms, ptxas  # noqa: E402
 
-HBM_BYTES_PER_MS = 3.35e9  # H100 SXM HBM3
-F32_FLOP_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores
-CYCLES_PER_MS = 2.0e6
-
-
-def cuda_ms(fn, inner=1, hold_ms=0.0, reps=5):
-    fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if hold_ms:
-            torch.cuda._sleep(int(hold_ms * CYCLES_PER_MS))
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
 
 
 def timed(fn):
     single = cuda_ms(fn)
     return single if single >= 1.0 else cuda_ms(fn, inner=50, hold_ms=50 * single)
-
-
-def bound(nbytes, flops):
-    t_b, t_o = nbytes / HBM_BYTES_PER_MS, flops / F32_FLOP_PER_MS
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
-def ptxas() -> None:
-    nvcc = _kernels._find_nvcc()
-    for src in ("coarse_centers.cu", "em_pass.cu"):
-        res = subprocess.run([nvcc, *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-                              str(_kernels._CSRC / src), "-o", "/dev/null"],
-                             capture_output=True, text=True)
-        lines = [ln for ln in (res.stdout + res.stderr).splitlines()
-                 if "registers" in ln or "spill" in ln or "rror" in ln or "Compiling" in ln]
-        print(f"ptxas {src}:\n  " + "\n  ".join(lines), flush=True)
 
 
 def mosaics(n):
@@ -157,12 +121,10 @@ def ties(dev) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = card_line()
     print(card, flush=True)
     if "--ptxas" in sys.argv:
-        ptxas()
+        ptxas(_kernels._CSRC, ["coarse_centers.cu", "em_pass.cu"], "change")
     _kernels.library()
     set_policy()
     dev = torch.device("cuda")

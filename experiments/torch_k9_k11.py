@@ -41,8 +41,6 @@ line carries the card's name and power limit.
 from __future__ import annotations
 
 import ctypes
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -60,10 +58,8 @@ from gabor_color_image_segmentation_tpu_torch.models import pipeline as pl  # no
 from gabor_color_image_segmentation_tpu_torch.models import slic as sl  # noqa: E402
 from gabor_color_image_segmentation_tpu_torch.models import slic_fused as sf  # noqa: E402
 from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy  # noqa: E402
+from _turns import bound, build, card_line, cuda_ms, ptxas, source  # noqa: E402
 
-HBM_BYTES_PER_MS = 3.35e9  # H100 SXM HBM3
-F32_FLOP_PER_MS = 67e9  # H100 SXM float32 outside the tensor cores
-CYCLES_PER_MS = 2.0e6
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the parent's signatures (commit 5cbbf56)
 PARENT_SIGNATURES = {"gcis_precision_chol": [_P] * 3 + [_I] * 2 + [_P],
@@ -94,22 +90,6 @@ K11_PROBES = [
 ]
 
 
-def cuda_ms(fn, inner=1, hold_ms=0.0, reps=5):
-    fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if hold_ms:
-            torch.cuda._sleep(int(hold_ms * CYCLES_PER_MS))
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
-
-
 def timed(fn):
     single = cuda_ms(fn)
     return single if single >= 1.0 else cuda_ms(fn, inner=50, hold_ms=50 * single)
@@ -136,68 +116,6 @@ def device_ms(fn) -> float:
                if ev.device_type == DeviceType.CUDA) / 1e3
 
 
-def bound(nbytes, flops):
-    t_b, t_o = nbytes / HBM_BYTES_PER_MS, flops / F32_FLOP_PER_MS
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
-def build(sources: list, names: list, entries: dict) -> list:
-    """Each source built into a shared library of its own (one nvcc each,
-    all started together) under ``_build/``, its entries bound."""
-    _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _kernels._find_nvcc()
-    procs, outs = [], []
-    for text, name in zip(sources, names):
-        cu = _kernels.BUILD_DIR / f"{name}.cu"
-        cu.write_text(text)
-        out = cu.with_suffix(".so")
-        procs.append(subprocess.Popen([nvcc, *_kernels.NVCC_FLAGS, "-shared", str(cu), "-o",
-                                       str(out)], stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True))
-        outs.append(out)
-    libs = []
-    for proc, out in zip(procs, outs):
-        log = proc.communicate()[0]
-        if proc.returncode:
-            sys.exit(f"build of {out.name} failed:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        for entry, argtypes in entries.items():
-            if hasattr(lib, entry):
-                getattr(lib, entry).argtypes = argtypes
-                getattr(lib, entry).restype = ctypes.c_int
-        libs.append(lib)
-    return libs
-
-
-def source(csrc: Path, name: str) -> str:
-    """csrc/name with its includes made absolute, so a copy builds anywhere."""
-    text = (csrc / name).read_text()
-    for inc in ("common.cuh", "slic_common.cuh"):
-        text = text.replace(f'#include "{inc}"', f'#include "{csrc / inc}"')
-    return text
-
-
-def patched(csrc: Path, name: str, edits: list) -> str:
-    """source() with each (old, new) edit applied; a missing pattern exits."""
-    text = source(csrc, name)
-    for old, new in edits:
-        if old not in text:
-            sys.exit(f"pattern not found in {name}: {old!r}")
-        text = text.replace(old, new)
-    return text
-
-
-def ptxas(csrc: Path, names: list, tag: str) -> None:
-    nvcc = _kernels._find_nvcc()
-    for src in names:
-        res = subprocess.run([nvcc, *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-                              str(csrc / src), "-o", "/dev/null"],
-                             capture_output=True, text=True)
-        lines = [ln for ln in (res.stdout + res.stderr).splitlines()
-                 if "registers" in ln or "spill" in ln or "rror" in ln or "Compiling" in ln]
-        print(f"ptxas {tag} {src}:\n  " + "\n  ".join(lines), flush=True)
-
-
 def em_covariances(m: int, d: int, dev) -> torch.Tensor:
     """(m, d, d) float32 covariances shaped as the EM's: clusters of fewer
     points than rows, plus reg_covar I (cond ~1e3-1e6)."""
@@ -221,9 +139,7 @@ def backward_error(covs, pt) -> float:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = card_line()
     print(card, flush=True)
     parent = None
     if "--parent" in sys.argv:
@@ -331,7 +247,7 @@ def main() -> None:
         c39 = em_covariances(40, 39, dev)
         pt, dg = torch.empty_like(c39), torch.empty((40, 39), device=dev)
         for (name, _), lib in zip(K9_PROBES, build(
-                [patched(_kernels._CSRC, "precision_chol.cu", e) for _, e in K9_PROBES],
+                [source(_kernels._CSRC, "precision_chol.cu", e) for _, e in K9_PROBES],
                 [f"probe_chol_{k}" for k in range(len(K9_PROBES))],
                 {"gcis_precision_chol": _kernels._SIGNATURES["gcis_precision_chol"]})):
             def call():
@@ -343,7 +259,7 @@ def main() -> None:
             torch.cuda.synchronize()
             print(f"K9 [{name}] (40, 39, 39): {timed(call):.4f} ms, backward error "
                   f"{backward_error(c39, pt):.3e} ({card})", flush=True)
-        variants = [patched(_kernels._CSRC, "slic.cu", e) for _, e in K11_PROBES]
+        variants = [source(_kernels._CSRC, "slic.cu", e) for _, e in K11_PROBES]
         libs = build(variants, [f"probe_slic_{k}" for k in range(len(variants))],
                      {"gcis_slic_w3_pass": _kernels._SIGNATURES["gcis_slic_w3_pass"]})
         rows, cols = sf._w3_bounds(h, w, n_sp, str(dev))

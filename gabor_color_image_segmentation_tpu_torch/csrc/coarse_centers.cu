@@ -56,6 +56,9 @@ namespace {
 using gcis::ArgMax;
 using gcis::better;
 using gcis::block_argmax;
+using gcis::cp_async16;
+using gcis::cp_commit;
+using gcis::cp_wait;
 using gcis::neg_inf;
 using gcis::round_to;
 using gcis::warp_sum;
@@ -68,19 +71,6 @@ constexpr int TILE_BYTES = 72 * 1024;  // one staged tile at most (two in flight
 constexpr int SMEM_MAX = 226 * 1024;   // dynamic, beside ~0.3 KB of static shared memory
 constexpr int MAX_CTAS = 16;
 constexpr int MEAN = 0, SEED = 1, LLOYD = 2;
-
-// 16 bytes to shared memory, of which the first `valid` come from src and the
-// rest are zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 

@@ -85,6 +85,21 @@ static __device__ ArgMax block_argmax(ArgMax a, ArgMax* scratch) {
   return scratch[0];
 }
 
+// 16 bytes to shared memory, of which the first `valid` come from src and the
+// rest are zeros.
+static __device__ __forceinline__ void cp_async16(void* dst, const void* src, int valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid));
+}
+static __device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // Butterfly sum over a warp. The order is fixed, so lane 0's result is the
 // same on every run.
 static __device__ __forceinline__ float warp_sum(float v) {

@@ -1,5 +1,5 @@
 // K9: batched Cholesky factor and its inverse, one warp per matrix;
-// K10: the GMM's moments -> parameters step around a block factorisation.
+// K10: the GMM's moments -> parameters step around the same factorisation.
 //
 // K9 replaces models/chol_pallas.py::_kernel (wrapper precision_chol_pallas):
 // for each SPD float32 matrix C (d x d, d <= 128, the reference's lane
@@ -49,18 +49,22 @@
 // parameters and K8's inputs in one launch,
 //
 //   nk = n + 10 eps,  mu = s / nk,  C = Q / nk - mu mu^T + reg I,
-//   P^T = L^-1 (a block's right-looking factorisation, then forward
-//   substitution row by row),  bias = P^T mu,
-//   const = log(nk / m) - sum log diag L - d/2 log 2 pi,
+//   P^T = L^-1,  bias = P^T mu,  const = log(nk / m) - sum log diag L - d/2 log 2 pi,
 //
 // for d <= 127 (the reference's dp <= 128 with the ones row at index d).
-// One 256-thread block per matrix, its shared memory sized at launch. The
-// TPU kernel read the moments from a ones-extended (dp x dp) scatter; here
-// they come as EM's (count, sums, scatter) outputs. C is formed with
-// explicitly rounded operations in the plain version's order, so it is
-// bit-equal to the plain version's C; bias and const differ from it by the
-// order of their sums. Bound: latency, as K9; its factorisation keeps three
-// block barriers a step (a later redesign).
+// The TPU kernel read the moments from a ones-extended (dp x dp) scatter;
+// here they come as EM's (count, sums, scatter) outputs. Bound: latency,
+// as K9 (M = 40 matrices of d = 39, ~0.25 MB of moments). Its design is
+// K9's (params_kernel): one warp a matrix, no block barrier, and the same
+// LDL^T sweep (chol_sweep), behind a prologue that forms C in shared memory
+// with explicitly rounded operations in the plain version's order, so C is
+// bit-equal to the plain chain's C (and P^T to K9's on that C), and before
+// an epilogue of a lane a row: P^T = D^(-1/2) L^-1, bias = P^T mu (a serial
+// dot a row), log det L = sum log sqrt(p_i) over lanes in a fixed-order
+// warp sum. bias and const differ from the plain chain by the order of
+// their sums. The prologue is latency: the scatter's loads go 24 a lane
+// at a time, all in flight (the first batch beside the means'), and a
+// lane walks its entries' (row, column) without a division a step.
 
 #include <cfloat>
 
@@ -70,7 +74,6 @@ namespace {
 
 constexpr int D_CHOL = 128;   // K9: the reference's _LANES
 constexpr int D_PARAMS = 127; // K10: dp <= 128 with the ones row at d
-constexpr int NT = 256;       // K10's block
 constexpr double LOG2PI = 1.8378770664093453;
 
 // K9's geometry. The matrix is extended to order n, a multiple of KB, by
@@ -84,10 +87,6 @@ constexpr int KB = 4;  // a row's KB entries are one float4
 constexpr int RB = 8;
 __host__ __device__ inline int chol_order(int d) { return (d + KB - 1) / KB * KB; }
 __host__ __device__ inline int chol_stride(int d) { return (chol_order(d) + 32 + 7) / 8 * 8 + 4; }
-inline size_t chol_smem(int d) {
-  const size_t n = chol_order(d);
-  return sizeof(float) * ((2 * n + 32 + RB) * chol_stride(d) + 2 * n);
-}
 
 // A row's KB entries w of columns j .. j + KB - 1 after eliminating the
 // columns before each (w_t -= w_s L_j+t,j+s for s < t), in place; lb[t][s]
@@ -154,28 +153,12 @@ __device__ __forceinline__ void chol_step(float* S, int ld, int xo, int n, int j
   }
 }
 
-__global__ void __launch_bounds__(32) precision_chol_kernel(
-    const float* __restrict__ covs, float* __restrict__ pt, float* __restrict__ diag,
-    int d) {
-  extern __shared__ __align__(16) float sm[];
-  const int n = chol_order(d), ld = chol_stride(d), xo = (n + 32) * ld;
-  float* S = sm;                 // (n + 32, ld): C (+ I), becoming D L^T
-  float* X = S + xo;             // (n + RB, ld): I, becoming L^-1 (unit lower), 0 elsewhere
-  float* pv = X + (n + RB) * ld; // (n,): the pivots p
-  float* rs = pv + n;            // (n,): 1 / sqrt(p_i)
-  const int lane = threadIdx.x;
-  const long m = blockIdx.x;
-  const float* A = covs + m * d * d;
-  for (int e = lane; e < n * ld; e += 32) X[e] = 0.f;
-#pragma unroll 4
-  for (int e = lane; e < n * n; e += 32) {
-    const int i = e / n, l = e - i * n;
-    S[i * ld + l] = i < d && l < d ? A[i * d + l] : (i == l ? 1.f : 0.f);
-  }
-  __syncwarp();
-  for (int i = lane; i < n; i += 32) X[i * ld + i] = 1.f;
-  __syncwarp();
-
+// S (n + 32 rows of stride ld, from its start) holds C extended by an
+// identity block to order n, X (xo floats after S, n + RB rows) the identity
+// (0 elsewhere): the sweep leaves L^-1 (unit lower) in X and the pivots p in
+// pv, with C = L D L^T. Every lane of the warp calls it; it ends synced.
+__device__ __forceinline__ void chol_sweep(float* S, int ld, int xo, int n, float* pv,
+                                           int lane) {
   // C = L D L^T, L unit lower: step j eliminates column j from the rows
   // i > j with L_ij = S_ij / p_j, in S (S_il -= L_ij S_lj, j < l <= i) and
   // in X (X_ic -= L_ij X_jc, c <= j); steps go KB at a time (chol_step).
@@ -212,6 +195,49 @@ __global__ void __launch_bounds__(32) precision_chol_kernel(
     }
     __syncwarp();
   }
+}
+
+// S (n + 32, ld), X (n + RB, ld), pv and rs (n,), and extra floats, in
+// dynamic shared memory.
+inline size_t chol_smem(int d, int extra = 0) {
+  const size_t n = chol_order(d);
+  return sizeof(float) * ((2 * n + 32 + RB) * chol_stride(d) + 2 * n + extra);
+}
+
+// X cleared and its diagonal set, S's identity extension written (rows and
+// columns d .. n - 1); the caller fills S's first d x d entries.
+__device__ __forceinline__ void chol_setup(float* S, float* X, int d, int n, int ld,
+                                           int lane) {
+  for (int e = lane; e < n * ld; e += 32) X[e] = 0.f;
+  for (int e = lane; e < (n - d) * n; e += 32) {
+    const int i = d + e / n, l = e - (i - d) * n;  // row i >= d, every column
+    S[i * ld + l] = i == l ? 1.f : 0.f;
+    S[l * ld + i] = i == l ? 1.f : 0.f;  // column i >= d, every row
+  }
+  __syncwarp();
+  for (int i = lane; i < n; i += 32) X[i * ld + i] = 1.f;
+}
+
+__global__ void __launch_bounds__(32) precision_chol_kernel(
+    const float* __restrict__ covs, float* __restrict__ pt, float* __restrict__ diag,
+    int d) {
+  extern __shared__ __align__(16) float sm[];
+  const int n = chol_order(d), ld = chol_stride(d), xo = (n + 32) * ld;
+  float* S = sm;                 // (n + 32, ld): C (+ I), becoming D L^T
+  float* X = S + xo;             // (n + RB, ld): I, becoming L^-1 (unit lower), 0 elsewhere
+  float* pv = X + (n + RB) * ld; // (n,): the pivots p
+  float* rs = pv + n;            // (n,): 1 / sqrt(p_i)
+  const int lane = threadIdx.x;
+  const long m = blockIdx.x;
+  const float* A = covs + m * d * d;
+  chol_setup(S, X, d, n, ld, lane);
+#pragma unroll 4
+  for (int e = lane; e < d * d; e += 32) {
+    const int i = e / d;
+    S[i * ld + e - i * d] = A[e];
+  }
+  __syncwarp();
+  chol_sweep(S, ld, xo, n, pv, lane);
 
   // the Cholesky factor is L D^(1/2): diag = sqrt(p), P^T = D^(-1/2) L^-1
   for (int i = lane; i < d; i += 32) {
@@ -227,79 +253,95 @@ __global__ void __launch_bounds__(32) precision_chol_kernel(
   }
 }
 
-// K10's factorisation. S (d x d, its lower triangle SPD) in shared memory
-// becomes L (lower); X (zeroed by the caller) becomes L^-1 (lower); dl[j] =
-// L_jj. Every thread of the block calls it.
-__device__ void factorize(float* S, float* X, float* dl, int d) {
-  const int tid = threadIdx.x;
-  // right-looking Cholesky on the lower triangle
-  for (int j = 0; j < d; ++j) {
-    const float dsq = S[j * d + j];
-    const float dj = sqrtf(dsq);
-    const float inv = 1.f / dj;
-    __syncthreads();  // every thread has read the pivot before column j changes
-    for (int i = j + tid; i < d; i += NT) S[i * d + j] *= inv;
-    if (tid == 0) dl[j] = dj;
-    __syncthreads();
-    const int r = d - 1 - j;  // trailing order
-    for (int e = tid; e < r * r; e += NT) {
-      const int i = j + 1 + e / r, l = j + 1 + e % r;
-      if (l <= i) S[i * d + l] -= S[i * d + j] * S[l * d + j];
+// Lane `lane`'s entries e = lane + 32 u of a d x d row-major matrix, as
+// (row, column), stepped without a division a step.
+struct Walk {
+  int i, j, di, dj;  // 32 = di d + dj
+  __device__ __forceinline__ Walk(int lane, int d)
+      : i(lane / d), j(lane % d), di(32 / d), dj(32 % d) {}
+  __device__ __forceinline__ void next(int d) {
+    i += di;
+    j += dj;
+    if (j >= d) {
+      j -= d;
+      ++i;
     }
-    __syncthreads();
   }
+};
 
-  // forward substitution, one row of X per step; X[l][c] = 0 for l < c
-  for (int i = 0; i < d; ++i) {
-    const float dinv = 1.f / S[i * d + i];
-    for (int c = tid; c <= i; c += NT) {
-      float acc = 0.f;
-      for (int l = c; l < i; ++l) acc += S[i * d + l] * X[l * d + c];
-      X[i * d + c] = ((c == i ? 1.f : 0.f) - acc) * dinv;
-    }
-    __syncthreads();
-  }
-}
+constexpr int QB = 24;  // scatter entries a lane loads before it uses them
 
-// K10's shared memory: S, X (d x d) and dl, mu (d).
-inline size_t params_smem(int d) { return sizeof(float) * (2 * (size_t)d * d + 2 * d); }
-
-__global__ void __launch_bounds__(NT) params_kernel(
+// K10: one warp a matrix, as K9, with the moments -> C prologue and the
+// bias and const epilogue.
+__global__ void __launch_bounds__(32) params_kernel(
     const float* __restrict__ counts, const float* __restrict__ sums,
     const float* __restrict__ scatter, float* __restrict__ pt, float* __restrict__ bias,
     float* __restrict__ cnst, int d, float m_rows, float reg) {
-  extern __shared__ float sm[];
-  float* S = sm;          // (d, d)
-  float* X = S + d * d;   // (d, d)
-  float* dl = X + d * d;  // (d,)
-  float* mu = dl + d;     // (d,)
-  const int tid = threadIdx.x;
+  extern __shared__ __align__(16) float sm[];
+  const int n = chol_order(d), ld = chol_stride(d), xo = (n + 32) * ld;
+  float* S = sm;                 // (n + 32, ld): C (+ I), becoming D L^T
+  float* X = S + xo;             // (n + RB, ld): I, becoming L^-1
+  float* pv = X + (n + RB) * ld; // (n,): the pivots p
+  float* rs = pv + n;            // (n,): 1 / sqrt(p_i)
+  float* mu = rs + n;            // (d,): the means
+  const int lane = threadIdx.x;
   const long m = blockIdx.x;
+  const int dd = d * d;
+  const float* Q = scatter + m * dd;
+  // the scatter's loads go QB a lane at a time, all in flight together, the
+  // first batch's beside the means'
+  float q[QB];
+  auto load = [&](int e0) {
+#pragma unroll
+    for (int u = 0; u < QB; ++u) {
+      const int e = e0 + lane + 32 * u;
+      q[u] = e < dd ? Q[e] : 0.f;
+    }
+  };
+  load(0);
   const float nk = __fadd_rn(counts[m], 10.f * FLT_EPSILON);
-  for (int i = tid; i < d; i += NT) mu[i] = __fdiv_rn(sums[m * d + i], nk);
-  __syncthreads();
-  const float* Q = scatter + m * d * d;
-  for (int e = tid; e < d * d; e += NT) {
-    const int i = e / d, j = e % d;
-    const float c = __fsub_rn(__fdiv_rn(Q[e], nk), __fmul_rn(mu[i], mu[j]));
-    S[e] = i == j ? __fadd_rn(c, reg) : c;
-    X[e] = 0.f;
+  for (int i = lane; i < d; i += 32) mu[i] = __fdiv_rn(sums[m * d + i], nk);
+  chol_setup(S, X, d, n, ld, lane);  // its __syncwarp publishes mu too
+  // C = Q / nk - mu mu^T + reg I, rounded op by op as the plain chain
+  Walk at(lane, d);
+  for (int e0 = 0; e0 < dd; e0 += 32 * QB) {
+    if (e0 > 0) load(e0);
+#pragma unroll
+    for (int u = 0; u < QB; ++u) {
+      if (e0 + lane + 32 * u < dd) {
+        const float c = __fsub_rn(__fdiv_rn(q[u], nk), __fmul_rn(mu[at.i], mu[at.j]));
+        S[at.i * ld + at.j] = at.i == at.j ? __fadd_rn(c, reg) : c;
+      }
+      at.next(d);
+    }
   }
-  __syncthreads();
-  factorize(S, X, dl, d);
+  __syncwarp();
+  chol_sweep(S, ld, xo, n, pv, lane);
 
-  float* out = pt + m * d * d;
-  for (int e = tid; e < d * d; e += NT) out[e] = X[e];
-  for (int i = tid; i < d; i += NT) {
+  // log det L = sum_i log sqrt(p_i): each lane its rows in order, then a
+  // fixed butterfly; P^T = D^(-1/2) L^-1; bias = P^T mu, a lane a row
+  float ldet = 0.f;
+  for (int i = lane; i < d; i += 32) {
+    ldet += logf(sqrtf(pv[i]));
+    rs[i] = __frsqrt_rn(pv[i]);
+  }
+  ldet = gcis::warp_sum(ldet);
+  __syncwarp();
+  float* out = pt + m * dd;
+  Walk ot(lane, d);
+#pragma unroll 4
+  for (int e = lane; e < dd; e += 32) {
+    out[e] = X[ot.i * ld + ot.j] * rs[ot.i];
+    ot.next(d);
+  }
+  for (int i = lane; i < d; i += 32) {
+    const float* xi = X + i * ld;
     float acc = 0.f;
-    for (int j = 0; j <= i; ++j) acc += X[i * d + j] * mu[j];
+    for (int c = 0; c <= i; ++c) acc = fmaf(xi[c] * rs[i], mu[c], acc);
     bias[m * d + i] = acc;
   }
-  if (tid == 0) {
-    float logdet = 0.f;
-    for (int j = 0; j < d; ++j) logdet += logf(dl[j]);
-    cnst[m] = (logf(__fdiv_rn(nk, m_rows)) - logdet) - (float)(0.5 * d * LOG2PI);
-  }
+  if (lane == 0)
+    cnst[m] = (logf(__fdiv_rn(nk, m_rows)) - ldet) - (float)(0.5 * d * LOG2PI);
 }
 
 }  // namespace
@@ -326,11 +368,11 @@ GCIS_API int gcis_precision_chol_params(const float* counts, const float* sums,
                                         float* cnst, int M, int d, float m_rows,
                                         float reg, void* stream) {
   if (d < 1 || d > D_PARAMS || M < 1 || !(m_rows > 0.f)) return (int)cudaErrorInvalidValue;
-  const size_t smem = params_smem(d);
+  const size_t smem = chol_smem(d, d);
   cudaError_t err = cudaFuncSetAttribute(
       params_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  params_kernel<<<M, NT, smem, (cudaStream_t)stream>>>(counts, sums, scatter, pt, bias, cnst,
+  params_kernel<<<M, 32, smem, (cudaStream_t)stream>>>(counts, sums, scatter, pt, bias, cnst,
                                                        d, m_rows, reg);
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,9 @@ is built.
   a fixed-point early exit, identical at the fixed point); the port runs K3
   in both dtypes, so the two differ only in reduction order.
 - K5 ``lloyd_t_pass`` (csrc/lloyd_t.cu) replaces ``_lloyd_t_kernel``: one
-  Lloyd pass, per-block partial sums reduced in block order.
+  Lloyd pass in one launch, ``lloyd_t_plan`` CTAs an image over the whole
+  card, whose float64 partial sums the last CTA of each image adds in CTA
+  order (an int counter an image, left at 0 for the next launch).
 - K6 ``maximin_t_pass`` (csrc/maximin_t.cu) replaces ``_maximin_kernel``:
   one farthest-point step, per-block (max, first index) partials and a
   select launch that reads the winning column.
@@ -166,6 +168,34 @@ def lloyd_t_pass_plain(x, centers, assign_only: bool = False):
     return labels.to(torch.int32), sums, onehot.sum(dim=1)
 
 
+_T_MIN_PIXELS = 256  # pixels a CTA of K5 at the least
+
+
+def lloyd_t_plan(b: int, n: int, n_sm: int) -> int:
+    """CTAs per image of K5: the card's SMs shared among the b images (one
+    wave), but no CTA with fewer than 256 of the image's n pixels, and at
+    least one."""
+    return max(1, min(n_sm // b, -(-n // _T_MIN_PIXELS)))
+
+
+# K5's images' counters, kept for the last 16 streams that launched it:
+# every launch leaves them at 0, so launches on one stream share them (a
+# zeroed tensor a call would cost a second launch)
+_T_COUNTERS: dict = {}
+_T_STREAMS_KEPT = 16
+
+
+def _lloyd_t_counters(device: torch.device, b: int) -> torch.Tensor:
+    key = (device.index, torch.cuda.current_stream().cuda_stream)
+    counters = _T_COUNTERS.pop(key, None)
+    if counters is None or counters.numel() < b:
+        counters = torch.zeros(b, dtype=torch.int32, device=device)
+    while len(_T_COUNTERS) >= _T_STREAMS_KEPT:
+        _T_COUNTERS.pop(next(iter(_T_COUNTERS)))
+    _T_COUNTERS[key] = counters
+    return counters
+
+
 def lloyd_t_pass(x, centers, assign_only: bool = False):
     """One Lloyd pass over the normalised buffer.
 
@@ -180,19 +210,22 @@ def lloyd_t_pass(x, centers, assign_only: bool = False):
                    f"centers must be float32 {(b, k, d)}")
     if _kernels.use_plain(x, centers):
         return lloyd_t_pass_plain(x, centers, assign_only)
+    _kernels.check(d >= 1 and n >= 1, f"the CUDA kernel takes D >= 1 and N >= 1, got {(d, n)}")
     x, centers = x.contiguous(), centers.contiguous()
-    nblk = -(-n // _TILE)
+    cpi = lloyd_t_plan(b, n, _kernels.sm_count(x.device))
     labels = torch.empty((b, n), dtype=torch.int32, device=x.device)
-    partial = sums = None
-    if not assign_only:
-        partial = torch.empty((b, nblk, k, d + 1), dtype=torch.float32, device=x.device)
-        sums = torch.empty((b, k, d + 1), dtype=torch.float32, device=x.device)
-    _kernels.launch(
-        "gcis_lloyd_t", x.data_ptr(), centers.data_ptr(), labels.data_ptr(),
-        None if assign_only else partial.data_ptr(),
-        None if assign_only else sums.data_ptr(),
-        b, d, n, k, _kernels.storage_code(x.dtype), int(assign_only),
-    )
+    sums = part = counters = None
+    # on x's device, so the counters are keyed by the stream the kernel runs on
+    with torch.cuda.device(x.device):
+        if not assign_only:
+            sums = torch.empty((b, k, d + 1), dtype=torch.float32, device=x.device)
+            part = torch.empty((b, cpi, k, d + 1), dtype=torch.float64, device=x.device)
+            counters = _lloyd_t_counters(x.device, b)
+        _kernels.launch(
+            "gcis_lloyd_t", x.data_ptr(), centers.data_ptr(), labels.data_ptr(),
+            *(None if assign_only else t.data_ptr() for t in (sums, part, counters)),
+            b, d, n, k, _kernels.storage_code(x.dtype), int(assign_only), cpi,
+        )
     lloyd_t_pass.launches += 1
     if assign_only:
         return labels

@@ -102,6 +102,13 @@ from gabor_color_image_segmentation_tpu_torch.ops.tiled import (
 )
 
 
+# The reference's pixel-count range of its transposed pixel clustering:
+# fused_solver_eligible's 4096 <= n and models/kmeans.py's PIPELINE_N_MAX
+# (copied, not imported). Outside it the reference clusters on its NHWC path.
+PIXELS_MIN = 4096
+PIXELS_MAX = 2_000_000
+
+
 def _check_supported(cfg: PipelineConfig, with_features: bool, hw: Tuple[int, int],
                      device: torch.device) -> None:
     """Raise NotImplementedError, naming the ROADMAP item or fault, for what
@@ -137,6 +144,11 @@ def _check_supported(cfg: PipelineConfig, with_features: bool, hw: Tuple[int, in
          f"the pixel clustering with feature_impl={cfg.feature_impl!r}", nhwc),
         (cfg.feature_impl not in ("auto", "pallas", "modulated"),
          f"feature_impl={cfg.feature_impl!r}", features),
+        # the reference's transposed pixel clustering takes frames of
+        # [PIXELS_MIN, PIXELS_MAX] pixels; the graph stage has no such gate
+        (solver and not PIXELS_MIN <= hw[0] * hw[1] <= PIXELS_MAX,
+         f"the pixel clustering on a frame of {hw[0] * hw[1]} pixels, outside the "
+         f"reference's transposed range [{PIXELS_MIN}, {PIXELS_MAX}] (the NHWC path)", nhwc),
     ]
     for bad, what, item in unsupported:
         if bad:

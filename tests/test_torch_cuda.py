@@ -233,6 +233,65 @@ def test_lloyd_t_kernel(device, dtype):
     assert torch.equal(kf.lloyd_t_pass(x, c, assign_only=True), labels)
 
 
+# K5's sums against the plain version, relative to their largest value
+LLOYD_T_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+
+
+def _lloyd_t_case(device, dtype, n, k, seed, d=39):
+    """K5 once, again and assign-only against its plain version on a
+    (2, d, n) buffer of three blobs from k random centres; returns the
+    checks' results."""
+    x = _buffer(device, DTYPES[dtype], d=d, n=n, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    c = torch.from_numpy(rng.normal(scale=2.0, size=(2, k, d)).astype(np.float32)).to(device)
+    labels, sums, counts = kf.lloyd_t_pass(x, c)
+    again = kf.lloyd_t_pass(x, c)
+    only = kf.lloyd_t_pass(x, c, assign_only=True)
+    rl, rs, rc = kf.lloyd_t_pass_plain(x, c)
+    torch.cuda.synchronize()
+    err = (sums - rs).abs().max().item()
+    return {"labels": (labels == rl).float().mean().item() >= 0.9999,
+            "counts": torch.equal(counts, rc),
+            "sums": err <= LLOYD_T_RTOL[dtype] * max(rs.abs().max().item(), 1e-30),
+            "assign only": torch.equal(only, labels),
+            "two launches": all(torch.equal(a, g) for a, g in zip(again, (labels, sums, counts)))}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("n", [1, 255, 257, 4096, 4097, 9600, 154401])
+def test_lloyd_t_kernel_shapes(device, dtype, n, k):
+    """One launch a call at any N >= 1 (odd N leaves bf16 rows 2-byte
+    aligned): labels, counts and sums as the plain version, two launches
+    bit-equal."""
+    got = _lloyd_t_case(device, dtype, n, k, seed=n % 89 + k)
+    assert all(got.values()), got
+
+
+# (D, k, N): past 512 rows K5 stages a tile's rows in blocks; k * D = 12,024
+# is the widest the kernel once held in shared memory at k = 1 and k = 8
+WIDE_ROWS = [(513, 5, 4097), (1000, 8, 257), (1503, 8, 4097), (12024, 1, 1001)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d,k,n", WIDE_ROWS)
+def test_lloyd_t_kernel_wide_rows(device, dtype, d, k, n):
+    """Any D: a tile's rows in blocks of at most 512, scored then summed
+    block by block, as the plain version, two launches bit-equal."""
+    got = _lloyd_t_case(device, dtype, n, k, seed=d % 97 + k, d=d)
+    assert all(got.values()), got
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("cpi", [1, 3, 16, 64, 132])
+def test_lloyd_t_kernel_ctas(device, dtype, cpi, monkeypatch):
+    """Any number of CTAs an image, whatever the plan picks on this card:
+    the last CTA of each image adds the partials."""
+    monkeypatch.setattr(kf, "lloyd_t_plan", lambda *_: cpi)
+    got = _lloyd_t_case(device, dtype, 4097, 5, seed=cpi)
+    assert all(got.values()), got
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_maximin_t_kernel(device, dtype):
     x = _buffer(device, DTYPES[dtype], seed=6)
@@ -689,6 +748,27 @@ def test_precision_chol_params_kernel(device, d):
     assert torch.count_nonzero(torch.triu(pt, 1)) == 0
     assert torch.allclose(bias, rb, rtol=2e-4, atol=2e-4 * rb.abs().max().item())
     assert torch.allclose(const, rc, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [3, 39, 64, 123, 127])
+def test_precision_chol_params_kernel_bits(device, d):
+    """Two K10 launches give the same bits, and K10 forms C bit-equal to
+    _moments_to_params' C: K10 and K9 share the factorisation, so K10's P^T
+    equals K9's on that C bit for bit."""
+    rng = np.random.default_rng(d + 1)
+    b, k, n = 2, 5, 4 * d
+    x = rng.normal(size=(b, k, n, d)) * rng.uniform(0.5, 2.0, size=(b, k, 1, d)) + 0.3
+    r = rng.uniform(0.2, 1.0, size=(b, k, n, 1))
+    moments = [torch.from_numpy(a.astype(np.float32)).to(device)
+               for a in ((r[..., 0]).sum(axis=2), (r * x).sum(axis=2),
+                         np.einsum("bknc,bkni,bknj->bkij", r, x, x))]
+    got = chol.precision_chol_params(*moments, 3000, 1e-4)
+    again = chol.precision_chol_params(*moments, 3000, 1e-4)
+    _, _, cov = chol._moments_to_params(*moments, 3000, 1e-4)
+    pt9, _ = chol.precision_chol(cov.reshape(b * k, d, d))
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert torch.equal(got[0], pt9.reshape(b, k, d, d))
 
 
 def test_precision_chol_params_kernel_refuses_d_above_127(device):

@@ -30,6 +30,7 @@ from gabor_color_image_segmentation_tpu_torch.models import kmeans_chw as tchw
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import (
     coarse_plan,
     kmeans_coarse_centers_xp,
+    lloyd_t_plan,
 )
 
 torch.set_num_threads(2)
@@ -254,3 +255,17 @@ def test_coarse_plan(b, m, active, expect):
     cost = {c: -(-b // n) * (-(-m // c) + 128)
             for c, n in zip((1, 2, 4, 8, 16), active) if n}
     assert cost[ctas] == min(cost.values())
+
+
+@pytest.mark.parametrize("b, n, n_sm, expect", [
+    (8, 9600, 132, 16),  # config2's fit grid: 128 CTAs of 600 pixels
+    (1, 9600, 132, 38),  # no CTA under 256 pixels
+    (2, 1, 132, 1),
+    (8, 154401, 132, 16),
+    (200, 154401, 132, 1),  # more images than SMs: one CTA an image
+])
+def test_lloyd_t_plan(b, n, n_sm, expect):
+    """K5's CTAs per image: the SMs shared among the images, no CTA under
+    256 pixels, at least one."""
+    cpi = lloyd_t_plan(b, n, n_sm)
+    assert cpi == expect and 1 <= cpi <= n

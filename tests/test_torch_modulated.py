@@ -168,8 +168,9 @@ def test_explicit_modulated_and_tiled_dispatch(routes):
 
 def test_pixel_clustering_keeps_k1(routes):
     """config1's pixel clustering is not the graph stage: K1 at batch 1 too,
-    and another feature_impl leaves the ported path (item 14)."""
-    rgb = synthetic_mosaic(h=32, w=48, n_regions=3, seed=1)[0][None]
+    and another feature_impl leaves the ported path (item 14). 64x64: a
+    frame inside the reference's pixel range of the clustering."""
+    rgb = synthetic_mosaic(h=64, w=64, n_regions=3, seed=1)[0][None]
     cfg = preset("config1").replace(batch_size=1, dtype="float32")
     segment_batch(rgb, cfg, with_features=False, device="cpu")
     assert routes == ["gabor_energies_fused"]

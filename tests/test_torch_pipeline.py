@@ -109,8 +109,9 @@ def test_entry_points_default_to_the_card(batch):
 
 
 def test_constant_image_gives_valid_labels():
+    # 64x64: a frame inside the reference's pixel range of the clustering
     cfg = preset(PRESET).replace(batch_size=1)
-    labels, _ = segment_batch(torch.full((1, 32, 40, 3), 128, dtype=torch.uint8), cfg,
+    labels, _ = segment_batch(torch.full((1, 64, 64, 3), 128, dtype=torch.uint8), cfg,
                               with_features=False, device="cpu")
     assert labels.min() >= 0 and labels.max() < cfg.cluster.k
 
