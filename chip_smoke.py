@@ -20,9 +20,13 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    float32 and at batch 1, each K3 call launched twice (bit-equal) and
    beside its design floor (k + 1 + iters reads of its buffer); K7 (one pass and the whole ``kmeans_fused``, whose run with
    the counts set to 0 just before it and read just after is K7's path) on
-   config1's standardised features laid out (16, 154401, 243) in bf16; K1
+   config1's standardised features laid out (16, 154401, 243) in bf16, and
+   one pass past 512 rows (its wide kernel) at (2, 20000, 1000), k = 8, in
+   bf16 and f32 beside its bound; K1
    (no twin), K5 (launched twice: bit-equal; one device kernel in a
-   profile of one call, with its CTAs an image), K6, K8 (the fit grid and
+   profile of one call, with its CTAs an image), K6 (the same checks, its
+   time beside its bytes bound and one empty launch; and five steps on a
+   (2, 12024, 9600) buffer), K8 (the fit grid and
    full resolution, with moments and labels only, each launched twice:
    bit-equal), K9 and K10 (on the first EM pass's moments and on
    well-conditioned ones; K10 launched twice: bit-equal, its P^T bit-equal
@@ -95,7 +99,7 @@ peak (bf16); Lloyd labels equal on >= 99.99 % of pixels, sums within rtol
 two K3 launches bit-equal;
 two K5 launches bit-equal; maximin picks the same pixels, running minima within rtol 1e-5 (K4) or
 within 1e-5 of the largest distance (K6, whose expanded form cancels near
-the probe); EM labels
+the probe; two K6 launches bit-equal); EM labels
 equal on >= 99.99 %, and, held with the plain version against the plain
 version in float64, the log-likelihood within max(rtol 1e-5, twice the
 plain version's error) and the moments within max(1e-4 of each
@@ -114,7 +118,8 @@ bit-equal to K9's on the plain chain's C, and against float64 on its own
 P^T: bias within 1e-5 of sum |P^T_ij mu_j|, const within 1e-5 of the sum
 of its terms' magnitudes (entry by entry within 5e-4, 2e-4 and 1e-4 of the
 plain version on well-conditioned moments); K7's pass labels equal on
->= 99.99 %, sums within rtol 1e-3 of their largest value, the whole
+>= 99.99 % (past 512 rows on every pixel, counts equal), sums within rtol
+1e-3 of their largest value, the whole
 ``kmeans_fused`` >= 0.99 of each image's labels equal to the solver on the
 plain pass; K16-K18 every value equal to the plain version in bf16 (float64
 sums of bf16 values are exact), within one ulp in f32, counts equal, and two
@@ -701,6 +706,31 @@ def main() -> None:
     check(same7 >= 0.99, "kmeans_fused through K7 disagrees with its plain pass")
     del rows, lk, lp, sk, sp, l7, r7
 
+    # K7 past 512 feature rows (its wide kernel): k = 8 blobs ~4 noise radii
+    # apart in 1,000 rows, the centres their means moved by 0.1 noise
+    gen = torch.Generator(device=dev).manual_seed(7)
+    means = 4.0 * torch.randn((2, 8, 1000), generator=gen, device=dev)
+    member = torch.randint(0, 8, (2, 20000), generator=gen, device=dev)
+    wide = (torch.gather(means, 1, member[:, :, None].expand(-1, -1, 1000))
+            + torch.randn((2, 20000, 1000), generator=gen, device=dev))
+    cw = means + 0.1 * torch.randn(means.shape, generator=gen, device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        xw = wide.to(dt)
+        lk, sk, nk = kf.lloyd_pass(xw, cw, 8)
+        lp, sp, np_ = kf.lloyd_pass_plain(xw, cw, 8)
+        torch.cuda.synchronize()
+        scale = sp.abs().max().item()
+        err = (sk - sp).abs().max().item()
+        tagw = f"{tuple(xw.shape)} {'bf16' if dt == torch.bfloat16 else 'f32'}, k=8, past 512 rows"
+        ms = report("lloyd_pass", f"{tagw}, labels equal {torch.equal(lk, lp)}", err, err,
+                    f"labels equal, sums 1e-3*{scale:.4g}",
+                    torch.equal(lk, lp) and torch.equal(nk, np_) and err <= 1e-3 * scale,
+                    lambda: kf.lloyd_pass(xw, cw, 8), lambda: kf.lloyd_pass_plain(xw, cw, 8))
+        b_ms, b_by = bound(xw.numel() * size(dt) + 2 * 20000 * 4, 2 * 20000 * (2 * 8 + 1) * 1000)
+        print(f"phase 3: lloyd_pass [{tagw}] {ms:.4f} ms against its bound {b_ms:.4f} ms "
+              f"({b_by}) ({card})", flush=True)
+    del wide, xw, lk, lp, sk, sp
+
     cfg0 = preset("config0").replace(batch_size=1)
     rgb1, gt1 = mosaics(1)
     for dt in (torch.float32, torch.bfloat16):
@@ -751,12 +781,54 @@ def main() -> None:
             err = max(err, diff / dp.abs().max().item())
             probe = pk
             seeds.append(pk)
-        report("maximin_t_pass", f"{gtag} same pixels {same}", abs_err, err,
-               "1e-5 (of the largest distance)",
-               same and err <= 1e-5,
-               lambda: kf.maximin_t_pass(fit, probe, dk, False),
-               lambda: kf.maximin_t_pass_plain(fit, probe, dp, False),
-               (bsz * m * (d * size(dt) + 8), bsz * m * 4 * d) if main2 else None)
+        # two launches from the same running minima, bit-equal; one device
+        # kernel a call (counted in a profile of one call)
+        d_a, d_b = dk.clone(), dk.clone()
+        p_a = kf.maximin_t_pass(fit, probe, d_a, False)
+        p_b = kf.maximin_t_pass(fit, probe, d_b, False)
+        torch.cuda.synchronize()
+        bits6 = torch.equal(p_a, p_b) and torch.equal(d_a, d_b)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kf.maximin_t_pass(fit, probe, d_a, False)
+            torch.cuda.synchronize()
+        k6_kernels = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        ms6 = report("maximin_t_pass", f"{gtag} same pixels {same}", abs_err, err,
+                     "1e-5 (of the largest distance)",
+                     same and err <= 1e-5 and bits6,
+                     lambda: kf.maximin_t_pass(fit, probe, dk, False),
+                     lambda: kf.maximin_t_pass_plain(fit, probe, dp, False),
+                     (bsz * m * (d * size(dt) + 8), bsz * m * 4 * d) if main2 else None)
+        b6, _ = bound(bsz * m * (d * size(dt) + 8), bsz * m * 4 * d)
+        empty_ms = timed(lambda: torch.cuda._sleep(0))[0]
+        print(f"phase 3: maximin_t_pass [{gtag}] {kf.maximin_t_plan(bsz, m, n_sm)} CTAs an "
+              f"image; device kernels in one call {len(k6_kernels)} ({k6_kernels}); two "
+              f"launches bit-equal {bits6}; {ms6:.4f} ms against its bytes bound {b6:.4f} and "
+              f"one empty launch {empty_ms:.4f} (torch.cuda._sleep(0), timed alike) ({card})",
+              flush=True)
+        check(len(k6_kernels) == 1, f"maximin_t_pass ran {len(k6_kernels)} kernels in one call")
+
+        # K6 past the 10,240 rows it once held in shared memory: five steps
+        # on a (2, 12024, 9600) normal buffer against the plain version
+        xw = torch.randn((2, 12024, m), generator=torch.Generator(device=dev).manual_seed(12),
+                         device=dev).to(dt)
+        pw_k = pw_p = xw.float().mean(dim=2)
+        dwk, dwp = torch.zeros((2, m), device=dev), torch.zeros((2, m), device=dev)
+        same_w, err_w = True, 0.0
+        for step in range(k):
+            pw_k = kf.maximin_t_pass(xw, pw_k, dwk, step < 2)
+            pw_p = kf.maximin_t_pass_plain(xw, pw_p, dwp, step < 2)
+            torch.cuda.synchronize()
+            same_w = same_w and torch.equal(pw_k, pw_p)
+            err_w = max(err_w, (dwk - dwp).abs().max().item() / dwp.abs().max().item())
+        ms_w = report("maximin_t_pass", f"(2, 12024, {m}) {'bf16' if main2 else 'f32'}, same pixels "
+                      f"{same_w}", err_w, err_w, "1e-5 (of the largest distance)",
+                      same_w and err_w <= 1e-5,
+                      lambda: kf.maximin_t_pass(xw, pw_k, dwk, False),
+                      lambda: kf.maximin_t_pass_plain(xw, pw_p, dwp, False))
+        bw, _ = bound(2 * m * (12024 * size(dt) + 8), 2 * m * 4 * 12024)
+        print(f"phase 3: maximin_t_pass [(2, 12024, {m})] {ms_w:.4f} ms against its bytes "
+              f"bound {bw:.4f} ({card})", flush=True)
+        del xw, dwk, dwp
 
         # K5: a Lloyd pass from those seeds, one launch a call (counted in a
         # profile of one call), two launches bit-equal

@@ -1,7 +1,8 @@
 """Helpers the torch_k*.py experiments share: CUDA-event timing, the H100's
-bound on a kernel's work, the card's name and power limit, and building a
-copy of a kernel's source (another commit's, or one with a phase patched
-out) into a shared library of its own.
+bound on a kernel's work, the card's name and power limit, building a copy
+of a kernel's source (another commit's, or one with a phase patched out)
+into a shared library of its own, an empty kernel (the one-launch floor)
+and a (B, D, N) buffer of blobs.
 
 Imported by the scripts in this directory, run as
 ``python3 experiments/<script>.py``."""
@@ -14,6 +15,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -88,11 +90,12 @@ def build(sources: list, names: list, entries: dict) -> list:
 
 
 def source(csrc: Path, name: str, edits=()) -> str:
-    """csrc/name with its includes made absolute, so a copy builds anywhere,
-    and each (old, new) edit applied; a missing pattern exits."""
+    """csrc/name with the headers it includes inlined, so a copy builds
+    anywhere and an edit may patch a helper of common.cuh, and each (old,
+    new) edit applied; a missing pattern exits."""
     text = (csrc / name).read_text()
     for inc in ("common.cuh", "slic_common.cuh"):
-        text = text.replace(f'#include "{inc}"', f'#include "{csrc / inc}"')
+        text = text.replace(f'#include "{inc}"', (csrc / inc).read_text())
     for old, new in edits:
         if old not in text:
             sys.exit(f"pattern not found in {name}: {old!r}")
@@ -110,3 +113,31 @@ def ptxas(csrc: Path, names: list, tag: str) -> None:
         lines = [ln for ln in (res.stdout + res.stderr).splitlines()
                  if "registers" in ln or "spill" in ln or "rror" in ln or "Compiling" in ln]
         print(f"ptxas {tag} {src}:\n  " + "\n  ".join(lines), flush=True)
+
+
+EMPTY_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int gcis_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_launch():
+    """A function that launches an empty kernel on the current stream: back
+    to back, the one-launch floor."""
+    (lib,) = build([EMPTY_SOURCE], ["empty_kernel"], {"gcis_empty": [ctypes.c_void_p]})
+    return lambda: lib.gcis_empty(torch.cuda.current_stream().cuda_stream)
+
+
+def blobs(b, d, n, seed, dev):
+    """A contiguous (B, D, N) float32 buffer of three well-separated blobs.
+    Contiguous: the wrappers would copy a strided buffer (an extra kernel in
+    a timing), and another commit's C entry points read it as it lies."""
+    rng = np.random.default_rng(seed)
+    means = rng.normal(scale=2.0, size=(b, 3, d))
+    lab = rng.integers(0, 3, size=(b, n))
+    x = np.take_along_axis(means, lab[:, :, None], 1) + rng.normal(size=(b, n, d))
+    return torch.from_numpy(np.ascontiguousarray(np.swapaxes(x, 1, 2), np.float32)).to(dev)

@@ -55,7 +55,16 @@ from gabor_color_image_segmentation_tpu_torch.models import chol  # noqa: E402
 from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf  # noqa: E402
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_fused as kf  # noqa: E402
 from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy  # noqa: E402
-from _turns import bound, build, card_line, cuda_ms, ptxas, source  # noqa: E402
+from _turns import (  # noqa: E402
+    blobs,
+    bound,
+    build,
+    card_line,
+    cuda_ms,
+    empty_launch,
+    ptxas,
+    source,
+)
 
 INNER = 50
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -87,31 +96,12 @@ K5_PROBES = [
     ("probe: a relaxed count", [("atom.add.acq_rel.gpu.global.u32", "atom.add.relaxed.gpu.global.u32")]),
     ("probe: no partial stores", [("mine[e] = part[e];", "(void)mine;")]),
 ]
-EMPTY_SOURCE = r"""
-#include <cuda_runtime.h>
-__global__ void empty_kernel() {}
-extern "C" int gcis_empty(void* stream) {
-  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
-  return (int)cudaGetLastError();
-}
-"""
 
 
 def timed(fn):
     """The mean of INNER back-to-back calls behind a sleep kernel, median
     of 5."""
     return cuda_ms(fn, inner=INNER, hold_ms=INNER * cuda_ms(fn))
-
-
-def blobs(b, d, n, seed, dev):
-    """A (B, D, N) normalised buffer of three well-separated blobs."""
-    rng = np.random.default_rng(seed)
-    means = rng.normal(scale=2.0, size=(b, 3, d))
-    lab = rng.integers(0, 3, size=(b, n))
-    x = np.take_along_axis(means, lab[:, :, None], 1) + rng.normal(size=(b, n, d))
-    # contiguous: the wrappers would copy a strided buffer, the parent's
-    # C entry points read it as it lies
-    return torch.from_numpy(np.ascontiguousarray(np.swapaxes(x, 1, 2), np.float32)).to(dev)
 
 
 def moments_of(x, k, seed):
@@ -164,13 +154,7 @@ def main() -> None:
     def k10_change():
         return chol.precision_chol_params(*mom, n, reg)
 
-    # the one-launch floor
-    (elib,) = build([EMPTY_SOURCE], ["empty_kernel"], {"gcis_empty": [_P]})
-
-    def empty():
-        elib.gcis_empty(stream())
-
-    floor = timed(empty)
+    floor = timed(empty_launch())  # the one-launch floor
     print(f"one-launch floor (an empty kernel, back to back): {floor:.4f} ms; bytes bounds: "
           f"K5 bf16 {k5_bounds['bf16'][0]:.5f}, f32 {k5_bounds['f32'][0]:.5f}, K10 "
           f"{k10_bound[0]:.5f} ms ({card})", flush=True)

@@ -54,7 +54,7 @@ _SIGNATURES = {
     "gcis_coarse_centers": [_P] * 3 + [_I] * 9 + [_P],
     "gcis_coarse_active_clusters": [_I] * 2 + [_P] * 2,
     "gcis_lloyd_t": [_P] * 6 + [_I] * 7 + [_P],
-    "gcis_maximin_t": [_P] * 6 + [_I] * 5 + [_P],
+    "gcis_maximin_t": [_P] * 7 + [_I] * 6 + [_P],
     "gcis_em_pass": [_P] * 8 + [_I] * 8 + [_P],
     "gcis_precision_chol": [_P] * 3 + [_I] * 2 + [_P],
     "gcis_precision_chol_params": [_P] * 6 + [_I] * 2 + [_F] * 2 + [_P],

@@ -100,6 +100,46 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// A staged row: tp pixels of esize bytes and up to 15 bytes before the
+// first, in 16-byte chunks.
+__host__ __device__ inline int row_bytes(int tp, int esize) { return tp * esize + 16; }
+
+// Copy `rows` rows of pixels [base, base + nv), the first at xr and each n
+// elements after the one before, into buf (rs bytes a row), each row from
+// its 16-byte-aligned start, and the rows' shifts (the offset of pixel base
+// in its staged row) into sh. Bytes at or past `end` (the end of x) are
+// zero-filled, so odd n (rows 2-byte aligned in bf16) takes the same
+// copies. One commit group. NT threads.
+template <typename T, int NT>
+__device__ void stage_rows(const T* __restrict__ xr, char* buf, int* sh, long n, int rows,
+                           int base, int nv, int rs, const char* end) {
+  const int cpr = (15 + nv * (int)sizeof(T) + 15) / 16;  // chunks a row, at most rs / 16
+  for (int e = threadIdx.x; e < rows * cpr; e += NT) {
+    const int row = e / cpr, cc = e - row * cpr;
+    const char* addr = reinterpret_cast<const char*>(xr + row * n + base);
+    const char* a0 = reinterpret_cast<const char*>((size_t)addr & ~(size_t)15);
+    const char* src = a0 + cc * 16;
+    const long rem = end - src;
+    const int valid = rem <= 0 ? 0 : rem >= 16 ? 16 : (int)rem;
+    cp_async16(buf + row * rs + cc * 16, valid ? src : a0, valid);
+    if (cc == 0) sh[row] = (int)(addr - a0) / (int)sizeof(T);
+  }
+  cp_commit();
+}
+
+// counter += 1 at device scope with acquire-release order; the old value.
+// A CTA counts itself done on its image's counter once its results are
+// stored: the release orders them before the count, and the last CTA's
+// acquire orders its reads of every CTA's results after it.
+static __device__ __forceinline__ unsigned count_done(unsigned* counter) {
+  unsigned old;
+  asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(counter)
+               : "memory");
+  return old;
+}
+
 // Butterfly sum over a warp. The order is fixed, so lane 0's result is the
 // same on every run.
 static __device__ __forceinline__ float warp_sum(float v) {

@@ -55,10 +55,10 @@
 
 namespace {
 
-using gcis::cp_async16;
-using gcis::cp_commit;
+using gcis::count_done;
 using gcis::cp_wait;
 using gcis::round_to;
+using gcis::row_bytes;
 using gcis::warp_sum;
 
 constexpr int NT = 512;
@@ -67,10 +67,6 @@ constexpr int RG = 4;                  // rows a warp sums at once
 constexpr int RB = 512;                // rows a tile stages in one block at the most
 constexpr int RB_WIDE = 128;           // rows a staged block past RB, at the most
 constexpr int SMEM_MAX = 220 * 1024;
-
-// A staged row: tp pixels and up to 15 bytes before the first, in 16-byte
-// chunks.
-__host__ __device__ inline int row_bytes(int tp, int esize) { return tp * esize + 16; }
 
 // Rows a staged block: D up to RB; past it D split into blocks of at most
 // RB_WIDE rows, as even as can be (short blocks leave room for wide tiles).
@@ -96,26 +92,6 @@ int tile_pixels(int d, int esize, int per) {
   for (int tp = min(2 * NT, (per + 31) / 32 * 32); tp >= 32; tp -= 32)
     if (smem_bytes(d, tp, esize) <= SMEM_MAX) return tp;
   return 0;
-}
-
-// Copy `rows` rows of pixels [base, base + nv), the first at xr, into
-// buffer buf, each row from its 16-byte-aligned start, and the rows' shifts
-// into sh. Bytes at or past `end` (the end of x) are zero-filled.
-template <typename T>
-__device__ void stage(const T* __restrict__ xr, char* buf, int* sh, long n, int rows, int base,
-                      int nv, int rs, const char* end) {
-  const int cpr = (15 + nv * (int)sizeof(T) + 15) / 16;  // chunks a row, at most rs / 16
-  for (int e = threadIdx.x; e < rows * cpr; e += NT) {
-    const int row = e / cpr, cc = e - row * cpr;
-    const char* addr = reinterpret_cast<const char*>(xr + row * n + base);
-    const char* a0 = reinterpret_cast<const char*>((size_t)addr & ~(size_t)15);
-    const char* src = a0 + cc * 16;
-    const long rem = end - src;
-    const int valid = rem <= 0 ? 0 : rem >= 16 ? 16 : (int)rem;
-    cp_async16(buf + row * rs + cc * 16, valid ? src : a0, valid);
-    if (cc == 0) sh[row] = (int)(addr - a0) / (int)sizeof(T);
-  }
-  cp_commit();
 }
 
 // Add the cross terms round(c_q) . x of the `rows` staged rows to a[h][q],
@@ -162,16 +138,6 @@ __device__ __forceinline__ int first_min(const float* csq, const float (&a)[K]) 
   return best;
 }
 
-// counter += 1 at device scope with acquire-release order; the old value.
-__device__ __forceinline__ unsigned count_done(unsigned* counter) {
-  unsigned old;
-  asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;\n"
-               : "=r"(old)
-               : "l"(counter)
-               : "memory");
-  return old;
-}
-
 // WIDE: D > RB, the rows staged in blocks and the partial in the scratch (a
 // template, so that up to RB rows the partial's adds stay shared-memory
 // operations and a tile's one job takes no job arithmetic).
@@ -208,8 +174,8 @@ __global__ void __launch_bounds__(NT) lloyd_t_kernel(
   const int jobs = WIDE && !assign_only ? 2 * nrb : nrb;
   auto stage_job = [&](int j) {
     const int base = lo + (j / jobs) * tp, r0 = (j % jobs % nrb) * rb;
-    stage(xb + r0 * n, xs + (j & 1) * rb * rs, shift + (j & 1) * rb, n, min(rb, D - r0), base,
-          min(tp, hi - base), rs, end);
+    gcis::stage_rows<T, NT>(xb + r0 * n, xs + (j & 1) * rb * rs, shift + (j & 1) * rb, n,
+                            min(rb, D - r0), base, min(tp, hi - base), rs, end);
   };
   if (ntiles > 0) stage_job(0);
 

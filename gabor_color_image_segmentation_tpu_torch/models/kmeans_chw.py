@@ -31,7 +31,7 @@ from gabor_color_image_segmentation_tpu_torch import _kernels
 from gabor_color_image_segmentation_tpu_torch.ops.features import fold_coherence_affine
 
 K_MAX = 8  # centre rows the kernels hold
-_TILE = 256  # pixels per block of K4 (and of K6 in kmeans_fused)
+_TILE = 256  # pixels per block of K4
 
 
 def _check_rows(xe: torch.Tensor, xc4: torch.Tensor) -> None:

@@ -21,13 +21,17 @@ is built.
   card, whose float64 partial sums the last CTA of each image adds in CTA
   order (an int counter an image, left at 0 for the next launch).
 - K6 ``maximin_t_pass`` (csrc/maximin_t.cu) replaces ``_maximin_kernel``:
-  one farthest-point step, per-block (max, first index) partials and a
-  select launch that reads the winning column.
+  one farthest-point step in one launch, ``maximin_t_plan`` CTAs an image,
+  each reducing its pixels to a (max, first index) pair; the last CTA of
+  each image picks among the pairs and reads the winning column (the same
+  int counters as K5).
 - K7 ``lloyd_pass`` (csrc/lloyd_rows.cu) replaces ``_lloyd_kernel``: one
   Lloyd pass on a row-major (B, N, D) buffer, a warp per pixel row, with
   the member counts counted (the reference's ones column and 128-lane
-  padding of D are not built). It serves ``kmeans_fused``, the reference's
-  drop-in for a batched ``kmeans``, which no pipeline path calls.
+  padding of D are not built); past 512 feature rows a second kernel
+  labels a block's pixels, then sums them by columns. It serves
+  ``kmeans_fused``, the reference's drop-in for a batched ``kmeans``,
+  which no pipeline path calls.
 
 Scores follow the reference: ||c||^2 - 2 c . x with c in float32 for the
 norm and rounded to the storage dtype for the cross term, first minimum
@@ -43,7 +47,7 @@ import torch
 
 from gabor_color_image_segmentation_tpu_torch import _kernels
 from gabor_color_image_segmentation_tpu_torch.models.kmeans import maximin_init
-from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import _TILE, K_MAX
+from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import K_MAX
 
 D_COARSE_MAX = 400  # feature rows K3 stages (two tiles of >= 32 pixels in shared memory)
 COARSE_CLUSTERS = (1, 2, 4, 8, 16)  # K3's cluster sizes (16 needs the non-portable size)
@@ -168,7 +172,7 @@ def lloyd_t_pass_plain(x, centers, assign_only: bool = False):
     return labels.to(torch.int32), sums, onehot.sum(dim=1)
 
 
-_T_MIN_PIXELS = 256  # pixels a CTA of K5 at the least
+_T_MIN_PIXELS = 256  # pixels a CTA of K5 and K6 at the least
 
 
 def lloyd_t_plan(b: int, n: int, n_sm: int) -> int:
@@ -178,14 +182,16 @@ def lloyd_t_plan(b: int, n: int, n_sm: int) -> int:
     return max(1, min(n_sm // b, -(-n // _T_MIN_PIXELS)))
 
 
-# K5's images' counters, kept for the last 16 streams that launched it:
-# every launch leaves them at 0, so launches on one stream share them (a
-# zeroed tensor a call would cost a second launch)
+# The images' int counters of K5 and K6, kept for the last 16 streams that
+# launched either: every launch leaves them at 0, so launches on one stream
+# share them (a zeroed tensor a call would cost a second launch)
 _T_COUNTERS: dict = {}
 _T_STREAMS_KEPT = 16
 
 
-def _lloyd_t_counters(device: torch.device, b: int) -> torch.Tensor:
+def _counters(device: torch.device, b: int) -> torch.Tensor:
+    """At least b zeroed int32 counters on ``device`` for a launch on its
+    current stream (call under ``torch.cuda.device(device)``)."""
     key = (device.index, torch.cuda.current_stream().cuda_stream)
     counters = _T_COUNTERS.pop(key, None)
     if counters is None or counters.numel() < b:
@@ -220,7 +226,7 @@ def lloyd_t_pass(x, centers, assign_only: bool = False):
         if not assign_only:
             sums = torch.empty((b, k, d + 1), dtype=torch.float32, device=x.device)
             part = torch.empty((b, cpi, k, d + 1), dtype=torch.float64, device=x.device)
-            counters = _lloyd_t_counters(x.device, b)
+            counters = _counters(x.device, b)
         _kernels.launch(
             "gcis_lloyd_t", x.data_ptr(), centers.data_ptr(), labels.data_ptr(),
             *(None if assign_only else t.data_ptr() for t in (sums, part, counters)),
@@ -251,6 +257,13 @@ def maximin_t_pass_plain(x, probe, dmin, reset: bool):
     return torch.gather(xf, 2, idx[:, None, None].expand(-1, x.shape[1], 1))[:, :, 0]
 
 
+def maximin_t_plan(b: int, n: int, n_sm: int) -> int:
+    """CTAs per image of K6: K5's plan (the SMs shared among the images, no
+    CTA under 256 pixels, at least one). At config2's fit grid its 16 read
+    faster than 8 or 32 (experiments/torch_k6_k7.py)."""
+    return lloyd_t_plan(b, n, n_sm)
+
+
 def maximin_t_pass(x, probe, dmin, reset: bool):
     """One farthest-point step: d2 = ||x||^2 - 2 round(p) . x + ||p||^2 in
     float32 (the reference's expanded form; its ones-row adds 1 - 2 + 1 = 0
@@ -266,15 +279,18 @@ def maximin_t_pass(x, probe, dmin, reset: bool):
     if _kernels.use_plain(x, probe, dmin):
         return maximin_t_pass_plain(x, probe, dmin, reset)
     x, probe = x.contiguous(), probe.contiguous()
-    nblk = -(-n // _TILE)
-    bestv = torch.empty((b, nblk), dtype=torch.float32, device=x.device)
-    besti = torch.empty((b, nblk), dtype=torch.int32, device=x.device)
+    cpi = maximin_t_plan(b, n, _kernels.sm_count(x.device))
+    bestv = torch.empty((b, cpi), dtype=torch.float32, device=x.device)
+    besti = torch.empty((b, cpi), dtype=torch.int32, device=x.device)
     best = torch.empty((b, d), dtype=torch.float32, device=x.device)
-    _kernels.launch(
-        "gcis_maximin_t", x.data_ptr(), probe.data_ptr(), dmin.data_ptr(),
-        bestv.data_ptr(), besti.data_ptr(), best.data_ptr(), b, d, n,
-        _kernels.storage_code(x.dtype), int(reset),
-    )
+    # on x's device, so the counters are keyed by the stream the kernel runs on
+    with torch.cuda.device(x.device):
+        _kernels.launch(
+            "gcis_maximin_t", x.data_ptr(), probe.data_ptr(), dmin.data_ptr(),
+            bestv.data_ptr(), besti.data_ptr(), best.data_ptr(),
+            _counters(x.device, b).data_ptr(), b, d, n, _kernels.storage_code(x.dtype),
+            int(reset), cpi,
+        )
     maximin_t_pass.launches += 1
     return best
 
@@ -287,7 +303,8 @@ maximin_t_pass.launches = 0
 # ---------------------------------------------------------------------------
 
 _ROWS_BLOCK = 1024  # pixels per block of K7 (8 warps of 128)
-D_ROWS_MAX = 512  # row values K7 holds in registers
+_ROWS_BLOCK_WIDE = 128  # pixels per block of K7's wide kernel
+D_ROWS_REG = 512  # row values K7 holds in registers; wider rows take its wide kernel
 
 
 def lloyd_pass_plain(x, centers, k: int):
@@ -313,9 +330,8 @@ def lloyd_pass(x, centers, k: int):
                    f"centers must be float32 {(b, k, d)}")
     if _kernels.use_plain(x, centers):
         return lloyd_pass_plain(x, centers, k)
-    _kernels.check(d <= D_ROWS_MAX, f"the CUDA kernel takes D <= {D_ROWS_MAX}, got {d}")
     x, centers = x.contiguous(), centers.contiguous()
-    nblk = -(-n // _ROWS_BLOCK)
+    nblk = -(-n // (_ROWS_BLOCK if d <= D_ROWS_REG else _ROWS_BLOCK_WIDE))
     labels = torch.empty((b, n), dtype=torch.int32, device=x.device)
     partial = torch.empty((b, nblk, k, d + 1), dtype=torch.float32, device=x.device)
     sums = torch.empty((b, k, d + 1), dtype=torch.float32, device=x.device)

@@ -308,6 +308,85 @@ def test_maximin_t_kernel(device, dtype):
         probe = pk
 
 
+def _maximin_t_case(device, dtype, n, d, seed, steps=4):
+    """K6's seeding steps on a (2, d, n) buffer of three blobs, from the
+    mean, against its plain version; each step launched a second time on a
+    copy of the running minima. Returns the checks' results: the same
+    pixels, the minima within 1e-5 of the largest distance (or of the
+    largest ||x||^2 where that is larger: at N = 1 every distance is the
+    expanded form's cancellation) and two launches bit-equal."""
+    x = _buffer(device, DTYPES[dtype], d=d, n=n, seed=seed)
+    b = x.shape[0]
+    scale = x.float().square().sum(dim=1).max().item()
+    probe = x.float().mean(dim=2)
+    dk = torch.zeros((b, n), device=device)
+    dp = torch.zeros((b, n), device=device)
+    got = {"same pixels": True, "dmin": True, "two launches": True}
+    for step in range(steps):
+        d2 = dk.clone()
+        pk = kf.maximin_t_pass(x, probe, dk, step < 2)
+        again = kf.maximin_t_pass(x, probe, d2, step < 2)
+        pp = kf.maximin_t_pass_plain(x, probe, dp, step < 2)
+        torch.cuda.synchronize()
+        got["same pixels"] &= torch.equal(pk, pp)
+        tol = 1e-5 * max(dp.abs().max().item(), scale)
+        got["dmin"] &= (dk - dp).abs().max().item() <= tol
+        got["two launches"] &= torch.equal(pk, again) and torch.equal(dk, d2)
+        probe = pk
+    return got
+
+
+# (N, D): one pixel, N at and around 256-pixel CTA ranges, config2's fit
+# grid and full resolution; past the 10,240 rows the kernel once held in
+# shared memory (its probe), to 12,024
+MAXIMIN_T_SHAPES = [(1, 39), (255, 39), (257, 39), (9600, 39), (154401, 39),
+                    (257, 10241), (9600, 10241), (1, 12024), (4097, 12024)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("n,d", MAXIMIN_T_SHAPES)
+def test_maximin_t_kernel_shapes(device, dtype, n, d):
+    """One launch a call at any N >= 1 and any D (odd N leaves bf16 rows
+    2-byte aligned): the plain version's pixels, two launches bit-equal."""
+    got = _maximin_t_case(device, dtype, n, d, seed=n % 89 + d % 7)
+    assert all(got.values()), got
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("cpi", [1, 3, 16, 64, 132])
+def test_maximin_t_kernel_ctas(device, dtype, cpi, monkeypatch):
+    """Any number of CTAs an image, whatever the plan picks on this card:
+    the last CTA of each image picks among the CTAs' pairs."""
+    monkeypatch.setattr(kf, "maximin_t_plan", lambda *_: cpi)
+    got = _maximin_t_case(device, dtype, 4097, 39, seed=cpi)
+    assert all(got.values()), got
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("cpi", [1, 16, 132])
+def test_maximin_t_kernel_ties(device, dtype, cpi, monkeypatch):
+    """Equal maxima at several pixels, in one CTA and across CTAs: the first
+    index wins. With a zero probe d2 is the sum of squares, so a column and
+    its negation tie bit for bit, and the column tells the winner."""
+    monkeypatch.setattr(kf, "maximin_t_plan", lambda *_: cpi)
+    rng = np.random.default_rng(11)
+    n, d = 9600, 39
+    x = rng.normal(size=(2, d, n)).astype(np.float32)
+    v = rng.normal(scale=3.0, size=d).astype(np.float32)
+    first = {0: 3000, 1: 7001}  # per image -v there, +v at the later ties
+    for b, i in first.items():
+        for j, sign in [(i, -1.0), (i + 1, 1.0), (i + 500, 1.0), (n - 1, 1.0)]:
+            x[b, :, j] = sign * v
+    x = torch.from_numpy(x).to(device, DTYPES[dtype])
+    probe = torch.zeros((2, d), device=device)
+    dk = torch.zeros((2, n), device=device)
+    got = kf.maximin_t_pass(x, probe, dk, True)
+    ref = kf.maximin_t_pass_plain(x, probe, torch.zeros_like(dk), True)
+    torch.cuda.synchronize()
+    want = torch.stack([x[b, :, i].float() for b, i in first.items()])
+    assert torch.equal(got, want) and torch.equal(ref, want)
+
+
 def _em_inputs(x, k=5, seed=7):
     """GMM parameters from a hard split of the buffer, as the EM loop makes
     them."""
@@ -780,12 +859,35 @@ def test_precision_chol_params_kernel_refuses_d_above_127(device):
         chol.precision_chol_params(counts, sums, scatter, 100, 1e-4)
 
 
+def _wide_rows(device, dt, b, n, d, k, seed):
+    """(B, n, d) rows of k blobs ~4 noise radii apart and, as centres, the
+    blob means moved by 0.1 noise: each pixel's own centre is nearer than
+    any other by ~16 d, so no summation order moves a label at any width."""
+    rng = np.random.default_rng(seed)
+    means = rng.normal(scale=4.0, size=(b, k, d))
+    lab = rng.integers(0, k, size=(b, n))
+    x = np.take_along_axis(means, lab[:, :, None], 1) + rng.normal(size=(b, n, d))
+    c = means + 0.1 * rng.normal(size=means.shape)
+    return (torch.from_numpy(x.astype(np.float32)).to(device, dt),
+            torch.from_numpy(c.astype(np.float32)).to(device))
+
+
+# (B, N, D, k): past 512 rows K7's wide kernel (blocks of 128 pixels; N
+# ragged against them), at k = 1, 5, 8
+LLOYD_WIDE_SHAPES = [(2, n, d, k) for d, n in [(513, 3001), (1000, 1001), (2048, 777),
+                                                (4096, 257)] for k in (1, 5, 8)]
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("shape", [(2, 5000, 243, 5), (3, 1001, 37, 8), (1, 7, 1, 1)])
+@pytest.mark.parametrize("shape", [(2, 5000, 243, 5), (3, 1001, 37, 8), (1, 7, 1, 1)]
+                         + LLOYD_WIDE_SHAPES)
 def test_lloyd_pass_kernel(device, dtype, shape):
     b, n, d, k = shape
-    x = _buffer(device, DTYPES[dtype], b=b, d=d, n=n, seed=9).transpose(1, 2).contiguous()
-    c = x[:, :k].float() + 0.1
+    if d <= kf.D_ROWS_REG:
+        x = _buffer(device, DTYPES[dtype], b=b, d=d, n=n, seed=9).transpose(1, 2).contiguous()
+        c = x[:, :k].float() + 0.1
+    else:
+        x, c = _wide_rows(device, DTYPES[dtype], b, n, d, k, seed=d + k)
     labels, sums, counts = kf.lloyd_pass(x, c, k)
     rl, rs, rc = kf.lloyd_pass_plain(x, c, k)
     torch.cuda.synchronize()

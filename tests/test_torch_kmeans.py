@@ -31,6 +31,7 @@ from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import (
     coarse_plan,
     kmeans_coarse_centers_xp,
     lloyd_t_plan,
+    maximin_t_plan,
 )
 
 torch.set_num_threads(2)
@@ -268,4 +269,21 @@ def test_lloyd_t_plan(b, n, n_sm, expect):
     """K5's CTAs per image: the SMs shared among the images, no CTA under
     256 pixels, at least one."""
     cpi = lloyd_t_plan(b, n, n_sm)
+    assert cpi == expect and 1 <= cpi <= n
+
+
+@pytest.mark.parametrize("b, n, n_sm, expect", [
+    (8, 9600, 132, 16),  # config2's fit grid: 128 CTAs of 600 pixels
+    (1, 100, 132, 1),  # N under one CTA's least range
+    (16, 100, 132, 1),
+    (1, 4096, 132, 16),  # no CTA under 256 pixels
+    (16, 4096, 132, 8),  # the SMs shared among the images
+    (1, 154401, 132, 132),
+    (16, 154401, 132, 8),
+    (200, 154401, 132, 1),  # more images than SMs: one CTA an image
+])
+def test_maximin_t_plan(b, n, n_sm, expect):
+    """K6's CTAs per image: the SMs shared among the images, no CTA under
+    256 pixels, at least one."""
+    cpi = maximin_t_plan(b, n, n_sm)
     assert cpi == expect and 1 <= cpi <= n

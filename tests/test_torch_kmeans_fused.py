@@ -33,7 +33,9 @@ def _blobs(b, n, d, k, seed):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("shape", [(2, 3000, 16, 4), (3, 1500, 7, 3), (1, 777, 5, 8)])
+# (B, N, D, k); the last past the 512 rows the card's K7 once took
+@pytest.mark.parametrize("shape", [(2, 3000, 16, 4), (3, 1500, 7, 3), (1, 777, 5, 8),
+                                   (1, 300, 600, 5)])
 def test_lloyd_pass_plain_matches_kernel(dtype, shape):
     b, n, d, k = shape
     jdt, tdt = DTYPES[dtype]
