@@ -18,11 +18,15 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    pass timed too, both beside its bytes bound with its plan (CTAs an
    image, tiles, stages, bytes in flight), K3 also on config1's buffer in
    float32 and at batch 1, each K3 call launched twice (bit-equal) and
-   beside its design floor (k + 1 + iters reads of its buffer); K7 (one pass and the whole ``kmeans_fused``, whose run with
-   the counts set to 0 just before it and read just after is K7's path) on
-   config1's standardised features laid out (16, 154401, 243) in bf16, and
-   one pass past 512 rows (its wide kernel) at (2, 20000, 1000), k = 8, in
-   bf16 and f32 beside its bound; K1
+   beside its design floor (k + 1 + iters reads of its buffer); K2 past
+   the rows a whole tile stages (its rows staged in blocks) on a 1x321x481
+   frame of blobs with E = 2,688 (bf16) and 1,400 (f32) energy rows, with
+   its plan; K7 (one pass, launched twice: bit-equal, beside its bound and
+   its plan, and the whole ``kmeans_fused``, whose run with the counts set
+   to 0 just before it and read just after is K7's path) on config1's
+   standardised features laid out (16, 154401, 243) in bf16 (the pass in
+   f32 too), and one pass past 512 rows at (2, 20000, 1000), k = 8, in
+   bf16 and f32; K1
    (no twin), K5 (launched twice: bit-equal; one device kernel in a
    profile of one call, with its CTAs an image), K6 (the same checks, its
    time beside its bytes bound and one empty launch; and five steps on a
@@ -69,7 +73,9 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    torch, the reference's graph route in float32) at config3 and config4
    f32 beside K1's route in bf16, as readings;
 4. ``segment_batch(uint8 -> int32 labels, with_features=False)`` end to end
-   at config1 batch 16 bf16, config0 batch 1 f32, config2 batch 8 bf16
+   at config1 batch 16 bf16 and, with a 160-kernel bank (E = 480 energy
+   rows: the warm start's blocked route, K6 and K5, and no K3), batch 2
+   bf16 and f32, config0 batch 1 f32, config2 batch 8 bf16
    and f32 (with ``gmm_fused._FUSED_PREP`` off, the default, and on; and
    with a 16-kernel bank, D = 51 feature rows),
    config3 batch 8 bf16 and f32 and config4 batch 8 of 2160x3840
@@ -99,7 +105,8 @@ peak (bf16); Lloyd labels equal on >= 99.99 % of pixels, sums within rtol
 two K3 launches bit-equal;
 two K5 launches bit-equal; maximin picks the same pixels, running minima within rtol 1e-5 (K4) or
 within 1e-5 of the largest distance (K6, whose expanded form cancels near
-the probe; two K6 launches bit-equal); EM labels
+the probe; two K6 launches bit-equal); K2 past the rows a whole tile
+stages on blobs: labels and counts equal, sums within rtol 1e-4; EM labels
 equal on >= 99.99 %, and, held with the plain version against the plain
 version in float64, the log-likelihood within max(rtol 1e-5, twice the
 plain version's error) and the moments within max(1e-4 of each
@@ -119,7 +126,7 @@ P^T: bias within 1e-5 of sum |P^T_ij mu_j|, const within 1e-5 of the sum
 of its terms' magnitudes (entry by entry within 5e-4, 2e-4 and 1e-4 of the
 plain version on well-conditioned moments); K7's pass labels equal on
 >= 99.99 % (past 512 rows on every pixel, counts equal), sums within rtol
-1e-3 of their largest value, the whole
+1e-3 of their largest value, two launches bit-equal, the whole
 ``kmeans_fused`` >= 0.99 of each image's labels equal to the solver on the
 plain pass; K16-K18 every value equal to the plain version in bf16 (float64
 sums of bf16 values are exact), within one ulp in f32, counts equal, and two
@@ -337,6 +344,21 @@ def main() -> None:
             return single, single
         return cuda_ms(fn, inner=INNER, hold_ms=INNER * single), single
 
+    def kernels_in_one_call(fn):
+        """Names of the device kernels one call of ``fn`` launches, from a
+        torch.profiler trace of the call. A trace with no device activity
+        at all (CUPTI dropped one such trace of K5's call in a run whose
+        trace of K6's call, just before, was whole) says nothing of the
+        call: it is taken again, at most three times in all."""
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+            if names:
+                break
+        return names
+
     def timing_note(single):
         return (f"mean of {INNER} back-to-back calls, median of 5" if single < SHORT_MS
                 else "median of 5 single calls")
@@ -549,10 +571,11 @@ def main() -> None:
         affine = kc._affine_params(e, xc4, cfg.cluster, 1e-6, pooled=(tw, pc0))
         return xc4, pc0, affine
 
-    def compare_lloyd(xe, xc4, affine, centers, dt, tag, main_shape):
+    def compare_lloyd(xe, xc4, affine, centers, dt, tag, main_shape, exact=False):
         """K2 with sums against its plain version (labels >= 0.9999 equal,
-        sums within rtol of the plain sums' largest magnitude), labels only
-        equal to the full pass's labels, two launches bit-equal; then the
+        sums within rtol of the plain sums' largest magnitude; ``exact``:
+        labels and counts equal, sums within rtol 1e-4), labels only equal
+        to the full pass's labels, two launches bit-equal; then the
         labels-only pass timed, each beside the bound, and K2's plan."""
         a, b = affine
         u = centers - b[:, None, :]
@@ -565,10 +588,11 @@ def main() -> None:
         torch.cuda.synchronize()
         same = (lk == lp).float().mean().item()
         bits = all(torch.equal(x, y) for x, y in zip((lk, sk, ck), again))
-        rtol = 1e-4 if dt == torch.float32 else 1e-3
+        rtol = 1e-4 if dt == torch.float32 or exact else 1e-3
         scale = sp.abs().max().item()
         err = (sk - sp).abs().max().item()
-        ok = (same >= 0.9999 and err <= rtol * scale and torch.equal(only, lk) and bits)
+        ok = (same >= 0.9999 and err <= rtol * scale and torch.equal(only, lk) and bits
+              and (not exact or (torch.equal(lk, lp) and torch.equal(ck, cp))))
         bsz, e = xe.shape[:2]
         npix = xe.shape[2] * xe.shape[3]
         k, d = wc.shape[1], e + 3
@@ -579,15 +603,16 @@ def main() -> None:
                     lambda: kc.lloyd_chw_pass_plain(xe, xc4, wc, offs),
                     main if main_shape else None)
         ms_only = timed(lambda: kc.lloyd_chw_pass(xe, xc4, wc, offs, assign_only=True))[0]
-        p, stages, ctas, tpc = kc.lloyd_plan(bsz, npix, d, size(dt), n_sm)
-        smem = kc._lloyd_smem(d, p, stages, size(dt))
-        fly = max(1, stages - 1) * d * (p * size(dt) + 16)  # one CTA an SM
+        p, stages, ctas, tpc, rb = kc.lloyd_plan(bsz, npix, d, size(dt), n_sm)
+        smem = kc._lloyd_smem(d, p, stages, size(dt), rb)
+        fly = max(1, stages - 1) * rb * (p * size(dt) + 16)  # one CTA an SM
         b_ms = bound(*main)[0]
         print(f"phase 3: lloyd_chw_pass [{tag}] bound {b_ms:.4f} ms (bytes): with sums "
               f"{ms:.4f} ms, {100 * b_ms / ms:.1f} % of it; labels only {ms_only:.4f} ms, "
               f"{100 * b_ms / ms_only:.1f} % of it; plan {ctas} CTAs an image x {tpc} tiles of "
-              f"{p} pixels, {stages} stages, {smem / 1024:.1f} KB a CTA (one an SM), "
-              f"{fly / 1024:.0f} KB in flight an SM ({card})", flush=True)
+              f"{p} pixels, {stages} stages, rows staged "
+              f"{'whole' if rb == d else f'in blocks of {rb}'}, {smem / 1024:.1f} KB a CTA "
+              f"(one an SM), {fly / 1024:.0f} KB in flight an SM ({card})", flush=True)
 
     def compare_maximin(xe, xc4, affine, tag, main_shape):
         a, _ = affine
@@ -660,25 +685,73 @@ def main() -> None:
     compare_lloyd(e, xc4, affine, ck, torch.bfloat16, f"{tag} full resolution", True)
     compare_lloyd(tw, pc0, affine, ck, torch.bfloat16, f"{tag} 2x2 twin", False)
 
-    # K7 on config1's standardised features laid out row-major: one pass
-    # from K3's centres, then the whole kmeans_fused (K7's path)
+    # K2 past the rows a whole tile stages (fault 10): one 321x481 frame of
+    # E = 2,688 (bf16) and 1,400 (f32) energy rows, k = 5 blobs ~4 noise
+    # radii apart with the blob means as centres (the affine a = 1, b = 0),
+    # its tiles staged in blocks of rows
+    for e_b, dt in ((2688, torch.bfloat16), (1400, torch.float32)):
+        gen = torch.Generator(device=dev).manual_seed(e_b)
+        d_b, n_b = e_b + 3, 321 * 481
+        means = 4.0 * torch.randn((1, 5, d_b), generator=gen, device=dev)
+        member = torch.randint(0, 5, (1, n_b), generator=gen, device=dev)
+        xb = torch.gather(means, 1, member[:, :, None].expand(-1, -1, d_b))
+        xb = (xb + torch.randn(xb.shape, generator=gen, device=dev)).transpose(1, 2)
+        xb = xb.reshape(1, d_b, 321, 481)
+        xe_b = xb[:, :e_b].to(dt).contiguous()
+        xc_b = torch.cat([xb[:, e_b:], torch.ones((1, 1, 321, 481), device=dev)], dim=1).to(dt)
+        del xb
+        compare_lloyd(xe_b, xc_b, (torch.ones((1, d_b), device=dev),
+                                   torch.zeros((1, d_b), device=dev)), means, dt,
+                      f"1x321x481 E={e_b} {'bf16' if dt == torch.bfloat16 else 'f32'} blobs, "
+                      "k=5, past the rows a whole tile stages", False, exact=True)
+        del xe_b, xc_b
+
+    # K7 on config1's standardised features laid out row-major, in bf16 (the
+    # JSON line's shape) and f32: one pass from K3's centres against its
+    # plain version, two launches bit-equal, beside its bound and its plan;
+    # then the whole kmeans_fused in bf16 (K7's path)
     rows = ft.assemble_xp_from_affine(e, xc4, affine[0], affine[1], torch.bfloat16)
     rows = rows.transpose(1, 2).contiguous()  # (16, 154401, 243) bf16
     del color, e, tw, xc4, pc0, xp
-    nb, n1, d1 = rows.shape
+
+    def compare_rows(xr, cr, k, tag, main_shape, exact):
+        """K7 against its plain version (``exact``: labels and counts equal,
+        else >= 0.9999 of the labels and the counts off by at most twice the
+        labels that differ; sums within 1e-3 of their largest value), two
+        launches bit-equal, beside its bound and its plan."""
+        lk, sk, nk = kf.lloyd_pass(xr, cr, k)
+        again = kf.lloyd_pass(xr, cr, k)
+        lp, sp, np_ = kf.lloyd_pass_plain(xr, cr, k)
+        torch.cuda.synchronize()
+        ndiff = int((lk != lp).sum())
+        scale = sp.abs().max().item()
+        err = (sk - sp).abs().max().item()
+        bits = all(torch.equal(u, v) for u, v in zip((lk, sk, nk), again))
+        ok = bits and err <= 1e-3 * scale and (
+            (ndiff == 0 and torch.equal(nk, np_)) if exact else
+            (ndiff <= 1e-4 * lk.numel() and (nk - np_).abs().sum().item() <= 2 * ndiff))
+        bsz, n, d = xr.shape
+        main = (xr.numel() * xr.element_size() + bsz * n * 4, bsz * n * (2 * k * d + d))
+        ms = report("lloyd_pass", f"{tag}, {ndiff} labels differ, two launches bit-equal "
+                    f"{bits}", err, err,
+                    f"labels {'equal' if exact else '0.9999'}, sums 1e-3*{scale:.4g}", ok,
+                    lambda: kf.lloyd_pass(xr, cr, k), lambda: kf.lloyd_pass_plain(xr, cr, k),
+                    main if main_shape else None)
+        ctas, tpc, p, stages, vb = kf.lloyd_rows_plan(bsz, n, d, xr.element_size(), n_sm)
+        b_ms, b_by = bound(*main)
+        print(f"phase 3: lloyd_pass [{tag}] {ms:.4f} ms against its bound {b_ms:.4f} ms "
+              f"({b_by}), {100 * b_ms / ms:.1f} % of it; plan {ctas} CTAs an image x {tpc} "
+              f"tiles of {p} pixels, {stages} stages, values staged "
+              f"{'whole' if vb == d else f'in blocks of {vb}'}, "
+              f"{kf._rows_smem(d, p, stages, xr.element_size(), vb) / 1024:.1f} KB a CTA "
+              f"({card})", flush=True)
+
     tag7 = f"config1 standardised features {tuple(rows.shape)} bf16, k=5"
-    lk, sk, nk = kf.lloyd_pass(rows, ck, 5)
-    lp, sp, np_ = kf.lloyd_pass_plain(rows, ck, 5)
-    torch.cuda.synchronize()
-    ndiff = int((lk != lp).sum())
-    scale = sp.abs().max().item()
-    err = (sk - sp).abs().max().item()
-    report("lloyd_pass", f"{tag7}, one pass from K3's centres, {ndiff} labels differ", err,
-           err, f"labels 0.9999, sums 1e-3*{scale:.4g}",
-           ndiff <= 1e-4 * nb * n1 and err <= 1e-3 * scale
-           and (nk - np_).abs().sum().item() <= 2 * ndiff,
-           lambda: kf.lloyd_pass(rows, ck, 5), lambda: kf.lloyd_pass_plain(rows, ck, 5),
-           (rows.numel() * 2 + nb * n1 * 4, nb * n1 * (2 * 5 * d1 + d1)))
+    compare_rows(rows, ck, 5, f"{tag7}, one pass from K3's centres", True, False)
+    rows32 = rows.float()
+    compare_rows(rows32, ck, 5, f"config1 standardised features {tuple(rows.shape)} f32, k=5, "
+                 "one pass from K3's centres", False, False)
+    del rows32
     for wrapper in counters.values():
         wrapper.launches = 0
     torch.cuda.synchronize()
@@ -704,10 +777,10 @@ def main() -> None:
           f"through the plain pass {t7p:.2f} ms; labels equal per image min {same7:.6f} "
           f"(floor 0.99) ({card})", flush=True)
     check(same7 >= 0.99, "kmeans_fused through K7 disagrees with its plain pass")
-    del rows, lk, lp, sk, sp, l7, r7
+    del rows, l7, r7
 
-    # K7 past 512 feature rows (its wide kernel): k = 8 blobs ~4 noise radii
-    # apart in 1,000 rows, the centres their means moved by 0.1 noise
+    # K7 past 512 feature rows: k = 8 blobs ~4 noise radii apart in 1,000
+    # rows, the centres their means moved by 0.1 noise
     gen = torch.Generator(device=dev).manual_seed(7)
     means = 4.0 * torch.randn((2, 8, 1000), generator=gen, device=dev)
     member = torch.randint(0, 8, (2, 20000), generator=gen, device=dev)
@@ -715,21 +788,10 @@ def main() -> None:
             + torch.randn((2, 20000, 1000), generator=gen, device=dev))
     cw = means + 0.1 * torch.randn(means.shape, generator=gen, device=dev)
     for dt in (torch.bfloat16, torch.float32):
-        xw = wide.to(dt)
-        lk, sk, nk = kf.lloyd_pass(xw, cw, 8)
-        lp, sp, np_ = kf.lloyd_pass_plain(xw, cw, 8)
-        torch.cuda.synchronize()
-        scale = sp.abs().max().item()
-        err = (sk - sp).abs().max().item()
-        tagw = f"{tuple(xw.shape)} {'bf16' if dt == torch.bfloat16 else 'f32'}, k=8, past 512 rows"
-        ms = report("lloyd_pass", f"{tagw}, labels equal {torch.equal(lk, lp)}", err, err,
-                    f"labels equal, sums 1e-3*{scale:.4g}",
-                    torch.equal(lk, lp) and torch.equal(nk, np_) and err <= 1e-3 * scale,
-                    lambda: kf.lloyd_pass(xw, cw, 8), lambda: kf.lloyd_pass_plain(xw, cw, 8))
-        b_ms, b_by = bound(xw.numel() * size(dt) + 2 * 20000 * 4, 2 * 20000 * (2 * 8 + 1) * 1000)
-        print(f"phase 3: lloyd_pass [{tagw}] {ms:.4f} ms against its bound {b_ms:.4f} ms "
-              f"({b_by}) ({card})", flush=True)
-    del wide, xw, lk, lp, sk, sp
+        compare_rows(wide.to(dt), cw, 8, f"(2, 20000, 1000) "
+                     f"{'bf16' if dt == torch.bfloat16 else 'f32'}, k=8, past 512 rows", False,
+                     True)
+    del wide
 
     cfg0 = preset("config0").replace(batch_size=1)
     rgb1, gt1 = mosaics(1)
@@ -788,10 +850,7 @@ def main() -> None:
         p_b = kf.maximin_t_pass(fit, probe, d_b, False)
         torch.cuda.synchronize()
         bits6 = torch.equal(p_a, p_b) and torch.equal(d_a, d_b)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            kf.maximin_t_pass(fit, probe, d_a, False)
-            torch.cuda.synchronize()
-        k6_kernels = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        k6_kernels = kernels_in_one_call(lambda: kf.maximin_t_pass(fit, probe, d_a, False))
         ms6 = report("maximin_t_pass", f"{gtag} same pixels {same}", abs_err, err,
                      "1e-5 (of the largest distance)",
                      same and err <= 1e-5 and bits6,
@@ -839,10 +898,7 @@ def main() -> None:
         again = kf.lloyd_t_pass(fit, centers)
         torch.cuda.synchronize()
         bits = all(torch.equal(a, g) for a, g in zip(again, (lk, sk, nk)))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            kf.lloyd_t_pass(fit, centers)
-            torch.cuda.synchronize()
-        k5_kernels = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        k5_kernels = kernels_in_one_call(lambda: kf.lloyd_t_pass(fit, centers))
         print(f"phase 3: lloyd_t_pass [{gtag}] {kf.lloyd_t_plan(bsz, m, n_sm)} CTAs an image; device "
               f"kernels in one call {len(k5_kernels)} ({k5_kernels}); two launches "
               f"bit-equal {bits}", flush=True)
@@ -1466,13 +1522,21 @@ def main() -> None:
         finally:
             gf._FUSED_PREP = saved
 
+    def coarse_plain(xq, k, d, m, iters):
+        """The warm start's all-plain route: K3's plain version, or past K3's
+        rows the blocked route, whose K6 and K5 plain_kernels swaps for
+        their plain versions."""
+        if kf.coarse_route(d) == "k3":
+            return kf.kmeans_coarse_centers_xp_plain(xq, k, d, m, iters)
+        return kf.kmeans_coarse_centers_xp(xq, k, d, m, iters)
+
     @contextlib.contextmanager
     def plain_kernels(keep=()):
         """Route the pipeline through the plain versions (on the card), but
         for the wrappers named in ``keep``."""
         swaps = [(pl, "gabor_energies_fused", fused.gabor_energies_fused_plain),
                  (tiled, "gabor_energies_fused", fused.gabor_energies_fused_plain),
-                 (pl, "kmeans_coarse_centers_xp", kf.kmeans_coarse_centers_xp_plain),
+                 (pl, "kmeans_coarse_centers_xp", coarse_plain),
                  (kc, "lloyd_chw_pass", kc.lloyd_chw_pass_plain),
                  (kc, "maximin_chw_pass", kc.maximin_chw_pass_plain),
                  (kf, "lloyd_t_pass", kf.lloyd_t_pass_plain),
@@ -1512,6 +1576,16 @@ def main() -> None:
     runs = [(cfg1, rgb16, gt16, "config1 batch 16 bf16", k1to4 + ["kmeans_coarse_centers_xp"],
              [], False),
             (cfg0, rgb1, gt1, "config0 batch 1 f32", k1to4 + ["maximin_chw_pass"], [], False)]
+    # config1 with a 160-kernel bank (its bank with two more frequencies):
+    # E = 480 energy rows, past the 400 K3 takes, so the warm start takes
+    # the blocked route (K6, K5; fault 11), batch 2 in both dtypes
+    bank160 = dataclasses.replace(cfg1.bank, frequencies=(0.05, 0.10, 0.20, 0.30))
+    check(bank160.n_kernels == 160, "the 160-kernel bank has another size")
+    for dtype in ("bfloat16", "float32"):
+        runs.append((cfg1.replace(batch_size=2, dtype=dtype, bank=bank160), rgb16[:2], gt16[:2],
+                     f"config1 batch 2 {'bf16' if dtype == 'bfloat16' else 'f32'} 160-kernel "
+                     "bank (E = 480)", k1to4 + ["maximin_t_pass", "lloyd_t_pass"],
+                     ["kmeans_coarse_centers_xp"], False))
     gmm_path = ["gabor_energies_fused", "maximin_t_pass", "lloyd_t_pass", "em_pass"]
     moments_off = ["superpixel_moments_fused", "superpixel_moments_fused_nhwc"]
     graph_path = ["gabor_energies_fused", "slic_w3", "enforce_connectivity_fused",

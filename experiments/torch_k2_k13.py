@@ -159,7 +159,7 @@ def probe_k2(dev, card) -> None:
     b, e, h, w = xe.shape
     n, k, es = h * w, wc.shape[1], xe.element_size()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    p, stages, ctas, tpc = kc.lloyd_plan(b, n, e + 3, es, n_sm)
+    p, stages, ctas, tpc, rb = kc.lloyd_plan(b, n, e + 3, es, n_sm)
     labels = torch.empty((b, h, w), dtype=torch.int32, device=dev)
     partial = torch.empty((b, ctas, k, e + 4), dtype=torch.float32, device=dev)
     sums = torch.empty((b, k, e + 4), dtype=torch.float32, device=dev)
@@ -169,9 +169,9 @@ def probe_k2(dev, card) -> None:
             def call():
                 rc = lib.gcis_lloyd_chw(
                     xe.data_ptr(), xc4.data_ptr(), wc.data_ptr(), offs.data_ptr(),
-                    labels.data_ptr(), partial.data_ptr(), sums.data_ptr(), b, e, n, k,
-                    _kernels.storage_code(xe.dtype), p, stages, ctas, tpc, int(assign_only),
-                    torch.cuda.current_stream().cuda_stream)
+                    labels.data_ptr(), partial.data_ptr(), sums.data_ptr(), None, b, e, n, k,
+                    _kernels.storage_code(xe.dtype), p, stages, rb, ctas, tpc,
+                    int(assign_only), torch.cuda.current_stream().cuda_stream)
                 if rc:
                     sys.exit(f"probe {name}: CUDA error {rc}")
             ms = timed(call)
@@ -243,7 +243,7 @@ def time_k2(dev, card, quick) -> None:
                 ntiles = -(-n // p)
                 ctas = min(ntiles, max(1, n_sm // b))
                 tpc = -(-ntiles // ctas)
-                plan = (p, s, -(-ntiles // tpc), tpc)
+                plan = (p, s, -(-ntiles // tpc), tpc, d)
                 if planned and plan == planned(b, n, d, es, n_sm):
                     continue
                 name = f"P {p}, S {s}"
@@ -263,7 +263,7 @@ def time_k2(dev, card, quick) -> None:
                 plain = timed(lambda: kc.lloyd_chw_pass_plain(xe, xc4, wc, offs, assign_only))
                 fly = ""
                 if plan is not None:
-                    p, s, ctas, tpc = plan
+                    p, s, ctas, tpc, _ = plan
                     fly = (f"{ctas} CTAs an image x {tpc} tiles of {p} px, {s} stages, "
                            f"{kc._lloyd_smem(d, p, s, es) / 1024:.1f} KB a CTA (one an SM), "
                            f"{max(1, s - 1) * d * (p * es + 16) / 1024:.0f} KB in flight an "

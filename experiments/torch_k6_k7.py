@@ -1,21 +1,18 @@
 #!/usr/bin/env python3
-"""Time K6 and K7's wide kernel on one NVIDIA card, K6 against a parent
-commit's in turns in one process, beside a one-launch floor.
+"""Time K6 on one NVIDIA card against a parent commit's in turns in one
+process, beside a one-launch floor.
 
     python3 experiments/torch_k6_k7.py [--parent DIR] [--ptxas] [--probes]
 
 ``--parent DIR``: a checkout of the parent commit (``git archive``
-unpacked into a git-ignored directory); its csrc/maximin_t.cu and
-csrc/lloyd_rows.cu are built into shared libraries of their own (one nvcc
-each) and bound with the parent's signatures: K6 ``gcis_maximin_t`` (a
-pass launch of 256-pixel blocks and a select launch, its block partials
-allocated a call as the parent's wrapper did) and K7 ``gcis_lloyd_rows``.
-Then:
+unpacked into a git-ignored directory); its csrc/maximin_t.cu is built
+into a shared library of its own and bound with the parent's signature
+(commit c69d643): K6 ``gcis_maximin_t`` (a pass launch of 256-pixel blocks
+and a select launch, its block partials allocated a call as the parent's
+wrapper did). Then:
 
-- K6 and K7 of both commits compared: K6's seeds and running minima at
-  config2's fit grid, K7's labels, sums and counts at (2, 20000, 243),
-  k = 5 (up to 512 rows the change keeps the parent's kernel: the same
-  bits);
+- K6 of both commits compared: seeds and running minima at config2's fit
+  grid;
 - parent, change, change, parent: K6 at config2's fit grid, (8, 39, 9600)
   of three blobs, bf16 and f32, and at full resolution (8, 39, 154401)
   bf16, a non-reset step from a seeded running minimum.
@@ -23,10 +20,9 @@ Then:
 Then the change alone: an empty kernel back to back (the one-launch floor)
 beside K6's bytes bounds; K6 at (2, 12024, 9600) (the parent refused
 D > 10,240); K6 by CTAs an image (1-32, the plan's choice marked) at the
-fit grid in both dtypes; K7 past 512 rows at (2, 20000, D), D = 513, 1000,
-2048 and 4096, k = 8, in both dtypes, beside its plain version (labels
-equal) and its bound. ``--ptxas`` prints registers, shared memory and
-spills of both commits' maximin_t.cu and lloyd_rows.cu. ``--probes``
+fit grid in both dtypes. (K7, which this script once timed past 512 rows,
+is timed by experiments/torch_k2_k7.py.) ``--ptxas`` prints registers,
+shared memory and spills of both commits' maximin_t.cu. ``--probes``
 rebuilds K6 from text-patched copies of csrc/maximin_t.cu (common.cuh
 inlined) into the git-ignored ``_build/``, each with one phase off or one
 constant changed, timed at the fit grid in both dtypes: K6_PROBES lists
@@ -44,7 +40,6 @@ import ctypes
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -67,8 +62,7 @@ from _turns import (  # noqa: E402
 INNER = 50
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the parent's signatures (commit c69d643)
-PARENT_SIGNATURES = {"gcis_maximin_t": [_P] * 6 + [_I] * 5 + [_P],
-                     "gcis_lloyd_rows": [_P] * 5 + [_I] * 5 + [_P]}
+PARENT_SIGNATURES = {"gcis_maximin_t": [_P] * 6 + [_I] * 5 + [_P]}
 
 
 # (name, edits) of maximin_t.cu: K6 with one phase off (the outputs of a
@@ -121,9 +115,9 @@ def main() -> None:
         parent = Path(sys.argv[sys.argv.index("--parent") + 1]).resolve() / (
             "gabor_color_image_segmentation_tpu_torch/csrc")
     if "--ptxas" in sys.argv:
-        ptxas(_kernels._CSRC, ["maximin_t.cu", "lloyd_rows.cu"], "change")
+        ptxas(_kernels._CSRC, ["maximin_t.cu"], "change")
         if parent is not None:
-            ptxas(parent, ["maximin_t.cu", "lloyd_rows.cu"], "parent")
+            ptxas(parent, ["maximin_t.cu"], "parent")
     _kernels.library()
     set_policy()
     dev = torch.device("cuda")
@@ -153,8 +147,8 @@ def main() -> None:
           + ", ".join(f"{t} {v:.5f}" for t, v in bounds.items()) + f" ms ({card})", flush=True)
 
     if parent is not None:
-        plib = build([source(parent, "maximin_t.cu"), source(parent, "lloyd_rows.cu")],
-                     ["parent_maximin_t", "parent_lloyd_rows"], PARENT_SIGNATURES)
+        plib = build([source(parent, "maximin_t.cu")], ["parent_maximin_t"],
+                     PARENT_SIGNATURES)
 
         def k6_parent(tag, dm=None):
             xb, probe, dm0 = state[tag]
@@ -175,18 +169,6 @@ def main() -> None:
                 return best
             return call
 
-        def k7_parent(x, c, k):
-            bb, nn, dd = x.shape
-            labels = torch.empty((bb, nn), dtype=torch.int32, device=dev)
-            partial = torch.empty((bb, -(-nn // 1024), k, dd + 1), device=dev)
-            sums = torch.empty((bb, k, dd + 1), device=dev)
-            rc = plib[1].gcis_lloyd_rows(x.data_ptr(), c.data_ptr(), labels.data_ptr(),
-                                         partial.data_ptr(), sums.data_ptr(), bb, dd, nn, k,
-                                         _kernels.storage_code(x.dtype), stream())
-            if rc:
-                sys.exit(f"parent K7: CUDA error {rc}")
-            return labels, sums[:, :, :dd], sums[:, :, dd]
-
         for tag in bufs:
             xb, probe, dm = state[tag]
             dp, dc = dm.clone(), dm.clone()
@@ -196,15 +178,6 @@ def main() -> None:
             print(f"parent vs change K6 {tag}: seeds equal {torch.equal(pp, pc)}, running "
                   f"minima max abs diff {(dp - dc).abs().max().item():.3e} of "
                   f"{dp.abs().max().item():.4g} ({card})", flush=True)
-        rows = blobs(2, 243, 20000, 6, dev).transpose(1, 2).contiguous()
-        c7 = rows[:, :5].float() + 0.1
-        for tag, xr in (("bf16", rows.to(torch.bfloat16)), ("f32", rows)):
-            par = k7_parent(xr, c7, 5)
-            chg = kf.lloyd_pass(xr, c7, 5)
-            torch.cuda.synchronize()
-            print(f"parent vs change K7 (2, 20000, 243) {tag} k=5: labels, sums and counts "
-                  f"bit-equal {all(torch.equal(a, g) for a, g in zip(par, chg))} ({card})",
-                  flush=True)
         for turn, who in enumerate(("parent", "change", "change", "parent")):
             k6 = k6_parent if who == "parent" else k6_change
             parts = [f"{t} {timed(k6(t)):.4f}" for t in bufs]
@@ -260,28 +233,6 @@ def main() -> None:
                 torch.cuda.synchronize()
                 print(f"K6 probe [{name}] ({b}, {d}, {n}) {tag}, {cpi} CTAs an image: seeds as "
                       f"built {torch.equal(best, ref)}; {timed(call):.4f} ms ({card})", flush=True)
-
-    # K7 past 512 rows: k = 8 blobs ~4 noise radii apart, centres their
-    # means moved by 0.1 noise (labels equal to the plain version's)
-    rng = np.random.default_rng(7)
-    for dd in (513, 1000, 2048, 4096):
-        means = rng.normal(scale=4.0, size=(2, 8, dd))
-        lab = rng.integers(0, 8, size=(2, 20000))
-        x = np.take_along_axis(means, lab[:, :, None], 1) + rng.normal(size=(2, 20000, dd))
-        x = torch.from_numpy(x.astype(np.float32)).to(dev)
-        c = torch.from_numpy((means + 0.1 * rng.normal(size=means.shape))
-                             .astype(np.float32)).to(dev)
-        for tag, xr in (("bf16", x.to(torch.bfloat16)), ("f32", x)):
-            lk, sk, nk = kf.lloyd_pass(xr, c, 8)
-            lp, sp, np_ = kf.lloyd_pass_plain(xr, c, 8)
-            torch.cuda.synchronize()
-            err = ((sk - sp).abs().max() / sp.abs().max()).item()
-            bd = bound(xr.numel() * xr.element_size() + 2 * 20000 * 4,
-                       2 * 20000 * (2 * 8 + 1) * dd)
-            print(f"K7 wide (2, 20000, {dd}) {tag} k=8: {timed(lambda: kf.lloyd_pass(xr, c, 8)):.4f}"
-                  f" ms, plain {timed(lambda: kf.lloyd_pass_plain(xr, c, 8)):.4f}, bound "
-                  f"{bd[0]:.4f} ({bd[1]}); labels equal {torch.equal(lk, lp)}, counts equal "
-                  f"{torch.equal(nk, np_)}, sums rel err {err:.2e} ({card})", flush=True)
 
 
 if __name__ == "__main__":

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "gcis_enforce_connectivity": [_P] * 6 + [_I] * 5 + [_P],
     "gcis_table_lookup": [_P] * 3 + [_I] * 3 + [_P],
     "gcis_gabor_group": [_P] * 8 + [_I] * 10 + [_P],
-    "gcis_lloyd_chw": [_P] * 7 + [_I] * 10 + [_P],
+    "gcis_lloyd_chw": [_P] * 8 + [_I] * 11 + [_P],
     "gcis_maximin_chw": [_P] * 8 + [_I] * 5 + [_P],
     "gcis_coarse_centers": [_P] * 3 + [_I] * 9 + [_P],
     "gcis_coarse_active_clusters": [_I] * 2 + [_P] * 2,
@@ -58,7 +58,7 @@ _SIGNATURES = {
     "gcis_em_pass": [_P] * 8 + [_I] * 8 + [_P],
     "gcis_precision_chol": [_P] * 3 + [_I] * 2 + [_P],
     "gcis_precision_chol_params": [_P] * 6 + [_I] * 2 + [_F] * 2 + [_P],
-    "gcis_lloyd_rows": [_P] * 5 + [_I] * 5 + [_P],
+    "gcis_lloyd_rows": [_P] * 8 + [_I] * 10 + [_P],
     "gcis_superpixel_moments": [_P] * 6 + [_I] * 9 + [_P],
 }
 

@@ -1,7 +1,8 @@
 // Shared helpers of the port's Hopper kernels: typed loads and stores
-// (float32 or bfloat16 storage, float32 arithmetic), REFLECT_101 indexing
-// and the deterministic warp/block reductions the kernels use in place of
-// float atomics.
+// (float32 or bfloat16 storage, float32 arithmetic), REFLECT_101 indexing,
+// the deterministic warp/block reductions the kernels use in place of
+// float atomics, cp.async and TMA staging, and exact bf16 tensor-core
+// products (K2, K7).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -99,6 +100,16 @@ template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+// The same with the count known at run time: at most `pending` (0, 1, or 2
+// for 2 and more) groups left in flight.
+static __device__ __forceinline__ void cp_wait_upto(int pending) {
+  if (pending <= 0)
+    cp_wait<0>();
+  else if (pending == 1)
+    cp_wait<1>();
+  else
+    cp_wait<2>();
+}
 
 // A staged row: tp pixels of esize bytes and up to 15 bytes before the
 // first, in 16-byte chunks.
@@ -126,6 +137,104 @@ __device__ void stage_rows(const T* __restrict__ xr, char* buf, int* sh, long n,
   }
   cp_commit();
 }
+
+// TMA: a 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) that completes its bytes on the mbarrier; the mbarrier's arrival
+// with the expected bytes; the wait for a phase's parity.
+static __device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
+                                                 void* mbar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"((unsigned)__cvta_generic_to_shared(dst)),
+      "l"(src), "r"(bytes), "r"((unsigned)__cvta_generic_to_shared(mbar))
+      : "memory");
+}
+static __device__ __forceinline__ void mbar_expect(void* mbar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(mbar)),
+               "r"(bytes)
+               : "memory");
+}
+static __device__ __forceinline__ void mbar_wait(void* mbar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE%=;\nbra WAIT%=;\nDONE%=:\n}\n" ::"r"((unsigned)__cvta_generic_to_shared(mbar)),
+      "r"(parity)
+      : "memory");
+}
+
+// c += A B on the tensor cores: m16n8k16, bf16 operands (A four registers,
+// B two, each a packed pair, the first value in the low half), float32
+// accumulators.
+static __device__ __forceinline__ void mma_bf16(float (&c)[4], unsigned a0, unsigned a1,
+                                                unsigned a2, unsigned a3, unsigned b0,
+                                                unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// x = hi + mid + lo exactly: each part is the bf16 rounding of what the
+// parts before it left (bits in the low half of each word).
+static __device__ __forceinline__ void split3(float x, unsigned (&p)[3]) {
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    p[s] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(x));
+    x -= __uint_as_float(p[s] << 16);
+  }
+}
+
+// Two staged values of storage type T as SPLIT packed bf16 pairs (the first
+// in the low half): bf16 values as they are, float32 values split exactly
+// into three parts (split3). `raw` reads a value's bits, `make` packs two.
+template <typename T>
+struct Pair;
+
+template <>
+struct Pair<__nv_bfloat16> {
+  static constexpr int SPLIT = 1;
+  static constexpr unsigned ONE = 0x3F80u;  // 1.0
+  __device__ __forceinline__ static unsigned raw(const char* p) {
+    return (unsigned)*reinterpret_cast<const unsigned short*>(p);
+  }
+  __device__ __forceinline__ static void make(unsigned u, unsigned v, unsigned (&a)[1]) {
+    a[0] = u | (v << 16);
+  }
+  __device__ __forceinline__ static void pack(const char* p0, const char* p1, unsigned (&a)[1]) {
+    make(raw(p0), raw(p1), a);
+  }
+  // two neighbouring pixels of a row at byte offset off (even): one word
+  // when off is a multiple of 4, else the halves of two words
+  __device__ __forceinline__ static void row2(const char* buf, int off, unsigned (&a)[1]) {
+    const unsigned* w = reinterpret_cast<const unsigned*>(buf + (off & ~3));
+    a[0] = __byte_perm(w[0], w[1], (off & 2) ? 0x5432 : 0x3210);
+  }
+};
+
+template <>
+struct Pair<float> {
+  static constexpr int SPLIT = 3;
+  static constexpr unsigned ONE = 0x3F800000u;  // 1.0
+  __device__ __forceinline__ static unsigned raw(const char* p) {
+    return *reinterpret_cast<const unsigned*>(p);
+  }
+  __device__ __forceinline__ static void make(unsigned u, unsigned v, unsigned (&a)[3]) {
+    unsigned x[3], y[3];
+    split3(__uint_as_float(u), x);
+    split3(__uint_as_float(v), y);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) a[s] = x[s] | (y[s] << 16);
+  }
+  __device__ __forceinline__ static void pack(const char* p0, const char* p1, unsigned (&a)[3]) {
+    make(raw(p0), raw(p1), a);
+  }
+  __device__ __forceinline__ static void row2(const char* buf, int off, unsigned (&a)[3]) {
+    pack(buf + off, buf + off + 4, a);
+  }
+};
 
 // counter += 1 at device scope with acquire-release order; the old value.
 // A CTA counts itself done on its image's counter once its results are

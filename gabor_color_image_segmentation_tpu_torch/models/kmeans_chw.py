@@ -16,7 +16,8 @@ K2 ``lloyd_chw_pass`` (csrc/lloyd_chw.cu) replaces
 say what bounds them on the H100 (HBM bandwidth). K2 runs persistent CTAs
 that stage tiles of P pixels x D rows in shared memory and score and sum
 them on the tensor cores (``lloyd_plan`` sizes the tiles, the stages and
-the CTAs an image). Each wrapper runs its
+the CTAs an image; past what shared memory holds it stages a tile's rows in
+blocks, so K2 takes any D). Each wrapper runs its
 ``*_plain`` twin for CPU tensors and launches the kernel for CUDA tensors.
 """
 
@@ -75,41 +76,62 @@ def lloyd_chw_pass_plain(xe, xc4, wc, offs, assign_only=False):
 _SMEM_CTA = 227 * 1024
 
 
-def _lloyd_smem(d: int, p: int, stages: int, esize: int) -> int:
+def _lloyd_smem(d: int, p: int, stages: int, esize: int, rb: int = None) -> int:
     """K2's dynamic shared memory a CTA, as csrc/lloyd_chw.cu's smem_bytes:
     the ring of staged tiles (rows of p values plus 16 bytes for the
     alignment shift, and a row of ones and one of zeros a stage), the
     centre rows as score fragments (three bf16 parts, 768 bytes a 16-row
     chunk), the sums fragments (512 bytes a 16-row tile of the (D + 1)-row
     operand), the rows' source addresses, the ring's mbarriers, the tile's
-    labels, the rows' offsets and the score offsets."""
+    labels, the rows' offsets and the score offsets. With ``rb`` < d rows a
+    staged block, a stage holds a block, the fragments and the rows'
+    offsets (one set a stage) cover a block, and the sums fragments and the
+    addresses leave shared memory."""
     nkc, nmt = -(-d // 16), -(-(d + 1) // 16)
+    if rb is not None and rb < d:
+        return (stages * (rb + 2) * (p * esize + 16) + 768 * -(-rb // 16) + 32
+                + 4 * (p + stages * rb + K_MAX))
     return (stages * (d + 2) * (p * esize + 16) + 768 * nkc + 512 * nmt + 8 * d + 32
             + 4 * (p + 16 * nkc + K_MAX))
 
 
+_BLOCK_TILE = (128, 3)  # K2's tile and stages once a tile's rows are staged in blocks
+
+
 def lloyd_plan(b: int, n: int, d: int, esize: int, n_sm: int):
-    """K2's launch: (pixels a tile, stages, CTAs an image, tiles a CTA).
+    """K2's launch: (pixels a tile, stages, CTAs an image, tiles a CTA, rows
+    a staged block).
 
     A tile is 128 pixels (each of the CTA's 16 warps scores 8 of them) or
     fewer, halving until two stages fit a CTA's shared memory, then the
     most stages (up to 4) that fit; one stage of 16 pixels is the last
-    resort (D up to 1,344 float32 or 1,650 bf16 rows). One CTA an SM: the
-    CTAs of the b images make about one wave (n_sm // b an image, each
-    walking consecutive tiles), one CTA an image when the batch alone
-    fills the card."""
+    resort (D up to 1,344 float32 or 1,650 bf16 rows). Its rows are staged
+    in one go (rows a block = d). Past that a tile of 128 pixels is staged
+    in blocks of rows through three stages: the most rows (a multiple of
+    16) whose stages fit, then blocks as even as that allows, so any
+    d >= 4 has a plan. One CTA an SM: the CTAs of the b images make about
+    one wave (n_sm // b an image, each walking consecutive tiles), one CTA
+    an image when the batch alone fills the card."""
+
+    def launch(p, stages, rb):
+        ntiles = -(-n // p)
+        ctas = min(ntiles, max(1, n_sm // b))
+        tpc = -(-ntiles // ctas)
+        return p, stages, -(-ntiles // tpc), tpc, rb
+
     for ring in ((4, 3, 2), (1,)):
         p = 128
         while p >= 16:
             fits = [s for s in ring if _lloyd_smem(d, p, s, esize) <= _SMEM_CTA]
             if fits:
-                ntiles = -(-n // p)
-                ctas = min(ntiles, max(1, n_sm // b))
-                tpc = -(-ntiles // ctas)
-                return p, fits[0], -(-ntiles // tpc), tpc
+                return launch(p, fits[0], d)
             p //= 2
-    raise ValueError(f"K2's tiles do not fit shared memory at D = {d} feature rows "
-                     f"({esize}-byte values)")
+    p, stages = _BLOCK_TILE
+    most = 16
+    while _lloyd_smem(d, p, stages, esize, most + 16) <= _SMEM_CTA:
+        most += 16
+    blocks = -(-d // most)
+    return launch(p, stages, 16 * -(-(-(-d // blocks)) // 16))
 
 
 def lloyd_chw_pass(xe, xc4, wc, offs, assign_only=False):
@@ -133,19 +155,22 @@ def lloyd_chw_pass(xe, xc4, wc, offs, assign_only=False):
     xe, xc4 = xe.contiguous(), xc4.contiguous()
     wc, offs = wc.contiguous(), offs.contiguous()
     n = h * w
-    p, stages, ctas, tpc = lloyd_plan(b, n, e + 3, xe.element_size(),
-                                      _kernels.sm_count(xe.device))
+    p, stages, ctas, tpc, rb = lloyd_plan(b, n, e + 3, xe.element_size(),
+                                          _kernels.sm_count(xe.device))
     labels = torch.empty((b, h, w), dtype=torch.int32, device=xe.device)
-    partial = sums = None
+    partial = sums = accs = None
     if not assign_only:
         partial = torch.empty((b, ctas, k, e + 4), dtype=torch.float32, device=xe.device)
         sums = torch.empty((b, k, e + 4), dtype=torch.float32, device=xe.device)
+        if rb < e + 3:  # the CTAs' sums fragments, past what shared memory holds
+            accs = torch.empty((b, ctas, 128 * -(-(e + 4) // 16)), dtype=torch.float32,
+                               device=xe.device)
     _kernels.launch(
         "gcis_lloyd_chw", xe.data_ptr(), xc4.data_ptr(), wc.data_ptr(),
         offs.data_ptr(), labels.data_ptr(),
-        None if assign_only else partial.data_ptr(),
-        None if assign_only else sums.data_ptr(),
-        b, e, n, k, _kernels.storage_code(xe.dtype), p, stages, ctas, tpc, int(assign_only),
+        *(None if t is None else t.data_ptr() for t in (partial, sums, accs)),
+        b, e, n, k, _kernels.storage_code(xe.dtype), p, stages, rb, ctas, tpc,
+        int(assign_only),
     )
     lloyd_chw_pass.launches += 1
     if assign_only:

@@ -15,7 +15,9 @@ is built.
   distributed shared memory. The JAX package runs that kernel in
   bf16 only and routes f32 through separate maximin and Lloyd passes (with
   a fixed-point early exit, identical at the fixed point); the port runs K3
-  in both dtypes, so the two differ only in reduction order.
+  in both dtypes, so the two differ only in reduction order. Past the 400
+  rows K3's tiles hold, ``coarse_route`` sends the warm start through K6
+  and K5, the reference's blocked route.
 - K5 ``lloyd_t_pass`` (csrc/lloyd_t.cu) replaces ``_lloyd_t_kernel``: one
   Lloyd pass in one launch, ``lloyd_t_plan`` CTAs an image over the whole
   card, whose float64 partial sums the last CTA of each image adds in CTA
@@ -26,12 +28,14 @@ is built.
   each image picks among the pairs and reads the winning column (the same
   int counters as K5).
 - K7 ``lloyd_pass`` (csrc/lloyd_rows.cu) replaces ``_lloyd_kernel``: one
-  Lloyd pass on a row-major (B, N, D) buffer, a warp per pixel row, with
-  the member counts counted (the reference's ones column and 128-lane
-  padding of D are not built); past 512 feature rows a second kernel
-  labels a block's pixels, then sums them by columns. It serves
-  ``kmeans_fused``, the reference's drop-in for a batched ``kmeans``,
-  which no pipeline path calls.
+  Lloyd pass on a row-major (B, N, D) buffer in one launch,
+  ``lloyd_rows_plan`` CTAs an image, each staging tiles of consecutive
+  pixels (one contiguous span, or past what shared memory holds blocks of
+  values) and scoring and summing them on the tensor cores; the last CTAs
+  add the partials in a fixed order (the same int counters as K5). The
+  member counts are counted (the reference's ones column and 128-lane
+  padding of D are not built). It serves ``kmeans_fused``, the reference's
+  drop-in for a batched ``kmeans``, which no pipeline path calls.
 
 Scores follow the reference: ||c||^2 - 2 c . x with c in float32 for the
 norm and rounded to the storage dtype for the cross term, first minimum
@@ -108,22 +112,50 @@ def kmeans_coarse_centers_xp_plain(xp, k: int, d: int, m: int, coarse_iters: int
     return c
 
 
+def coarse_route(d: int) -> str:
+    """Which route the coarse warm start takes for d feature rows on the
+    card: "k3" (K3, one launch for the seeding and every pass) up to
+    ``D_COARSE_MAX`` rows, whose tiles fit K3's shared memory (every
+    preset's d is 243 or less), else "blocked": K6's maximin steps then K5's
+    Lloyd passes on the same buffer, which take any d.
+
+    The reference (gabor_color_image_segmentation_tpu/models/
+    kmeans_pallas.py:704-722, ``kmeans_coarse_centers_xp``) runs its fused
+    warm-start kernel in bf16 while the padded pooled buffer fits its 12 MiB
+    ``_COARSE_FUSE_BYTES`` (d <= 607 at config1's 80 x 120 grid), and its
+    blocked passes (``_maximin_init_t_fused``, then ``_solve_t``) past that
+    and always in f32. The port runs K3 in both dtypes up to 400 rows: it
+    and the blocked passes differ only in their reduction order."""
+    return "k3" if d <= D_COARSE_MAX else "blocked"
+
+
+def _coarse_centers_blocked(xp, k: int, d: int, m: int, coarse_iters: int):
+    """The blocked route: maximin seeds (K6) and ``coarse_iters`` Lloyd
+    updates (K5) on rows [0, d) and columns [0, m) of xp, copied into the
+    contiguous (B, d, m) buffer the two kernels read."""
+    x = xp[:, :d, :m].contiguous()
+    return _lloyd_t_updates(x, _maximin_init_t_fused(x, k), coarse_iters)
+
+
 def kmeans_coarse_centers_xp(xp, k: int, d: int, m: int, coarse_iters: int):
     """Maximin seeding + ``coarse_iters`` Lloyd passes on a pooled buffer.
 
     xp: (B, rows, cols) float32 or bfloat16 with normalised features in rows
     [0, d) and pixels in columns [0, m) (the port's (B, E + 3, m) buffer, or
     the reference's padded xt layout, whose ones-row and padding are not
-    read). Returns (B, k, d) float32 centres in normalised feature space."""
+    read). Returns (B, k, d) float32 centres in normalised feature space.
+    ``coarse_route(d)`` picks K3 or the blocked route (K6, K5); on CPU
+    tensors each takes its kernels' plain versions."""
     _kernels.check(xp.dim() == 3, f"xp must be (B, rows, cols), got {tuple(xp.shape)}")
     _kernels.check(d <= xp.shape[1] and 1 <= m <= xp.shape[2],
                    f"d={d}, m={m} do not fit xp {tuple(xp.shape)}")
     _kernels.check(1 <= k <= K_MAX, f"k must be in [1, {K_MAX}], got {k}")
     _kernels.storage_code(xp.dtype)
+    if coarse_route(d) == "blocked":
+        return _coarse_centers_blocked(xp, k, d, m, coarse_iters)
     if _kernels.use_plain(xp):
         return kmeans_coarse_centers_xp_plain(xp, k, d, m, coarse_iters)
-    _kernels.check(1 <= d <= D_COARSE_MAX,
-                   f"the CUDA kernel takes 1 <= d <= {D_COARSE_MAX}, got {d}")
+    _kernels.check(d >= 1, f"the CUDA kernel takes d >= 1, got {d}")
     xp = xp.contiguous()
     b, rows, cols = xp.shape
     code = _kernels.storage_code(xp.dtype)
@@ -302,9 +334,62 @@ maximin_t_pass.launches = 0
 # K7: Lloyd pass on a row-major buffer
 # ---------------------------------------------------------------------------
 
-_ROWS_BLOCK = 1024  # pixels per block of K7 (8 warps of 128)
-_ROWS_BLOCK_WIDE = 128  # pixels per block of K7's wide kernel
-D_ROWS_REG = 512  # row values K7 holds in registers; wider rows take its wide kernel
+# K7's launch (csrc/lloyd_rows.cu): 512 threads a CTA, one CTA an SM, at most
+# 227 KB of shared memory a CTA; the CTAs of its ordered reduction's groups
+_ROWS_SMEM = 227 * 1024
+_ROWS_GROUP = 8
+_ROWS_BLOCK_TILE = (128, 3)  # K7's tile and stages once a tile's values are staged in blocks
+
+
+def _rows_smem(d: int, p: int, stages: int, esize: int, vb: int = None) -> int:
+    """K7's dynamic shared memory a CTA, as csrc/lloyd_rows.cu's smem_bytes:
+    the ring (a stage holds p rows of d values as one span plus 16 bytes
+    for its alignment shift; staged in blocks of ``vb`` < d values, p
+    segments of a block, each in whole 16-byte chunks with its shift), the
+    centre fragments of a block (256 bytes a 16-value chunk, three parts in
+    float32), the CTA's sums fragments (512 bytes a 16-value M-tile of the
+    d + 1 values) unless staged in blocks, the split scores' exchange (8
+    KB), the mbarriers, each stage's pixel offsets, the labels and the
+    norms."""
+    vb = d if vb is None else vb
+    blocked = vb < d
+    stage = (p * 16 * ((vb * esize + 30) // 16) if blocked
+             else 16 * ((p * d * esize + 15) // 16 + 1))
+    return (stages * stage + 256 * -(-vb // 16) * (1 if esize == 2 else 3)
+            + (0 if blocked else 512 * ((d + 16) // 16)) + 8192 + 32
+            + 4 * ((stages + 1) * p + 8))
+
+
+def lloyd_rows_plan(b: int, n: int, d: int, esize: int, n_sm: int):
+    """K7's launch: (CTAs an image, tiles a CTA, pixels a tile, stages,
+    values a staged block).
+
+    A tile is 128 pixels (a 16-pixel group for each pair of the CTA's 16
+    warps) or fewer, halving until two stages of its rows fit a CTA's shared
+    memory, then the most stages (up to 4) that fit; its rows are staged as
+    one span (values a block = d). Where not even 16 pixels' rows fit, a
+    tile of 128 pixels is staged in blocks of values through three stages:
+    the most values (a multiple of 16) whose stages fit, then blocks as
+    even as that allows, so any d has a plan. One CTA an SM: the CTAs of the
+    b images make about one wave (n_sm // b an image, each walking
+    consecutive tiles), one CTA an image when the batch alone fills the
+    card."""
+    for p in (128, 64, 32, 16):
+        fits = [s for s in (4, 3, 2) if _rows_smem(d, p, s, esize) <= _ROWS_SMEM]
+        if fits:
+            stages, vb = fits[0], d
+            break
+    else:
+        p, stages = _ROWS_BLOCK_TILE
+        most = 16
+        while most + 16 < d and _rows_smem(d, p, stages, esize, most + 16) <= _ROWS_SMEM:
+            most += 16
+        blocks = -(-d // most)
+        vb = 16 * -(-(-(-d // blocks)) // 16)
+    ntiles = -(-n // p)
+    ctas = min(ntiles, max(1, n_sm // b))
+    tpc = -(-ntiles // ctas)
+    return -(-ntiles // tpc), tpc, p, stages, vb
 
 
 def lloyd_pass_plain(x, centers, k: int):
@@ -330,15 +415,32 @@ def lloyd_pass(x, centers, k: int):
                    f"centers must be float32 {(b, k, d)}")
     if _kernels.use_plain(x, centers):
         return lloyd_pass_plain(x, centers, k)
+    _kernels.check(d >= 1 and n >= 1, f"the CUDA kernel takes D >= 1 and N >= 1, got {(d, n)}")
     x, centers = x.contiguous(), centers.contiguous()
-    nblk = -(-n // (_ROWS_BLOCK if d <= D_ROWS_REG else _ROWS_BLOCK_WIDE))
+    ctas, tpc, p, stages, vb = lloyd_rows_plan(b, n, d, x.element_size(),
+                                               _kernels.sm_count(x.device))
+    w = k * (d + 1)
+    w4 = -(-w // 4) * 4
+    ngrp = -(-ctas // _ROWS_GROUP)
+    # scratch: the CTAs' partials, the groups' sums past one group, the CTAs'
+    # sums fragments when staged in blocks (offsets a multiple of 16 bytes)
+    sizes = (b * ctas * w4, b * ngrp * w4 if ngrp > 1 else 0,
+             b * ctas * 128 * ((d + 16) // 16) if vb < d else 0)
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    ptrs, off = [], 0
+    for size in sizes:
+        ptrs.append(scratch[off:].data_ptr() if size else None)
+        off += size
     labels = torch.empty((b, n), dtype=torch.int32, device=x.device)
-    partial = torch.empty((b, nblk, k, d + 1), dtype=torch.float32, device=x.device)
-    sums = torch.empty((b, k, d + 1), dtype=torch.float32, device=x.device)
-    _kernels.launch("gcis_lloyd_rows", x.data_ptr(), centers.data_ptr(), labels.data_ptr(),
-                    partial.data_ptr(), sums.data_ptr(), b, d, n, k,
-                    _kernels.storage_code(x.dtype))
+    sums = torch.empty((b, w4), dtype=torch.float32, device=x.device)
+    # on x's device, so the counters are keyed by the stream the kernel runs on
+    with torch.cuda.device(x.device):
+        _kernels.launch("gcis_lloyd_rows", x.data_ptr(), centers.data_ptr(), labels.data_ptr(),
+                        sums.data_ptr(), *ptrs,
+                        _counters(x.device, b * (ngrp + 1)).data_ptr(), b, d, n, k,
+                        _kernels.storage_code(x.dtype), ctas, tpc, p, stages, vb)
     lloyd_pass.launches += 1
+    sums = sums[:, :w].view(b, k, d + 1)
     return labels, sums[:, :, :d], sums[:, :, d]
 
 
@@ -363,6 +465,16 @@ def _maximin_init_t_fused(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
+def _lloyd_t_updates(x: torch.Tensor, c: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` Lloyd updates (K5) of the centres c (B, k, D) on x (B, D, N);
+    an empty cluster keeps its centre."""
+    for _ in range(n):
+        _, sums, counts = lloyd_t_pass(x, c)
+        new = sums / torch.clamp(counts, min=1.0)[:, :, None]
+        c = torch.where(counts[:, :, None] > 0, new, c)
+    return c
+
+
 def _solve_t(x: torch.Tensor, c0: torch.Tensor, max_iter: int):
     """Lloyd from centres c0 (B, k, D): exactly ``max_iter`` update passes,
     then one labels pass. Returns (labels (B, N) int32, centres).
@@ -372,11 +484,7 @@ def _solve_t(x: torch.Tensor, c0: torch.Tensor, max_iter: int):
     fixed point returns the same centres bit for bit: running the full
     count gives the reference's centres and labels, with no host sync to
     test for the fixed point."""
-    c = c0
-    for _ in range(max_iter):
-        _, sums, counts = lloyd_t_pass(x, c)
-        new = sums / torch.clamp(counts, min=1.0)[:, :, None]
-        c = torch.where(counts[:, :, None] > 0, new, c)
+    c = _lloyd_t_updates(x, c0, max_iter)
     return lloyd_t_pass(x, c, assign_only=True), c
 
 

@@ -143,6 +143,48 @@ def test_lloyd_kernel_plan_edges(device, dtype, case):
     assert torch.equal(kc.lloyd_chw_pass(xe, xc4, wc, offs, assign_only=True), labels)
 
 
+def _chw_blobs(device, dt, b, e, h, w, k, seed):
+    """Raw rows xe (B, E, H, W) and xc4 (B, 4, H, W) of k blobs ~4 noise
+    radii apart, with the blob means as K2 takes centres (the affine a = 1,
+    b = 0: wc the means rounded to dt, offs their squared norms): each
+    pixel's own centre is nearer than any other by ~16 (E + 3), so no
+    summation order moves a label."""
+    rng = np.random.default_rng(seed)
+    d, n = e + 3, h * w
+    means = rng.normal(scale=4.0, size=(b, k, d))
+    lab = rng.integers(0, k, size=(b, n))
+    x = np.take_along_axis(means, lab[:, :, None], 1) + rng.normal(size=(b, n, d))
+    x = np.ascontiguousarray(np.swapaxes(x, 1, 2), np.float32).reshape(b, d, h, w)
+    xe = torch.from_numpy(np.ascontiguousarray(x[:, :e])).to(device, dt)
+    xc4 = torch.cat([torch.from_numpy(np.ascontiguousarray(x[:, e:])),
+                     torch.ones((b, 1, h, w))], dim=1).to(device, dt)
+    wc = torch.from_numpy(means.astype(np.float32)).to(device).to(dt).float()
+    return xe, xc4, wc, wc.square().sum(dim=2)
+
+
+# K2 past the rows a whole tile stages (fault 10): its tiles staged in
+# blocks of rows; W = 481 with N ragged against the 128-pixel tiles
+K2_BLOCKED = [(1700, "bfloat16"), (2688, "bfloat16"), (1400, "float32")]
+
+
+@pytest.mark.parametrize("e, dtype", K2_BLOCKED)
+def test_lloyd_kernel_rows_in_blocks(device, e, dtype):
+    """K2 at E + 3 rows staged in blocks: labels and counts equal to its
+    plain version's, sums within rtol 1e-4 of their largest value, labels
+    only equal to the full pass's labels, two launches bit-equal."""
+    dt = DTYPES[dtype]
+    assert kc.lloyd_plan(2, 5 * 481, e + 3, dt.itemsize, 132)[4] < e + 3
+    xe, xc4, wc, offs = _chw_blobs(device, dt, 2, e, 5, 481, 5, seed=e)
+    labels, sums, counts = kc.lloyd_chw_pass(xe, xc4, wc, offs)
+    again = kc.lloyd_chw_pass(xe, xc4, wc, offs)
+    rl, rs, rc = kc.lloyd_chw_pass_plain(xe, xc4, wc, offs)
+    torch.cuda.synchronize()
+    assert torch.equal(labels, rl) and torch.equal(counts, rc)
+    assert (sums - rs).abs().max() <= 1e-4 * rs.abs().max()
+    assert all(torch.equal(x, y) for x, y in zip((labels, sums, counts), again))
+    assert torch.equal(kc.lloyd_chw_pass(xe, xc4, wc, offs, assign_only=True), labels)
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_maximin_kernel(device, dtype):
     dt = DTYPES[dtype]
@@ -209,6 +251,29 @@ def test_coarse_centers_kernel(device, dtype, case, monkeypatch):
     torch.cuda.synchronize()
     assert torch.allclose(out, ref, rtol=2e-3, atol=2e-3)
     assert torch.equal(out, again)  # two launches give the same bits
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_coarse_centers_blocked_route(device, dtype, monkeypatch):
+    """Past K3's 400 rows (fault 11) the warm start takes K6 and K5 on the
+    card, K3 not: d = 483 rows of a padded (2, 488, 2400) buffer, against
+    the same route through K6's and K5's plain versions (rtol and atol
+    2e-3), two calls bit-equal."""
+    dt = DTYPES[dtype]
+    d, m, k = 483, 2400, 5
+    xp = _separated(device, dt, 2, 488, m, k, seed=d)
+    for fn in (kf.kmeans_coarse_centers_xp, kf.maximin_t_pass, kf.lloyd_t_pass):
+        fn.launches = 0
+    out = kf.kmeans_coarse_centers_xp(xp, k, d, m, 8)
+    again = kf.kmeans_coarse_centers_xp(xp, k, d, m, 8)
+    assert kf.kmeans_coarse_centers_xp.launches == 0
+    assert kf.maximin_t_pass.launches == 2 * k and kf.lloyd_t_pass.launches == 2 * 8
+    monkeypatch.setattr(kf, "maximin_t_pass", kf.maximin_t_pass_plain)
+    monkeypatch.setattr(kf, "lloyd_t_pass", kf.lloyd_t_pass_plain)
+    ref = kf.kmeans_coarse_centers_xp(xp, k, d, m, 8)
+    torch.cuda.synchronize()
+    assert out.shape == (2, k, d) and torch.equal(out, again)
+    assert torch.allclose(out, ref, rtol=2e-3, atol=2e-3)
 
 
 def _buffer(device, dt, b=2, d=39, n=3001, seed=5):
@@ -872,27 +937,44 @@ def _wide_rows(device, dt, b, n, d, k, seed):
             torch.from_numpy(c.astype(np.float32)).to(device))
 
 
-# (B, N, D, k): past 512 rows K7's wide kernel (blocks of 128 pixels; N
-# ragged against them), at k = 1, 5, 8
+# (B, N, D, k): past 512 rows (N ragged against the tiles) at k = 1, 5, 8;
+# D = 2048 and 4096 stage a tile's values in blocks
 LLOYD_WIDE_SHAPES = [(2, n, d, k) for d, n in [(513, 3001), (1000, 1001), (2048, 777),
                                                 (4096, 257)] for k in (1, 5, 8)]
+# on _buffer's blobs with noisy pixels as centres; the other shapes on
+# _wide_rows: at config1's N = 154,401 those centres leave pixels within
+# float32 rounding of a tie (score margins 1e-4 of scores up to ~2e3)
+LLOYD_NOISY_SHAPES = [(2, 5000, 243, 5), (3, 1001, 37, 8), (1, 7, 1, 1)]
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("shape", [(2, 5000, 243, 5), (3, 1001, 37, 8), (1, 7, 1, 1)]
-                         + LLOYD_WIDE_SHAPES)
+@pytest.mark.parametrize("shape", LLOYD_NOISY_SHAPES + LLOYD_WIDE_SHAPES
+                         + [(2, 154401, 243, 5)])
 def test_lloyd_pass_kernel(device, dtype, shape):
+    """K7 against its plain version: labels and counts equal, sums within
+    rtol 1e-4 of their largest value, two launches bit-equal. The small
+    shapes on the blobs of _buffer with centres at noisy pixels, the others
+    on _wide_rows (the blob means as centres: no pixel near a tie)."""
     b, n, d, k = shape
-    if d <= kf.D_ROWS_REG:
+    if shape in LLOYD_NOISY_SHAPES:
         x = _buffer(device, DTYPES[dtype], b=b, d=d, n=n, seed=9).transpose(1, 2).contiguous()
         c = x[:, :k].float() + 0.1
     else:
         x, c = _wide_rows(device, DTYPES[dtype], b, n, d, k, seed=d + k)
     labels, sums, counts = kf.lloyd_pass(x, c, k)
+    again = kf.lloyd_pass(x, c, k)
     rl, rs, rc = kf.lloyd_pass_plain(x, c, k)
     torch.cuda.synchronize()
-    assert torch.equal(labels, rl) and torch.equal(counts, rc)
+    if not torch.equal(labels, rl):  # the score margin of the pixels that differ
+        xf, cr = x.float(), c.to(x.dtype).float()
+        sc = c.square().sum(dim=2)[:, None, :] - 2.0 * torch.bmm(xf, cr.transpose(1, 2))
+        top = sc.sort(dim=2).values
+        gap = (top[:, :, 1] - top[:, :, 0])[labels != rl]
+        pytest.fail(f"{int((labels != rl).sum())} labels differ, score margins {gap[:8]} "
+                    f"against scores up to {sc.abs().max().item():.4g}")
+    assert torch.equal(counts, rc)
     assert torch.allclose(sums, rs, rtol=1e-4, atol=1e-4 * rs.abs().max().item())
+    assert all(torch.equal(u, v) for u, v in zip((labels, sums, counts), again))
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

@@ -27,9 +27,12 @@ from gabor_color_image_segmentation_tpu.ops import features as jfeat
 from gabor_color_image_segmentation_tpu.utils.labels import align_labels
 from gabor_color_image_segmentation_tpu_torch.models import kmeans as tkm
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_chw as tchw
+from gabor_color_image_segmentation_tpu_torch.models import kmeans_fused as tf
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import (
     coarse_plan,
+    coarse_route,
     kmeans_coarse_centers_xp,
+    lloyd_rows_plan,
     lloyd_t_plan,
     maximin_t_plan,
 )
@@ -206,23 +209,25 @@ ACTIVE = (132, 66, 32, 16, 7)
 
 
 @pytest.mark.parametrize("b, n, d, esize, n_sm, expect", [
-    (16, 154401, 243, 2, 132, (128, 3, 8, 151)),  # config1 full resolution bf16
-    (16, 38400, 243, 2, 132, (128, 3, 8, 38)),  # config1's 2x2 twin
-    (16, 154401, 243, 4, 132, (64, 3, 8, 302)),  # config1's rows in float32
-    (1, 154401, 39, 4, 132, (128, 4, 121, 10)),  # config0 f32 batch 1
-    (4, 154401, 243, 2, 114, (128, 3, 28, 44)),  # a card of 114 SMs
-    (2, 45, 10, 2, 132, (128, 4, 1, 1)),  # fewer pixels than one tile
-    (1, 100, 603, 2, 132, (64, 2, 2, 1)),  # 603 rows: two stages of 64 pixels
-    (1, 5000, 1203, 4, 132, (16, 1, 105, 3)),  # the last resort, one stage
-    (300, 1000, 39, 2, 132, (128, 4, 1, 8)),  # more images than SMs
+    (16, 154401, 243, 2, 132, (128, 3, 8, 151, 243)),  # config1 full resolution bf16
+    (16, 38400, 243, 2, 132, (128, 3, 8, 38, 243)),  # config1's 2x2 twin
+    (16, 154401, 243, 4, 132, (64, 3, 8, 302, 243)),  # config1's rows in float32
+    (1, 154401, 39, 4, 132, (128, 4, 121, 10, 39)),  # config0 f32 batch 1
+    (4, 154401, 243, 2, 114, (128, 3, 28, 44, 243)),  # a card of 114 SMs
+    (2, 45, 10, 2, 132, (128, 4, 1, 1, 10)),  # fewer pixels than one tile
+    (1, 100, 603, 2, 132, (64, 2, 2, 1, 603)),  # 603 rows: two stages of 64 pixels
+    (1, 5000, 1203, 4, 132, (16, 1, 105, 3, 1203)),  # the last resort, one stage
+    (300, 1000, 39, 2, 132, (128, 4, 1, 8, 39)),  # more images than SMs
 ])
 def test_lloyd_plan(b, n, d, esize, n_sm, expect):
     """K2's plan: the widest tile (<= 128 pixels) whose two stages fit a
-    CTA's shared memory, then the most stages (<= 4) that fit; every tile
-    in exactly one CTA; the batch's CTAs about one wave, one an SM."""
+    CTA's shared memory, then the most stages (<= 4) that fit, its rows
+    staged in one go; every tile in exactly one CTA; the batch's CTAs about
+    one wave, one an SM."""
     plan = tchw.lloyd_plan(b, n, d, esize, n_sm)
     assert plan == expect
-    p, stages, ctas, tpc = plan
+    p, stages, ctas, tpc, rb = plan
+    assert rb == d
     ntiles = -(-n // p)
     assert (ctas - 1) * tpc < ntiles <= ctas * tpc
     assert b * ctas <= max(n_sm, b)
@@ -231,12 +236,68 @@ def test_lloyd_plan(b, n, d, esize, n_sm, expect):
     assert p == 128 or not fits(2 * p, min(2, stages))
 
 
-def test_lloyd_plan_refuses_rows_past_shared_memory():
-    tchw.lloyd_plan(1, 1000, 1650, 2, 132)
-    with pytest.raises(ValueError, match="do not fit shared memory at D = 1651"):
-        tchw.lloyd_plan(1, 1000, 1651, 2, 132)
-    with pytest.raises(ValueError, match="D = 1345"):
-        tchw.lloyd_plan(1, 1000, 1345, 4, 132)
+@pytest.mark.parametrize("d, esize, rb", [
+    (1651, 2, 240), (2691, 2, 256), (4099, 2, 256),  # bf16: 1,650 rows fit whole
+    (1345, 4, 128), (2000, 4, 128),  # float32: 1,344 rows fit whole
+])
+def test_lloyd_plan_stages_rows_in_blocks(d, esize, rb):
+    """Past the rows a whole tile can stage (fault 10), K2's plan stages a
+    tile of 128 pixels in blocks of rb rows through three stages: the most
+    rows (a multiple of 16) that fit, then blocks as even as that allows.
+    At the old limit the plan is still the whole-tile one."""
+    limit = {2: 1650, 4: 1344}[esize]
+    assert tchw.lloyd_plan(1, 1000, limit, esize, 132)[4] == limit
+    n = 321 * 481
+    p, stages, ctas, tpc, got = tchw.lloyd_plan(1, n, d, esize, 132)
+    assert (p, stages, got) == (128, 3, rb)
+    assert rb % 16 == 0 and rb < d
+    ntiles = -(-n // p)
+    assert (ctas - 1) * tpc < ntiles <= ctas * tpc
+    smem = lambda r: tchw._lloyd_smem(d, p, stages, esize, r)  # noqa: E731
+    assert smem(rb) <= 227 * 1024
+    blocks = -(-d // rb)
+    most = max(r for r in range(16, d, 16) if smem(r) <= 227 * 1024)
+    assert blocks == -(-d // most) and rb == 16 * -(-(-(-d // blocks)) // 16)
+
+
+@pytest.mark.parametrize("d, expect", [(1, "k3"), (243, "k3"), (400, "k3"), (401, "blocked"),
+                                       (483, "blocked"), (2691, "blocked")])
+def test_coarse_route(d, expect):
+    """The coarse warm start takes K3 up to the 400 rows its tiles hold,
+    the blocked route (K6, K5) past them."""
+    assert coarse_route(d) == expect
+
+
+def test_coarse_centers_blocked_route_matches_jax(monkeypatch):
+    """Past 400 rows (fault 11) the warm start takes the reference's blocked
+    route, maximin steps (K6) then Lloyd updates (K5), here their plain
+    versions: at d = 483 (480 energy rows, a 64x96 frame's 4x4 grid, k = 5,
+    f32) against the JAX package's kmeans_coarse_centers_xp, which takes its
+    blocked passes in f32 too (interpret mode), on the reference's padded
+    buffer. Tolerance as test_coarse_centers_match_kernel."""
+    energies, color = _inputs(2, 480, 64, 96, seed=11)
+    cfg = ClusterConfig(k=5)
+    xc4 = jchw.build_color4(jnp.asarray(color), jnp.float32)
+    a, b_aff = jchw._affine_params(jnp.asarray(energies), xc4, cfg, 1e-6)
+    pe = jfeat._pool2x2_cm(jfeat._pool2x2_cm(jnp.asarray(energies)))
+    pc = jfeat._pool2x2_cm(jfeat._pool2x2_cm(xc4))
+    d, m = 483, pe.shape[2] * pe.shape[3]
+    assert m == 16 * 24
+    dp, m_pad, _ = xt_geometry(m, d, jnp.float32)
+    xp = jfeat.assemble_xp_from_affine(pe, pc, a, b_aff, dp, m_pad, jnp.float32)
+    ref = np.asarray(jax_coarse(xp, 5, d, m, 6))
+    assert coarse_route(d) == "blocked"
+    calls = {"maximin_t_pass": 0, "lloyd_t_pass": 0}
+    for name in calls:
+        def counted(*args, _fn=getattr(tf, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(tf, name, counted)
+    monkeypatch.setattr(tf, "kmeans_coarse_centers_xp_plain", None)  # K3's route not taken
+    out = kmeans_coarse_centers_xp(_t(xp), 5, d, m, 6)
+    assert calls == {"maximin_t_pass": 5, "lloyd_t_pass": 6}
+    assert out.dtype == torch.float32 and tuple(out.shape) == (2, 5, d)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.parametrize("b, m, active, expect", [
@@ -287,3 +348,35 @@ def test_maximin_t_plan(b, n, n_sm, expect):
     256 pixels, at least one."""
     cpi = maximin_t_plan(b, n, n_sm)
     assert cpi == expect and 1 <= cpi <= n
+
+
+@pytest.mark.parametrize("b, n, d, esize, n_sm, expect", [
+    (16, 154401, 243, 2, 132, (8, 151, 128, 3, 243)),  # config1's rows, bf16
+    (16, 154401, 243, 4, 132, (8, 302, 64, 3, 243)),  # config1's rows, float32
+    (2, 20000, 1000, 2, 132, (63, 10, 32, 2, 1000)),  # past 512 rows, bf16
+    (2, 20000, 1000, 4, 132, (66, 19, 16, 2, 1000)),  # past 512 rows, float32
+    (1, 154401, 243, 2, 132, (121, 10, 128, 3, 243)),  # batch 1
+    (300, 5000, 243, 2, 132, (1, 40, 128, 3, 243)),  # more images than SMs
+    (2, 7, 1, 2, 132, (1, 1, 128, 4, 1)),  # N below one tile
+    (2, 777, 2048, 2, 132, (7, 1, 128, 3, 256)),  # values staged in blocks, bf16
+    (2, 257, 4096, 4, 132, (3, 1, 128, 3, 128)),  # values staged in blocks, float32
+])
+def test_lloyd_rows_plan(b, n, d, esize, n_sm, expect):
+    """K7's plan: the widest tile (<= 128 pixels) whose two stages of rows
+    fit a CTA's shared memory with the fragments, then the most stages
+    (<= 4); past that, tiles of 128 pixels staged in blocks of values
+    through three stages; every tile in exactly one CTA, the batch's CTAs
+    about one wave."""
+    plan = lloyd_rows_plan(b, n, d, esize, n_sm)
+    assert plan == expect
+    ctas, tpc, p, stages, vb = plan
+    ntiles = -(-n // p)
+    assert (ctas - 1) * tpc < ntiles <= ctas * tpc
+    assert b * ctas <= max(n_sm, b)
+    fits = lambda q, s, v=None: tf._rows_smem(d, q, s, esize, v) <= 227 * 1024  # noqa: E731
+    if vb == d:
+        assert fits(p, stages) and (stages == 4 or not fits(p, stages + 1))
+        assert p == 128 or not fits(2 * p, 2)
+    else:
+        assert not fits(16, 2) and (p, stages) == (128, 3) and vb % 16 == 0
+        assert fits(p, stages, vb) and vb < d
