@@ -60,8 +60,14 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    beside the pass's bound, with K11 there and one pass by column-piece
    width as readings, and K14 and K15 on K13's output there (config4's
    min_size, a (8, 405) table, K14 also on the spiral maze); K12 (the
-   one-launch w5 SLIC) at 8x321x481 with 400 superpixels, K13's loop
-   bit-equal to it, with K11 and K13 there as readings; K16-K18
+   one-launch w5 SLIC, a thread-block cluster an image, its plan on a line
+   of its own) at 8x321x481 with 400 superpixels, K13's loop bit-equal to
+   it, with K11 and K13 there as readings, and at the extremes of the
+   range ``slic_route(h, w, S, "w5")`` admits (8x1052x16 and 8x1422x16 with
+   S = 12,000, 8x1422x127 with S = 10), bit-equal to the plain banded loop
+   and to K13's, two calls bit-equal; K12's path, ``slic_batch(...,
+   plan="w5")`` with the counts set to 0 just before it and read just
+   after, one K12 launch and no other SLIC kernel; K16-K18
    (superpixel sums and counts, with one ``index_add_`` as the library
    call) on the graph stage's own features and connected superpixels at
    config3 (S = 925) and config4's pooled grid (S = 405), and on config3's
@@ -1290,7 +1296,8 @@ def main() -> None:
     h4, w4 = lab4.shape[1:3]
     tag4p = f"config4 pooled 8x{h4}x{w4}"
     sp4 = compare_banded("slic_band_pass", sf.slic_banded, lab4, g4.n_superpixels,
-                         f"{tag4p}, banded loop, 11 pass launches",
+                         f"{tag4p}, banded loop, 11 pass launches, against the plain "
+                         "loop (the parent's, unchanged)",
                          [("slic_w3 (K11)", sf.slic_w3)])
     # K13's pass (labels and partials) and update bit-equal to their plain
     # versions at centroids three plain iterations off the grid; one pass
@@ -1432,11 +1439,59 @@ def main() -> None:
             del feats, spm, rows_m
     torch.cuda.empty_cache()
     lab5 = pl._color_transform(torch.from_numpy(rgb8).to(dev), "lab")
+
+    def w5_plan_line(lab, n_sp, tag):
+        """K12's plan at this batch and frame, on a line of its own."""
+        bsz, h, w, _ = lab.shape
+        plan = sf.slic_w5_plan(h, w, n_sp, bsz, sf.w5_active(h, w, n_sp, dev.index or 0))
+        print(f"phase 3: slic_w5 [{tag}] plan: a thread-block cluster of {plan['ctas']} CTAs "
+              f"an image, {plan['groups']} group(s) of 256 threads a CTA, pieces "
+              f"{plan['cw']} columns wide, {plan['kmax']} pieces a CTA at most, partials in "
+              f"{'shared' if plan['parts_in_smem'] else 'global'} memory, {plan['smem']} B of "
+              f"shared memory a CTA, {plan['active']} clusters held at once, "
+              f"{plan['waves']} wave(s) ({card})", flush=True)
+
     check(sf.slic_route(321, 481, 400, "w5") == "w5", "8x321x481 at 400 superpixels is not w5")
-    compare_banded("slic_w5", sf.slic_w5, lab5, 400, "8x321x481, one cooperative launch",
+    w5_plan_line(lab5, 400, "8x321x481 S=384")
+    compare_banded("slic_w5", sf.slic_w5, lab5, 400, "8x321x481, one cluster launch",
                    [("slic_w3 (K11)", sf.slic_w3), ("slic_banded (K13)", sf.slic_banded)],
                    equal_to=[("slic_banded (K13)", sf.slic_banded)])
-    del lab4, lab5
+    # K12 at the extremes of the range slic_route(h, w, S, "w5") admits: the
+    # most superpixels (1052x16, S = 12,000: 12,432), the most bands
+    # (1422x16, S = 12,000: 474, the partials in the global scratch) and the
+    # most pixels (1422x127, S = 10: 180,594, a width not a multiple of 4)
+    for h5, w5, n5 in ((1052, 16, 12000), (1422, 16, 12000), (1422, 127, 10)):
+        check(sf.slic_route(h5, w5, n5, "w5") == "w5", f"{h5}x{w5} at {n5} is not w5")
+        labx = pl._color_transform(torch.from_numpy(mosaics(8, h5, w5)[0]).to(dev), "lab")
+        tagx = f"8x{h5}x{w5} S={n5}"
+        w5_plan_line(labx, n5, tagx)
+        argsx = (labx, n5, g4.slic_compactness, g4.slic_iters)
+        got, again = sf.slic_w5(*argsx), sf.slic_w5(*argsx)
+        ndiff = int((got != sf.slic_banded_plain(*argsx)).sum())
+        twice = torch.equal(got, again)
+        ndiff13 = int((got != sf.slic_banded(*argsx)).sum())
+        print(f"phase 3: slic_w5 [{tagx}, the range's extreme] {ndiff} pixels differ from the "
+              f"plain banded loop, {ndiff13} from K13's loop, two calls bit-equal {twice}; "
+              f"{timed(lambda: sf.slic_w5(*argsx))[0]:.4f} ms ({card})", flush=True)
+        check(ndiff == 0 and ndiff13 == 0 and twice,
+              f"K12 is not bit-equal to the plain banded loop at {tagx}")
+        del labx, got, again
+    # K12's path: slic_batch(plan="w5"), the reference's entry point to it,
+    # with the counts set to 0 just before and read just after
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    sp5 = sf.slic_batch(lab5, 400, g4.slic_compactness, g4.slic_iters, plan="w5")
+    torch.cuda.synchronize()
+    k12_counts = {name: wrapper.launches for name, wrapper in counters.items()}
+    slic_counts = {n: k12_counts[n] for n in ("slic_w5", "slic_w3", "slic_band_pass",
+                                               "slic_band_update")}
+    print(f"phase 3: slic_batch(plan='w5') [8x321x481] K12's path (counts set to 0 before it, "
+          f"read after): launches {slic_counts} ({card})", flush=True)
+    check(k12_counts["slic_w5"] == 1 and sum(k12_counts.values()) == 1
+          and tuple(sp5.shape) == tuple(lab5.shape[:3]),
+          "slic_batch(plan='w5') did not run as one K12 launch")
+    k12_launches = k12_counts["slic_w5"]
+    del lab4, lab5, sp5
 
     # tiled K1 at config4: against K1 on the whole frames plus pooling (a
     # reading of what the tiling costs), and against the plain tiled path on
@@ -1625,6 +1680,7 @@ def main() -> None:
                      ["slic_w3"] + moments_off + ([] if bf else banded_path[:1]), False))
     totals = {name: 0 for name in counters}
     totals["lloyd_pass"] += k7_launches  # K7's path ran in phase 3
+    totals["slic_w5"] += k12_launches  # and K12's
     outputs = []
     for cfg, rgb, gt, label, path, absent, prep in runs:
         def run():

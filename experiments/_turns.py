@@ -94,7 +94,7 @@ def source(csrc: Path, name: str, edits=()) -> str:
     anywhere and an edit may patch a helper of common.cuh, and each (old,
     new) edit applied; a missing pattern exits."""
     text = (csrc / name).read_text()
-    for inc in ("common.cuh", "slic_common.cuh"):
+    for inc in ("slic_common.cuh", "common.cuh"):  # slic_common.cuh includes common.cuh
         text = text.replace(f'#include "{inc}"', (csrc / inc).read_text())
     for old, new in edits:
         if old not in text:

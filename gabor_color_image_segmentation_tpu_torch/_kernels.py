@@ -45,7 +45,8 @@ _SIGNATURES = {
     "gcis_slic_w3_update": [_P] * 2 + [_I] * 5 + [_P],
     "gcis_slic_band_pass": [_P] * 4 + [_I] * 8 + [_F] * 3 + [_P],
     "gcis_slic_band_update": [_P] * 2 + [_I] * 7 + [_P],
-    "gcis_slic_w5": [_P] * 4 + [_I] * 9 + [_F] * 3 + [_P],
+    "gcis_slic_w5": [_P] * 5 + [_I] * 15 + [_F] * 3 + [_P],
+    "gcis_slic_w5_active_clusters": [_I] * 3 + [_P] * 2,
     "gcis_enforce_connectivity": [_P] * 6 + [_I] * 5 + [_P],
     "gcis_table_lookup": [_P] * 3 + [_I] * 3 + [_P],
     "gcis_gabor_group": [_P] * 8 + [_I] * 10 + [_P],

@@ -9,11 +9,10 @@
 // n_iter passes and updates and a last assignment.
 //
 // K12 replaces models/slic_pallas.py::_slic_all_kernel, the whole-image
-// kernel on the same uniform bands that plan="w5" selects: here one
-// cooperative launch whose blocks stride over the (image, band) pieces, with
-// a grid-wide barrier between the passes and the updates. It runs K13's
-// band and update device functions, so its labels are bit-equal to the
-// banded loop's.
+// kernel on the same uniform bands that plan="w5" selects: here every
+// iteration of an image in one thread-block cluster of an ordinary launch,
+// each CTA owning a fixed run of the image's pieces (below). Its labels are
+// bit-equal to the banded loop's.
 //
 // Both compute models/slic.py::slic_plain's exact-float32 SLIC: the
 // per-pixel score of slic_common.cuh (shared with K11), ties to the lowest
@@ -61,6 +60,46 @@
 //     float32 once and keeping an empty superpixel's centroid.
 // On the Lab of uint8 images the float64 sums are exact, so these orders
 // give the plain version's bits; the order is fixed all the same.
+//
+// K12 runs the whole loop in one launch on the geometry that
+// models/slic_fused.py::slic_w5_plan computes and hands over as an int32
+// table (each CTA copies it into its shared memory):
+//   - one thread-block cluster of `ctas` CTAs an image (16 needs the
+//     non-portable size) in an ordinary launch: images beyond what the card
+//     holds at once run as later waves, since no barrier spans two images.
+//     The bound above is not what holds it: a pass is latency-bound per
+//     SM, and one cluster gives an image at most 16 SMs;
+//   - the image's pieces (bands by column pieces of cw = 128 or 64
+//     columns) in (band, piece) order: CTA r owns pieces first[r] ..
+//     first[r + 1] - 1 for the whole call, and its `groups` groups of 256
+//     threads pass every groups-th of them side by side, each group with
+//     its own scratch and named barrier. A CTA keeps in its shared memory a
+//     table of the hoisted candidates (gcis::Cand) of the grid rows its
+//     pieces' windows reach, all gw columns: never the whole image's
+//     (12,432 superpixels at the range's extreme would not fit one CTA);
+//   - pass (w5_pass): K13's pass transposed: a warp takes 32 neighbouring
+//     pixel columns and each lane walks down its column two rows a step,
+//     so a warp's Lab loads and label stores are contiguous, its candidate
+//     reads nearly broadcasts, and where both rows lie in one cell row
+//     each candidate read feeds two independent score chains. Its
+//     partials, the piece's own window (w_rows x its cell columns x [L, a,
+//     b, y, x, count] float64), go to the CTA's shared memory, double-
+//     buffered by iteration, or, where the plan finds they do not fit
+//     (tall, narrow frames), to a (B, 2, pieces, nmax, 6) scratch in global
+//     memory that stays in the L2; only the last pass writes labels;
+//   - one cluster.sync() an iteration; then each CTA recomputes every
+//     superpixel of its table, one thread each, from the partials of the
+//     pieces whose window holds it, read from their owners' shared memory
+//     (distributed shared memory) or the scratch in (band, column piece)
+//     order, rounding to float32 once and keeping an empty superpixel's
+//     centroid. Every CTA that holds a superpixel adds the same partials in
+//     the same order, so all hold the same bits. Two buffers make one
+//     barrier an iteration enough: a CTA rewrites a buffer only after the
+//     next iteration's barrier, which every reader of it has passed.
+// No grid-wide barrier, and where the partials fit shared memory no partial
+// or centroid goes through global memory. Its pieces' partials are summed
+// in another order than K13's (runs down columns, not along rows); on the
+// Lab of uint8 images the float64 sums are exact, so the bits are the same.
 
 #include <cooperative_groups.h>
 
@@ -74,6 +113,10 @@ constexpr int NT = 256;  // threads per block
 constexpr int NWARP = NT / 32;
 constexpr int MAXC = 128;  // candidates per band window, w_rows * gw
 constexpr int MASKW = MAXC / 32;  // words of a warp's touched-slot mask
+constexpr int MAX_CTAS = 16;  // K12's largest cluster (the non-portable size)
+// K12's dynamic shared memory at most: the 227 KB a block may take, less
+// room for its static piece starts
+constexpr int W5_SMEM_MAX = 227 * 1024 - 1024;
 
 using gcis::Cand;
 using gcis::FULL;
@@ -341,27 +384,302 @@ __global__ void slic_band_update_kernel(const double* __restrict__ parts, float*
   band_update(parts, cent, i / (gh * gw), i % (gh * gw), h, gh, gw, wr, br, nb, ncp);
 }
 
-__global__ void __launch_bounds__(NT) slic_w5_kernel(
-    const float* __restrict__ lab, float* cent, int* labels, double* parts, int nmax, int B,
-    int h, int w, int gh, int gw, int wr, int br, int nb, int cw, int ncp, int run, int n_iter,
-    float fy, float fx, float sw, int vec) {
-  extern __shared__ __align__(16) char smem[];
-  cg::grid_group grid = cg::this_grid();
-  const int per_image = nb * ncp, pieces = B * per_image, n_sp = gh * gw;
-  const int warps = gridDim.x * NWARP, gwarp = blockIdx.x * NWARP + (threadIdx.x >> 5);
-  for (int it = 0; it <= n_iter; ++it) {
-    double* out = it < n_iter ? parts : nullptr;  // the last pass only assigns
-    for (int q = blockIdx.x; q < pieces; q += gridDim.x) {
-      const int r = q % per_image;
-      band_pass(lab, cent, labels, out, smem, nmax, q / per_image, r / ncp, r % ncp, h, w, gh,
-                gw, wr, br, nb, cw, ncp, run, fy, fx, sw, vec != 0);
-    }
-    if (it == n_iter) break;
-    grid.sync();
-    for (int i = gwarp; i < B * n_sp; i += warps)
-      band_update(parts, cent, i / n_sp, i % n_sp, h, gh, gw, wr, br, nb, ncp);
-    grid.sync();
+// The ints of K12's plan table (below).
+__host__ __device__ inline int w5_table_len(int ctas, int gh, int nb, int ncp) {
+  return 3 * ctas + 1 + 2 * gh + nb + 2 * ncp;
+}
+
+// K12's scalars.
+struct W5Geom {
+  int h, w, gh, gw, wr, br, cw;
+  float fy, fx, sw;
+};
+
+// A group's named barrier: K12 runs a pass on one group of NT threads of
+// its CTA.
+__device__ __forceinline__ void group_sync(int bar) {
+  asm volatile("bar.sync %0, %1;" ::"r"(bar), "n"(NT) : "memory");
+}
+
+// Pixel i's Lab.
+__device__ __forceinline__ void lab_at(const float* __restrict__ lb, long i, float& z0,
+                                       float& z1, float& z2) {
+  z0 = lb[3 * i];
+  z1 = lb[3 * i + 1];
+  z2 = lb[3 * i + 2];
+}
+
+// K12's pass of piece (t, cp) of image b by one group of NT threads (named
+// barrier `bar`), with the candidates copied from the CTA's table (grid
+// rows from ty0, gw columns), window rows from rb and cell columns gx_lo ..
+// gx_lo + ncw - 1 (the plan's); labels written when labels is not null
+// and, when parts is not null, the partials of the piece's nloc local
+// candidates written to parts[0 .. 6 nloc). K13's pass transposed: a warp
+// takes 32 neighbouring pixel columns and each lane walks down its column
+// through a run of rows, so the Lab loads and label stores of a warp are
+// contiguous, its lanes read the candidates of at most three cells from
+// shared memory (nearly a broadcast), a lane's cell column is fixed and its
+// id changes only where the run crosses a cell row. A lane takes two rows a
+// step: where both lie in one cell row (nearly always) each candidate read
+// feeds both pixels' scores, two independent chains. A pixel scores its 3x3
+// neighbour cells unrolled, cells past the grid's edge clamped to the edge
+// cell (they repeat a cell scored just before them, and a strict < keeps
+// the first minimum in ascending id, as K13's loop does). The moments go
+// through K13's records, flushes and slots, a record summing its rows.
+__device__ void w5_pass(const float* __restrict__ lab, const Cand* table, int ty0, int* labels,
+                        double* parts, char* smem, int nmax, int b, int t, int cp, int rb,
+                        int gx_lo, int ncw, const W5Geom& g, int bar) {
+  const int tid = threadIdx.x % NT, lane = tid & 31, warp = tid >> 5;
+  const int y0 = t * g.br, y1 = min(g.h, y0 + g.br);
+  const int x0 = cp * g.cw, x1 = min(g.w, x0 + g.cw);
+  const int lo = rb * g.gw, nloc = g.wr * ncw;
+  const long n = (long)g.h * g.w;
+  const float* lb = lab + b * n * 3;
+  int* ob = labels != nullptr ? labels + b * n : nullptr;
+  const bool want = parts != nullptr;
+  Cand* cand = reinterpret_cast<Cand*>(smem);  // (nloc,)
+  Slot* slots = reinterpret_cast<Slot*>(cand + nmax);  // (NWARP, nmax)
+  Rec* stage = reinterpret_cast<Rec*>(slots + NWARP * nmax) + warp * REC * 32;
+  unsigned* masks = reinterpret_cast<unsigned*>(reinterpret_cast<Rec*>(slots + NWARP * nmax) +
+                                                NWARP * REC * 32);  // (NWARP, MASKW)
+  Slot* wslots = slots + warp * nmax;
+  unsigned* wmask = masks + warp * MASKW;
+
+  group_sync(bar);  // the group's previous piece is done with smem
+  for (int j = tid; j < nloc; j += NT) {
+    const int gyr = j / ncw;
+    cand[j] = table[(rb + gyr - ty0) * g.gw + gx_lo + j - gyr * ncw];
   }
+  if (want && tid < NWARP * MASKW) masks[tid] = 0u;  // no slot touched yet
+  group_sync(bar);
+
+  // items: (32-column group, run of rows), a warp each; the column groups
+  // are cut into enough runs to give every warp one
+  const int cgs = (x1 - x0 + 31) / 32, nrows = y1 - y0;
+  const int per = (nrows * cgs + NWARP - 1) / NWARP;  // rows a run
+  const int items = cgs * ((nrows + per - 1) / per);
+  for (int item = warp; item < items; item += NWARP) {  // warp-uniform
+    const int x = x0 + (item % cgs) * 32 + lane;
+    const int ys = y0 + (item / cgs) * per, ye = min(y1, ys + per);
+    const bool col = x < x1;
+    const int cx = gcis::slic_cell_of(x, g.fx, g.gw);
+    const int gx0 = max(cx - 1, 0) - gx_lo, gx1 = min(cx + 1, g.gw - 1) - gx_lo;
+    // the local columns of the 3x3 cells, clamped at the grid's edge
+    const int c0 = gx0, c1 = min(gx0 + 1, gx1), c2 = min(gx0 + 2, gx1);
+    const float z4 = __fmul_rn(g.sw, (float)x);
+    int cur = -1, nrec = 0, sy = 0, cnt = 0;
+    double s0 = 0.0, s1 = 0.0, s2 = 0.0;
+    // pixel (y, x) with Lab z and id s into the run's moments: extend the
+    // open record, or close it and open another
+    auto add = [&](int s, float z0, float z1, float z2, int y) {
+      const bool change = col && s != cur && cnt > 0;
+      if (__any_sync(FULL, change && nrec == REC)) {
+        flush<true>(stage, wslots, wmask, nrec, lane);
+        nrec = 0;
+      }
+      if (change) {
+        stage[nrec * 32 + lane] = Rec{{s0, s1, s2}, cur, x * cnt, cnt, sy};
+        ++nrec;
+        s0 = s1 = s2 = 0.0;
+        sy = cnt = 0;
+      }
+      if (col) {
+        cur = s;
+        s0 += (double)z0;
+        s1 += (double)z1;
+        s2 += (double)z2;
+        sy += y;
+        ++cnt;
+      }
+    };
+    auto label = [&](int y, int s) {
+      if (ob != nullptr) ob[(long)y * g.w + x] = lo + (s / ncw) * g.gw + gx_lo + s % ncw;
+    };
+    for (int y = ys; y < ye; y += 2) {  // two rows a step, the same in every lane
+      const bool two = y + 1 < ye;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, b0 = 0.f, b1 = 0.f, b2 = 0.f;
+      if (col) {
+        lab_at(lb, (long)y * g.w + x, a0, a1, a2);
+        if (two) lab_at(lb, (long)(y + 1) * g.w + x, b0, b1, b2);
+      }
+      const int cya = gcis::slic_cell_of(y, g.fy, g.gh);
+      const int cyb = two ? gcis::slic_cell_of(y + 1, g.fy, g.gh) : cya;
+      const float za = __fmul_rn(g.sw, (float)y), zb = __fmul_rn(g.sw, (float)(y + 1));
+      int sa = -1, sb = -1;
+      if (col) {
+        // the local rows of the 3x3 cells, clamped at the grid's edge
+        int gy0 = max(cya - 1, 0) - rb, gy1 = min(cya + 1, g.gh - 1) - rb;
+        int r0 = gy0 * ncw, r1 = min(gy0 + 1, gy1) * ncw, r2 = min(gy0 + 2, gy1) * ncw;
+        float besta = 0.f, bestb = 0.f;
+        if (cyb == cya) {  // one read of each candidate for both rows
+#pragma unroll
+          for (int k = 0; k < 9; ++k) {  // the 3x3 cells, ascending ids
+            const int j = (k < 3 ? r0 : k < 6 ? r1 : r2) + (k % 3 == 0 ? c0 : k % 3 == 1 ? c1 : c2);
+            const Cand& c = cand[j];
+            const float scorea = gcis::slic_score(c, a0, a1, a2, za, z4);
+            const float scoreb = gcis::slic_score(c, b0, b1, b2, zb, z4);
+            if (k == 0 || scorea < besta) {  // a strict <: the first minimum
+              besta = scorea;
+              sa = j;
+            }
+            if (k == 0 || scoreb < bestb) {
+              bestb = scoreb;
+              sb = j;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 9; ++k) {
+            const int j = (k < 3 ? r0 : k < 6 ? r1 : r2) + (k % 3 == 0 ? c0 : k % 3 == 1 ? c1 : c2);
+            const float score = gcis::slic_score(cand[j], a0, a1, a2, za, z4);
+            if (k == 0 || score < besta) {
+              besta = score;
+              sa = j;
+            }
+          }
+          gy0 = max(cyb - 1, 0) - rb, gy1 = min(cyb + 1, g.gh - 1) - rb;
+          r0 = gy0 * ncw, r1 = min(gy0 + 1, gy1) * ncw, r2 = min(gy0 + 2, gy1) * ncw;
+#pragma unroll
+          for (int k = 0; k < 9; ++k) {
+            const int j = (k < 3 ? r0 : k < 6 ? r1 : r2) + (k % 3 == 0 ? c0 : k % 3 == 1 ? c1 : c2);
+            const float score = gcis::slic_score(cand[j], b0, b1, b2, zb, z4);
+            if (k == 0 || score < bestb) {
+              bestb = score;
+              sb = j;
+            }
+          }
+        }
+        label(y, sa);
+        if (two) label(y + 1, sb);
+      }
+      if (!want) continue;
+      add(sa, a0, a1, a2, y);
+      if (two) add(sb, b0, b1, b2, y + 1);
+    }
+    if (!want) continue;
+    // the run's open record, then the warp's flush
+    if (__any_sync(FULL, cnt > 0 && nrec == REC)) {
+      flush<true>(stage, wslots, wmask, nrec, lane);
+      nrec = 0;
+    }
+    if (cnt > 0) stage[nrec++ * 32 + lane] = Rec{{s0, s1, s2}, cur, x * cnt, cnt, sy};
+    flush<true>(stage, wslots, wmask, nrec, lane);
+  }
+  if (!want) return;
+  group_sync(bar);
+  for (int j = tid; j < nloc; j += NT) {  // the piece's candidates, warp order, touched slots
+    double v0 = 0.0, v1 = 0.0, v2 = 0.0;
+    long sx = 0, sy = 0, c = 0;
+    for (int q = 0; q < NWARP; ++q) {
+      if (!((masks[q * MASKW + (j >> 5)] >> (j & 31)) & 1u)) continue;
+      const Slot& o = slots[q * nmax + j];
+      v0 += o.s[0];
+      v1 += o.s[1];
+      v2 += o.s[2];
+      sx += o.sx;
+      sy += o.sy;
+      c += o.cnt;
+    }
+    double* out = parts + (long)j * 6;
+    out[0] = v0;
+    out[1] = v1;
+    out[2] = v2;
+    out[3] = (double)sy;
+    out[4] = (double)sx;
+    out[5] = (double)c;
+  }
+}
+
+// K12's plan table (int32, slic_fused.w5_layout's "table"): first[0 ..
+// ctas], each CTA's first piece and then the image's piece count; (ctas, 2)
+// the grid rows [ty0, ty1) of each CTA's candidate table; (gh, 2) the bands
+// [t_lo, t_hi] whose window holds each grid row (t_lo > t_hi where none
+// does); (nb,) each band's first window row rb; (ncp, 2) the cell columns
+// [lo, hi] each column piece reaches. Each CTA copies it into its shared
+// memory first. A CTA is NG groups of NT threads; group g passes the CTA's pieces g, g +
+// NG, ... with a scratch and a named barrier (1 + g) of its own.
+template <int NG>
+__global__ void __launch_bounds__(NG * NT, 4 / NG) slic_w5_kernel(
+    const float* __restrict__ lab, const float* __restrict__ cent, int* labels, double* gparts,
+    const int* __restrict__ plan, int P, int kmax, int tmax, int nmax, int nb, int ncp,
+    int n_iter, W5Geom g) {
+  extern __shared__ __align__(16) char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ctas = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int b = blockIdx.y, tid = threadIdx.x, group = tid / NT, gw = g.gw;
+  const bool local = gparts == nullptr;  // partials in shared memory, read through DSMEM
+  double* sparts = reinterpret_cast<double*>(smem);  // (2, kmax, nmax, 6) when local
+  Cand* table = reinterpret_cast<Cand*>(sparts + (local ? 12L * kmax * nmax : 0));  // (nt,)
+  char* scratch = reinterpret_cast<char*>(table + (long)tmax * gw);  // NG band passes'
+  int* first = reinterpret_cast<int*>(scratch + NG * pass_smem(nmax, true));  // the plan
+  const int len = w5_table_len(ctas, g.gh, nb, ncp);
+  for (int e = tid; e < len; e += NG * NT) first[e] = plan[e];
+  scratch += group * pass_smem(nmax, true);  // the group's
+  const int p0 = plan[rank], p1 = plan[rank + 1];
+  const int ty0 = plan[ctas + 1 + 2 * rank], nt = (plan[ctas + 2 + 2 * rank] - ty0) * gw;
+  const int* bands = first + 3 * ctas + 1;
+  const int* rbs = bands + 2 * g.gh;
+  const int* cols = rbs + nb;
+  // piece q's partials of buffer par: in CTA `owner`'s shared memory, or in
+  // the image's global scratch
+  auto slot = [&](int par, int owner, int q) -> double* {
+    if (local)
+      return cluster.map_shared_rank(sparts, owner) + (long)(par * kmax + q - first[owner]) * nmax * 6;
+    return gparts + (((long)b * 2 + par) * P + q) * nmax * 6;
+  };
+
+  for (int e = tid; e < nt; e += NG * NT)
+    table[e] = gcis::slic_cand(cent + ((long)b * g.gh * gw + (long)ty0 * gw + e) * 5, g.sw);
+  __syncthreads();  // the table and the plan are in shared memory
+  for (int it = 0; it <= n_iter; ++it) {
+    const bool last = it == n_iter;  // the last pass only assigns
+    const int par = it & 1;
+    for (int q = p0 + group; q < p1; q += NG) {
+      const int t = q / ncp, cp = q - t * ncp;
+      double* out = last ? nullptr
+                         : (local ? sparts + (long)(par * kmax + q - p0) * nmax * 6
+                                  : slot(par, rank, q));
+      w5_pass(lab, table, ty0, last ? labels : nullptr, out, scratch, nmax, b, t, cp, rbs[t],
+              cols[2 * cp], cols[2 * cp + 1] - cols[2 * cp] + 1, g, 1 + group);
+    }
+    if (last) break;
+    cluster.sync();  // the iteration's barrier: every piece's partials are written
+    for (int e = tid; e < nt; e += NG * NT) {  // the table's new centroids, a thread each
+      const int gy = ty0 + e / gw, gx = e - (e / gw) * gw;
+      // the column pieces whose window holds column gx: a run [cp0, cp1]
+      // (their cell columns are nondecreasing in cp); pieces outside it
+      // hold 0 for this superpixel
+      int cp0 = 0, cp1 = ncp - 1;
+      while (cols[2 * cp0 + 1] < gx) ++cp0;
+      while (cols[2 * cp1] > gx) --cp1;
+      double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+      int owner = 0;
+      for (int t = bands[2 * gy]; t <= bands[2 * gy + 1]; ++t) {  // (band, piece) order
+        for (int cp = cp0; cp <= cp1; ++cp) {
+          const int lo = cols[2 * cp], hi = cols[2 * cp + 1];
+          const int q = t * ncp + cp;
+          while (q >= first[owner + 1]) ++owner;
+          const double2* p = reinterpret_cast<const double2*>(
+              slot(par, owner, q) + ((gy - rbs[t]) * (hi - lo + 1) + gx - lo) * 6);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {  // written by other SMs: past their L1s
+            const double2 v = local ? p[k] : __ldcg(p + k);
+            acc[2 * k] += v.x;
+            acc[2 * k + 1] += v.y;
+          }
+        }
+      }
+      if (acc[5] > 0.0) {
+        const float fc = (float)acc[5];
+        float cs[5];
+#pragma unroll
+        for (int k = 0; k < 5; ++k) cs[k] = __fdiv_rn((float)acc[k], fc);
+        table[e] = gcis::slic_cand(cs, g.sw);
+      }
+    }
+    __syncthreads();  // the table is whole before any group's next pass
+  }
+  cluster.sync();  // no CTA leaves while another may read its shared memory
 }
 
 bool bad_plan(int B, int h, int w, int gh, int gw, int wr, int br, int cw) {
@@ -380,6 +698,60 @@ int vec_rows(const void* lab, const void* labels, int w, int cw) {
 int run_length(int cw, int br) {
   const int tpr = NT / br > 0 ? NT / br : 1;
   return ((cw + tpr - 1) / tpr + 3) / 4 * 4;
+}
+
+// K12's shared memory: the partials' two buffers (when in shared memory),
+// the candidate table, a band pass's scratch for each group and the plan
+// table; mirrored by slic_fused.w5_layout.
+size_t w5_smem(int kmax, int tmax, int gw, int nmax, int groups, bool local, int table_len) {
+  return (local ? sizeof(double) * 12 * kmax * nmax : 0) + sizeof(Cand) * tmax * gw +
+         groups * pass_smem(nmax, true) + sizeof(int) * table_len;
+}
+
+// K12's launch of B images over clusters of `ctas` CTAs of NG groups: the
+// kernel's attributes set, cfg filled (cfg.attrs points at attr).
+template <int NG>
+cudaError_t w5_configure(int B, int ctas, int smem, cudaStream_t s, cudaLaunchConfig_t& cfg,
+                         cudaLaunchAttribute& attr) {
+  cudaError_t err = cudaFuncSetAttribute(slic_w5_kernel<NG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && ctas > 8)
+    err = cudaFuncSetAttribute(slic_w5_kernel<NG>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cfg = {};
+  cfg.gridDim = dim3(ctas, B);
+  cfg.blockDim = dim3(NG * NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ctas;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return err;
+}
+
+template <int NG>
+cudaError_t w5_launch(int B, int ctas, int smem, cudaStream_t s, const float* lab,
+                      const float* cent, int* labels, double* parts, const int* plan, int P,
+                      int kmax, int tmax, int nmax, int nb, int ncp, int n_iter,
+                      const W5Geom& g) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = w5_configure<NG>(B, ctas, smem, s, cfg, attr);
+  if (err != cudaSuccess) return err;
+  return cudaLaunchKernelEx(&cfg, slic_w5_kernel<NG>, lab, cent, labels, parts, plan, P, kmax,
+                            tmax, nmax, nb, ncp, n_iter, g);
+}
+
+template <int NG>
+cudaError_t w5_active(int ctas, int smem, int* out, cudaStream_t s) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = w5_configure<NG>(1, ctas, smem, s, cfg, attr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(out, (const void*)slic_w5_kernel<NG>, &cfg);
 }
 
 }  // namespace
@@ -417,35 +789,53 @@ GCIS_API int gcis_slic_band_update(const double* parts, float* cent, int B, int 
   return (int)cudaGetLastError();
 }
 
-// K12: n_iter passes and updates and the last assignment in one cooperative
-// launch; cent is updated in place, parts is scratch of K13's shape. The
-// grid is as many blocks as fit on the card at once (a grid-wide barrier
-// needs them all resident), at most one per piece.
-GCIS_API int gcis_slic_w5(const float* lab, float* cent, int* labels, double* parts, int B,
-                          int h, int w, int gh, int gw, int wr, int br, int cw, int n_iter,
-                          float fy, float fx, float sw, void* stream) {
-  if (bad_plan(B, h, w, gh, gw, wr, br, cw) || n_iter < 0) return (int)cudaErrorInvalidValue;
-  int nb = (h + br - 1) / br, ncp = (w + cw - 1) / cw;
-  int vec = vec_rows(lab, labels, w, cw), run = run_length(cw, br);
-  int nmax = max_local(w, cw, fx, gw, wr);
-  const size_t smem = pass_smem(nmax, true);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(slic_w5_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, slic_w5_kernel, NT, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int pieces = B * nb * ncp;
-  const int grid = pieces < per_sm * sms ? pieces : per_sm * sms;
-  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&lab, &cent, &labels, &parts, &nmax, &B, &h, &w, &gh, &gw, &wr, &br,
-                  &nb, &cw, &ncp, &run, &n_iter, &fy, &fx, &sw, &vec};
-  err = cudaLaunchCooperativeKernel((const void*)slic_w5_kernel, dim3(grid), dim3(NT), args,
-                                    smem, (cudaStream_t)stream);
+// K12: n_iter passes and updates and the last assignment in one launch of
+// B clusters of `ctas` CTAs of `groups` (1, 2 or 4) groups of NT threads (an
+// ordinary launch: clusters the card cannot hold at once wait for a later
+// wave). lab, cent and labels as K13's; cent is read only. plan: the device
+// copy of slic_w5_plan's int32 table; parts: null when the partials live in
+// shared memory, else a (B, 2, pieces, nmax, 6) float64 scratch. kmax, tmax,
+// nmax and smem are the plan's: the most pieces and table rows of a CTA,
+// the most local candidates of a piece and the dynamic shared memory, each
+// checked here against this file's arithmetic.
+GCIS_API int gcis_slic_w5(const float* lab, const float* cent, int* labels, double* parts,
+                          const int* plan, int B, int h, int w, int gh, int gw, int wr, int br,
+                          int cw, int n_iter, int ctas, int groups, int kmax, int tmax, int nmax,
+                          int smem, float fy, float fx, float sw, void* stream) {
+  if (bad_plan(B, h, w, gh, gw, wr, br, cw) || n_iter < 0 || B > 65535 || ctas < 1 ||
+      ctas > MAX_CTAS || tmax < 1 || (groups != 1 && groups != 2 && groups != 4))
+    return (int)cudaErrorInvalidValue;
+  const int nb = (h + br - 1) / br, ncp = (w + cw - 1) / cw, P = nb * ncp;
+  int most = 0;  // the most pieces a CTA owns: first[r] = r P / ctas
+  for (int r = 0; r < ctas; ++r) most = max(most, (r + 1) * P / ctas - r * P / ctas);
+  if (kmax != most || nmax != max_local(w, cw, fx, gw, wr) ||
+      (size_t)smem !=
+          w5_smem(kmax, tmax, gw, nmax, groups, parts == nullptr, w5_table_len(ctas, gh, nb, ncp)) ||
+      smem > W5_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const W5Geom g{h, w, gh, gw, wr, br, cw, fy, fx, sw};
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err =
+      groups == 1   ? w5_launch<1>(B, ctas, smem, s, lab, cent, labels, parts, plan, P, kmax,
+                                   tmax, nmax, nb, ncp, n_iter, g)
+      : groups == 2 ? w5_launch<2>(B, ctas, smem, s, lab, cent, labels, parts, plan, P, kmax,
+                                   tmax, nmax, nb, ncp, n_iter, g)
+                    : w5_launch<4>(B, ctas, smem, s, lab, cent, labels, parts, plan, P, kmax,
+                                   tmax, nmax, nb, ncp, n_iter, g);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// How many K12 clusters of `ctas` CTAs of `groups` groups with `smem` bytes
+// of dynamic shared memory each the card holds at once (out: one int32 on
+// the host).
+GCIS_API int gcis_slic_w5_active_clusters(int ctas, int groups, int smem, int* out,
+                                          void* stream) {
+  if (ctas < 1 || ctas > MAX_CTAS || smem < 0 || smem > W5_SMEM_MAX ||
+      (groups != 1 && groups != 2 && groups != 4))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(groups == 1   ? w5_active<1>(ctas, smem, out, s)
+               : groups == 2 ? w5_active<2>(ctas, smem, out, s)
+                             : w5_active<4>(ctas, smem, out, s));
 }

@@ -26,7 +26,7 @@ struct Cand {  // a hoisted candidate as a pixel scores it
 
 struct Rec {  // moments of a closed run of one id
   double s[3];
-  int id, sx, cnt, y;
+  int id, sx, cnt, y;  // y: the run's row, or the sum of its rows (flush's SUM_Y)
 };
 
 struct Slot {  // a warp's moments of one candidate
@@ -68,7 +68,10 @@ static __device__ __forceinline__ float slic_score(const Cand& c, float z0, floa
 }
 
 // The warp adds its lanes' staged records (nrec each) into its slots; a
-// slot's first record is stored, and its bit set in the warp's mask.
+// slot's first record is stored, and its bit set in the warp's mask. A
+// record of a run along a row holds the row in y (K11, K13); with SUM_Y, a
+// record of a run down a column holds its rows' sum there (K12).
+template <bool SUM_Y = false>
 static __device__ __forceinline__ void flush(Rec* stage, Slot* slots, unsigned* mask,
                                              int nrec, int lane) {
   __syncwarp();
@@ -85,7 +88,7 @@ static __device__ __forceinline__ void flush(Rec* stage, Slot* slots, unsigned* 
         s1 += q.s[1];
         s2 += q.s[2];
         sx += q.sx;
-        sy += q.y * q.cnt;
+        sy += SUM_Y ? q.y : q.y * q.cnt;
         cnt += q.cnt;
       }
       Slot& o = slots[id];

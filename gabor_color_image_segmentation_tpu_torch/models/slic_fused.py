@@ -17,7 +17,9 @@ so each frame runs the counterpart of the kernel the reference runs there
   ``slic_w3_pass_plain`` and ``slic_w3_update_plain``).
 - K12 ``slic_w5`` (csrc/slic_banded.cu) replaces ``_slic_all_kernel``, the
   whole-image kernel on uniform ``w_rows`` bands that ``plan="w5"``
-  selects under the gate: one cooperative launch for every iteration.
+  selects under the gate: every iteration in one launch, a thread-block
+  cluster an image (``slic_w5_plan``) whose CTAs trade their pieces'
+  partials through distributed shared memory.
 - K13 ``slic_band_pass`` (csrc/slic_banded.cu) replaces ``_slic_kernel``,
   one banded pass per launch, which the reference runs above the gate
   (config4's pooled 540x960 grid): ``slic_banded`` drives n_iter + 1
@@ -511,30 +513,190 @@ def slic_banded(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
 
 
 # ---------------------------------------------------------------------------
-# K12: every iteration on uniform bands in one cooperative launch
+# K12: every iteration on uniform bands in one cluster launch
 # ---------------------------------------------------------------------------
+
+W5_CLUSTERS = (1, 2, 4, 8, 16)  # K12's cluster sizes (16 needs the non-portable size)
+W5_GROUPS = (1, 2, 4)  # K12's groups of 256 threads a CTA, each passing its own pieces
+W5_COLS = (_BAND_COLS, _BAND_COLS // 2)  # K12's column-piece widths
+# K12's launch shapes: (CTAs an image, groups a CTA, column-piece width)
+W5_SHAPES = tuple((c, g, cw) for c in W5_CLUSTERS for g in W5_GROUPS for cw in W5_COLS)
+_W5_SMEM_MAX = 227 * 1024 - 1024  # a K12 CTA's dynamic shared memory at most (W5_SMEM_MAX)
+# csrc/slic_common.cuh's Cand, Slot and Rec, and the pass block's 8 warps
+# (one staged record a lane, 4 words of touched-slot mask each)
+_CAND_BYTES, _SLOT_BYTES, _REC_BYTES, _NWARP = 32, 40, 40, 8
+_W5_PIECE_PIXELS = 512  # a piece's fixed cost a pass in slic_w5_plan's model, in pixels
+_W5_SM_GROUPS = 2  # groups an SM runs at full speed side by side, in that model
+
+
+def _pass_smem(nmax: int) -> int:
+    """csrc/slic_banded.cu's pass_smem(nmax, true)."""
+    return ((_CAND_BYTES + _SLOT_BYTES * _NWARP) * nmax + _REC_BYTES * _NWARP * 32
+            + 4 * _NWARP * 4)
+
+
+def _piece_columns(x0: int, x1: int, fx: np.float32, gw: int) -> Tuple[int, int]:
+    """The cell columns pixel columns [x0, x1) reach, their cells +- 1
+    (csrc/slic_banded.cu's piece_columns, float32 cell arithmetic)."""
+    lo, hi = (min(max(int(np.float32(x) * fx), 0), gw - 1) for x in (x0, x1 - 1))
+    return max(lo - 1, 0), min(hi + 1, gw - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def w5_layout(h: int, w: int, n_superpixels: int, ctas: int, groups: int,
+              cw: int = _BAND_COLS) -> dict:
+    """K12's geometry with clusters of ``ctas`` CTAs an image, each of
+    ``groups`` groups of 256 threads, mirrored by csrc/slic_banded.cu. The
+    image's ``pieces`` (band, column piece) pieces of ``cw`` columns, in
+    that order, are split into runs: CTA r owns pieces
+    ``first[r]`` .. ``first[r + 1] - 1`` (r * pieces // ctas on), and its
+    group g passes the run's pieces g, g + groups, ...
+    It keeps the candidates of grid rows ``rows[r]`` = [ty0, ty1), the
+    windows of its first to its last band, all gw columns. ``bands[gy]`` =
+    (t_lo, t_hi) are the bands whose window holds grid row gy ((n_bands, -1)
+    where none does); ``cols[cp]`` the cell columns piece column cp reaches,
+    so a piece's partials are its ``w_rows * (hi - lo + 1)`` <= ``nmax``
+    local candidates. A CTA's shared memory holds its table (``tmax`` rows
+    at most), a band pass's scratch for each group, the plan's ``table``
+    and, where they fit
+    (``parts_in_smem``), the partials of its pieces (``kmax`` at most) in
+    two buffers: ``smem`` bytes. ``work[r]`` is CTA r's costliest group:
+    its pieces' pixels and ``_W5_PIECE_PIXELS`` a piece. ``table`` is the
+    int32 plan the kernel reads: first, rows, bands, ``rb`` (each band's
+    first window row) and cols, flat."""
+    bp = _band_plan(h, w, n_superpixels)
+    gh, gw, wr, br, nb = (bp[k] for k in ("gh", "gw", "w_rows", "band_rows", "n_bands"))
+    ncp = _n_col_pieces(w, cw)
+    pieces = nb * ncp
+    fx = np.float32(gw / w)
+    cols = tuple(_piece_columns(c * cw, min(w, c * cw + cw), fx, gw) for c in range(ncp))
+    nmax = wr * max(hi - lo + 1 for lo, hi in cols)
+    rb = [max(0, min(t * br * gh // h - 1, gh - wr)) for t in range(nb)]  # the kernel's form
+    first = tuple(r * pieces // ctas for r in range(ctas + 1))
+    owned = tuple(first[r + 1] - first[r] for r in range(ctas))
+    rows = tuple((rb[first[r] // ncp], rb[(first[r + 1] - 1) // ncp] + wr) if owned[r] else (0, 0)
+                 for r in range(ctas))
+    gy = np.arange(gh)[:, None]
+    rba = np.asarray(rb)[None, :]
+    holds = (rba <= gy) & (gy < rba + wr)  # (gh, nb)
+    bands = tuple((int(np.argmax(m)), int(nb - 1 - np.argmax(m[::-1]))) if m.any() else (nb, -1)
+                  for m in holds)
+    piece_px = [(min(h, (q // ncp + 1) * br) - q // ncp * br)
+                * (min(w, (q % ncp + 1) * cw) - q % ncp * cw) for q in range(pieces)]
+    pixels = tuple(sum(piece_px[first[r]:first[r + 1]]) for r in range(ctas))
+    work = tuple(max(sum(px + _W5_PIECE_PIXELS for px in piece_px[first[r] + g:first[r + 1]:groups])
+                     for g in range(groups)) for r in range(ctas))
+    kmax, tmax = max(owned), max(1, max(ty1 - ty0 for ty0, ty1 in rows))
+    table = (first + tuple(v for r in rows for v in r) + tuple(v for t in bands for v in t)
+             + tuple(rb) + tuple(v for c in cols for v in c))
+    base = _CAND_BYTES * tmax * gw + groups * _pass_smem(nmax) + 4 * len(table)
+    part_bytes = 8 * 12 * kmax * nmax
+    parts_in_smem = base + part_bytes <= _W5_SMEM_MAX
+    return dict(h=h, w=w, n_superpixels=n_superpixels, gh=gh, gw=gw, w_rows=wr, band_rows=br,
+                n_bands=nb, n_col_pieces=ncp, pieces=pieces, ctas=ctas, groups=groups, cw=cw,
+                first=first, owned=owned, rows=rows, bands=bands, cols=cols, rb=tuple(rb),
+                nmax=nmax, kmax=kmax, tmax=tmax, pixels=pixels, work=work,
+                parts_in_smem=parts_in_smem,
+                smem=base + (part_bytes if parts_in_smem else 0), table=table)
+
+
+def slic_w5_plan(h: int, w: int, n_superpixels: int, b: int, active: dict) -> dict:
+    """K12's launch for a batch of ``b`` frames: the ``w5_layout`` of the
+    cluster shape chosen, with ``waves`` (clusters run one after another) and
+    ``active`` beside it. ``active[(ctas, groups, cw)]`` is how many
+    clusters of that shape the card holds at once at its shared memory (a GPC
+    holds whole clusters only; 0 or missing: none). Shapes with more CTAs
+    than pieces or whose layout passes the shared memory a CTA may take are
+    out. A CTA's iteration takes as long as its costliest group (``work``)
+    or, when its groups are more than an SM runs at full speed
+    (``_W5_SM_GROUPS``), its whole run's cost shared among those: the shape
+    with the least waves x the costliest CTA wins, the smaller cluster and
+    then the fewer groups and the wider pieces on a tie."""
+    best, best_cost = None, None
+    for shape in W5_SHAPES:
+        n = active.get(shape, 0)
+        lay = w5_layout(h, w, n_superpixels, *shape)
+        if n < 1 or lay["ctas"] > lay["pieces"] or lay["smem"] > _W5_SMEM_MAX:
+            continue
+        waves = -(-b // n)
+        cost = waves * max(max(wk, (px + _W5_PIECE_PIXELS * k) / _W5_SM_GROUPS)
+                           for wk, px, k in zip(lay["work"], lay["pixels"], lay["owned"]))
+        if best_cost is None or cost < best_cost:
+            best, best_cost = dict(lay, waves=waves, active=n), cost
+    _kernels.check(best is not None, f"no K12 cluster shape of {W5_SHAPES} fits the card at "
+                   f"{h}x{w} with {n_superpixels} superpixels (active clusters {active})")
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _w5_active_clusters(ctas: int, groups: int, smem: int, device: int) -> int:
+    out = torch.zeros(1, dtype=torch.int32)
+    with torch.cuda.device(device):
+        _kernels.launch("gcis_slic_w5_active_clusters", ctas, groups, smem, out.data_ptr())
+    return int(out[0])
+
+
+def w5_active(h: int, w: int, n_superpixels: int, device: int) -> dict:
+    """The card's co-resident K12 clusters for each of W5_SHAPES at this
+    frame's layouts (0 for a layout the plan rules out)."""
+    out = {}
+    for ctas, groups, cw in W5_SHAPES:
+        lay = w5_layout(h, w, n_superpixels, ctas, groups, cw)
+        out[(ctas, groups, cw)] = (_w5_active_clusters(ctas, groups, lay["smem"], device)
+                                   if ctas <= lay["pieces"] and lay["smem"] <= _W5_SMEM_MAX
+                                   else 0)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _w5_plan(h: int, w: int, n_superpixels: int, b: int, device: int) -> dict:
+    """slic_w5_plan on the card's co-resident clusters (cached: the plan is
+    host work a call would otherwise repeat)."""
+    return slic_w5_plan(h, w, n_superpixels, b, w5_active(h, w, n_superpixels, device))
+
+
+@functools.lru_cache(maxsize=None)
+def _w5_table(h: int, w: int, n_superpixels: int, shape: tuple, device: str) -> torch.Tensor:
+    return torch.tensor(w5_layout(h, w, n_superpixels, *shape)["table"], dtype=torch.int32,
+                        device=device)
+
+
+def w5_launch(lab: torch.Tensor, cent: torch.Tensor, labels: torch.Tensor, plan: dict,
+              n_iter: int, sw: float) -> None:
+    """One K12 launch on contiguous CUDA tensors: ``labels`` from ``lab``
+    and the seed centroids ``cent`` (read only) under ``plan`` (a
+    ``slic_w5_plan``)."""
+    b, h, w, _ = lab.shape
+    parts = (None if plan["parts_in_smem"] else
+             torch.empty((b, 2, plan["pieces"], plan["nmax"], 6), dtype=torch.float64,
+                         device=lab.device))
+    table = _w5_table(h, w, plan["n_superpixels"], (plan["ctas"], plan["groups"], plan["cw"]),
+                      str(lab.device))
+    _kernels.launch("gcis_slic_w5", lab.data_ptr(), cent.data_ptr(), labels.data_ptr(),
+                    parts.data_ptr() if parts is not None else None, table.data_ptr(), b, h, w,
+                    plan["gh"], plan["gw"], plan["w_rows"], plan["band_rows"], plan["cw"],
+                    n_iter, plan["ctas"], plan["groups"], plan["kmax"], plan["tmax"], plan["nmax"],
+                    plan["smem"], *_scales(h, w, plan, sw))
 
 
 def slic_w5(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
             n_iter: int = 10) -> torch.Tensor:
-    """K12: the banded loop in one persistent launch, its blocks striding
-    over the (image, band) pieces with a grid-wide barrier between the
-    passes and the updates. Labels bit-equal to slic_banded's."""
+    """K12: the banded loop in one launch, a thread-block cluster of
+    ``slic_w5_plan``'s size an image, each CTA passing its own run of the
+    image's pieces and adding the pieces' partials it needs from the other
+    CTAs' shared memory, one cluster barrier an iteration. Labels bit-equal
+    to slic_banded's."""
     _check_lab(lab)
     _kernels.check(n_iter >= 0, f"n_iter must be >= 0, got {n_iter}")
     if _kernels.use_plain(lab):
         return slic_banded_plain(lab, n_superpixels, ruler, n_iter)
     b, h, w, _ = lab.shape
-    bp = _band_plan(h, w, n_superpixels)
+    plan = _w5_plan(h, w, n_superpixels, b, lab.device.index)
     _, _, sw = slic_geometry(h, w, n_superpixels, ruler)
     lab = lab.contiguous()
-    cent = slic_init_centroids(lab, bp["gh"], bp["gw"])  # updated in place
+    cent = slic_init_centroids(lab, plan["gh"], plan["gw"])
     labels = torch.empty((b, h, w), dtype=torch.int32, device=lab.device)
-    parts = torch.empty((b, bp["n_bands"], _n_col_pieces(w, _BAND_COLS),
-                         bp["w_rows"] * bp["gw"], 6), dtype=torch.float64, device=lab.device)
-    _kernels.launch("gcis_slic_w5", lab.data_ptr(), cent.data_ptr(), labels.data_ptr(),
-                    parts.data_ptr(), b, h, w, bp["gh"], bp["gw"], bp["w_rows"],
-                    bp["band_rows"], _BAND_COLS, n_iter, *_scales(h, w, bp, sw))
+    w5_launch(lab, cent, labels, plan, n_iter, sw)
     slic_w5.launches += 1
     return labels
 

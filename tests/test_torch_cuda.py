@@ -702,16 +702,55 @@ def test_slic_band_pass_kernel_odd_widths(device, geometry):
     assert torch.equal(got, sf.slic_w5(lab, n_sp, 10.0, 10))
 
 
-@pytest.mark.parametrize("geometry", [(96, 128, 64), (37, 53, 10), (321, 481, 400)])
-def test_slic_w5_kernel(device, geometry):
-    """K12's one launch bit-equal to the plain banded loop and to K13's."""
-    h, w, n_sp = geometry
-    lab = _lab(device, h, w)
-    got = sf.slic_w5(lab, n_sp, 10.0, 10)
+# K12's cases: (h, w, superpixels, batch, iterations). Small frames; K12's
+# own frame; the extremes of the range slic_route(h, w, S, "w5") admits
+# (S = 12,000 on 1052x16 and 1422x16: 351 and 474 bands, partials in the
+# global scratch; 1422x127 with S = 10: 180,594 pixels, a width not a
+# multiple of 4); 20 images, more than the card holds clusters at once;
+# one image; 0 and 1 iterations
+W5_CASES = {"96x128": (96, 128, 64, 2, 10), "37x53": (37, 53, 10, 2, 10),
+            "k12_frame": (321, 481, 400, 2, 10), "extreme_s": (1052, 16, 12000, 2, 10),
+            "extreme_bands": (1422, 16, 12000, 2, 10), "extreme_pixels": (1422, 127, 10, 2, 10),
+            "batch_20": (321, 481, 400, 20, 10), "batch_1": (321, 481, 400, 1, 10),
+            "no_iteration": (321, 481, 400, 2, 0), "one_iteration": (321, 481, 400, 2, 1)}
+
+
+@pytest.mark.parametrize("case", list(W5_CASES))
+def test_slic_w5_kernel(device, case):
+    """K12's one launch bit-equal to the plain banded loop and to K13's, two
+    calls bit-equal, one launch a call."""
+    h, w, n_sp, b, n_iter = W5_CASES[case]
+    lab = _lab(device, h, w, b)
+    before = sf.slic_w5.launches
+    got = sf.slic_w5(lab, n_sp, 10.0, n_iter)
+    again = sf.slic_w5(lab, n_sp, 10.0, n_iter)
     torch.cuda.synchronize()
-    assert torch.equal(got, sf.slic_banded_plain(lab, n_sp, 10.0, 10))
-    assert torch.equal(got, sf.slic_banded(lab, n_sp, 10.0, 10))
-    assert torch.equal(sf.slic_batch(lab, n_sp, 10.0, 10, plan="w5"), got)
+    assert sf.slic_w5.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, sf.slic_banded_plain(lab, n_sp, 10.0, n_iter))
+    assert torch.equal(got, sf.slic_banded(lab, n_sp, 10.0, n_iter))
+    assert torch.equal(sf.slic_batch(lab, n_sp, 10.0, n_iter, plan="w5"), got)
+
+
+@pytest.mark.parametrize("case", ["k12_frame", "extreme_bands", "extreme_pixels"])
+def test_slic_w5_every_shape(device, case):
+    """Every cluster shape the card holds (CTAs an image, groups, piece
+    width; partials in shared or global memory) gives the plain loop's
+    labels."""
+    h, w, n_sp, b, n_iter = W5_CASES[case]
+    lab = _lab(device, h, w, b).contiguous()
+    ref = sf.slic_banded_plain(lab, n_sp, 10.0, n_iter)
+    active = sf.w5_active(h, w, n_sp, device.index or 0)
+    gh, gw, sw = sl.slic_geometry(h, w, n_sp, 10.0)
+    cent = sl.slic_init_centroids(lab, gh, gw)
+    shapes = [shape for shape in sf.W5_SHAPES if active[shape] > 0]
+    assert shapes
+    for shape in shapes:
+        plan = sf.slic_w5_plan(h, w, n_sp, b, {shape: active[shape]})
+        labels = torch.empty_like(ref)
+        sf.w5_launch(lab, cent, labels, plan, n_iter, sw)
+        torch.cuda.synchronize()
+        assert torch.equal(labels, ref), shape
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
