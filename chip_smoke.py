@@ -46,7 +46,10 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    beside its bound; K11 (SLIC: labels equal to ``slic_plain`` on every
    pixel and two launches bit-equal at config3, at batch 1 and on a frame
    of one grid row; one pass with partials and one update bit-equal to
-   their plain versions, each timed beside its bound), K14 (connectivity,
+   their plain versions, each timed beside its bound; and ``slic_batch`` on a frame whose band plan
+   misses a band's candidate rows, 8x1288x481 with config3's S = 900, with
+   the counts set to 0 just before it and read just after: K11 launched
+   once, no K12 or K13, labels equal to ``slic_plain``'s), K14 (connectivity,
    on K11's output, on a
    fragmented random map, on the spiral maze with its kept block in a
    corner and on a map with no surviving component, each with the union-
@@ -95,14 +98,25 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    path on the card (for the graph stage, with both paths handed the same
    energies, see GRAPH_NOTE; for config2 with the switch on, with the
    switch off);
-   the Rand index against the mosaics' ground truth (a reading, not a
-   gate); the eight 4K mosaics (bench seeds 100-107) are made on the host
+   the Rand index against the mosaics' ground truth (the port's
+   ``metrics.pri.rand_index_np``; a reading, not a gate); the eight 4K mosaics (bench seeds 100-107) are made on the host
    in worker processes while the kernels build, outside any timed window;
 5. where the time goes: ``torch.profiler`` tables of one config1 call,
    one config2 bf16 call with ``_FUSED_PREP`` off and one with it on, one
    config3 call in each dtype and one config4 bf16 call (the full tables go
    to ``out_dir``);
-6. a JSON line of the kernels (time, plain time, bound, library call), then
+6. the evaluation surface: ``eval.evaluate`` on the card over
+   ``load_split("test", limit=8)`` (eight synthetic 321x481 mosaics with
+   three ground truths each) at config1 bf16 (one batch of 8; K1, K3, K2
+   launched) and config0 f32 (batch 1; K1, K4, K2 launched), no image
+   failed, every row's metrics equal to the host metrics of
+   ``segment_images``' labels for the same batches (recomputed in worker
+   processes), the tensor metrics on the card (Rand index, VoI, covering,
+   dilated boundary F) against the host ones on those labels; mean PRI,
+   boundary F and the loop's MP/s as readings; then the CLI's ``info
+   --preset config1`` and ``run --preset config0 --device cuda``, their
+   JSON checked;
+7. a JSON line of the kernels (time, plain time, bound, library call), then
    the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances (also in the tests): energies <= 1e-4 * peak (f32), <= 2e-2 *
@@ -137,7 +151,9 @@ plain version on well-conditioned moments); K7's pass labels equal on
 plain pass; K16-K18 every value equal to the plain version in bf16 (float64
 sums of bf16 values are exact), within one ulp in f32, counts equal, and two
 launches bit-equal; end-to-end labels
-after alignment >= 0.999 (f32) / >= 0.99 (bf16).
+after alignment >= 0.999 (f32) / >= 0.99 (bf16); the card's Rand index,
+VoI and covering within 1e-12 of the host metrics, its dilated boundary F
+equal to the host form's.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move (each
 input read once, each output written once) over 3.35 TB/s and its
@@ -202,19 +218,19 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def rand_index(pred: np.ndarray, gt: np.ndarray) -> float:
-    """Rand index of two label maps from their contingency table (the
-    formula of the reference's metrics/pri.py, which loads JAX)."""
-    pred, gt = pred.reshape(-1).astype(np.int64), gt.reshape(-1).astype(np.int64)
-    kg = int(gt.max()) + 1
-    cont = np.bincount(pred * kg + gt, minlength=(int(pred.max()) + 1) * kg)
-    cont = cont.reshape(-1, kg).astype(np.float64)
+def host_metrics(labels: np.ndarray, gts: list) -> dict:
+    """The port's host metrics of one label map against its ground truths,
+    as eval.evaluate's rows name them (run in worker processes in phase 6)."""
+    from gabor_color_image_segmentation_tpu_torch.metrics.boundary import fboundary_np
+    from gabor_color_image_segmentation_tpu_torch.metrics.pri import pri_np
+    from gabor_color_image_segmentation_tpu_torch.metrics.region import (
+        mean_covering_np,
+        mean_voi_np,
+    )
 
-    def pairs(x):
-        return float((x * (x - 1)).sum() / 2.0)
-
-    total = pred.size * (pred.size - 1) / 2.0
-    return (total + 2.0 * pairs(cont) - pairs(cont.sum(1)) - pairs(cont.sum(0))) / total
+    p, r, f = fboundary_np(labels, gts)
+    return {"pri": pri_np(labels, gts), "precision": p, "recall": r, "f_boundary": f,
+            "voi": mean_voi_np(labels, gts), "covering": mean_covering_np(labels, gts)}
 
 
 def bound(nbytes: float, flops: float):
@@ -245,6 +261,7 @@ def main() -> None:
         connectivity_maze,
         synthetic_mosaic,
     )
+    from gabor_color_image_segmentation_tpu_torch.metrics.pri import rand_index_np
     from gabor_color_image_segmentation_tpu_torch.models import chol
     from gabor_color_image_segmentation_tpu_torch.models import connectivity as cn
     from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
@@ -1176,6 +1193,30 @@ def main() -> None:
           f"included), bound {upd_b[0]:.5f} ms ({upd_b[1]}) ({card})", flush=True)
     check(pass_ok and up_ok, "K11's pass or update is not bit-equal to its plain version")
     del spk2, lab_row, lk3, pk3, lp3, pp3, cent3
+    # a frame whose band plan misses a band's candidate rows (config3's
+    # S = 900 on 1288x481): slic_batch, with the counts set to 0 just before
+    # it and read just after, runs K11 alone, labels equal to slic_plain's
+    f12 = (1288, 481, 900)
+    check(sf.slic_route(*f12) == "w3" and not sf.band_plan_ok(*f12),
+          "1288x481 at S = 900 does not route to K11")
+    lab12 = pl._color_transform(torch.from_numpy(mosaics(8, *f12[:2])[0]).to(dev), "lab")
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    sp12 = sf.slic_batch(lab12, f12[2], g3.slic_compactness, g3.slic_iters)
+    torch.cuda.synchronize()
+    f12_counts = {name: counters[name].launches for name in ("slic_w3", "slic_band_pass",
+                                                              "slic_band_update", "slic_w5")}
+    ndiff = int((sp12 != sl.slic_plain(lab12, f12[2], g3.slic_compactness,
+                                       g3.slic_iters)).sum())
+    check(f12_counts["slic_w3"] == 1 and sum(f12_counts.values()) == 1 and ndiff == 0,
+          "slic_batch at 8x1288x481, S = 900, did not run as K11 alone, bit-equal to slic_plain")
+    f12_launches = f12_counts["slic_w3"]
+    print(f"phase 3: slic_batch [8x1288x481 S=900, a band plan that misses candidate rows] "
+          f"launches {f12_counts} (counts set to 0 before it, read after), {ndiff} pixels "
+          f"differ from slic_plain; "
+          f"{timed(lambda: sf.slic_batch(lab12, f12[2], g3.slic_compactness, g3.slic_iters))[0]:.4f}"
+          f" ms (a reading) ({card})", flush=True)
+    del lab12, sp12
 
     # K14 on K11's output (the main path's input), on a fragmented map, on
     # the spiral maze (a corridor ~h * w / 2 long, the kept block in a
@@ -1681,6 +1722,7 @@ def main() -> None:
     totals = {name: 0 for name in counters}
     totals["lloyd_pass"] += k7_launches  # K7's path ran in phase 3
     totals["slic_w5"] += k12_launches  # and K12's
+    totals["slic_w3"] += f12_launches  # and K11's on the missed-band frame
     outputs = []
     for cfg, rgb, gt, label, path, absent, prep in runs:
         def run():
@@ -1791,7 +1833,7 @@ def main() -> None:
                   f"energies, min aligned agreement {min(each):.6f} (floor {floor}; per "
                   f"image {[round(v, 6) for v in each]})", flush=True)
         check(min(each) >= floor, f"{label}: kernel path disagrees with the plain path")
-        pri = [rand_index(out[i].numpy(), gt[i]) for i in range(len(gt))]
+        pri = [rand_index_np(out[i].numpy(), gt[i]) for i in range(len(gt))]
         print(f"phase 4: {label}: Rand index against the mosaics' ground truth, "
               f"mean {statistics.mean(pri):.4f}, min {min(pri):.4f} (a reading; "
               f"the gate is the agreement above)", flush=True)
@@ -1824,6 +1866,107 @@ def main() -> None:
               f"{device_ms:.2f} ms of {wall:.2f} ms host to host, idle share "
               f"{1 - device_ms / wall:.3f}")
         print(table, flush=True)
+
+    # ---- phase 6: the evaluation surface ----------------------------------
+    import io
+
+    from gabor_color_image_segmentation_tpu_torch import cli
+    from gabor_color_image_segmentation_tpu_torch import eval as ev
+    from gabor_color_image_segmentation_tpu_torch.metrics import boundary as mb
+    from gabor_color_image_segmentation_tpu_torch.metrics import pri as mpri
+    from gabor_color_image_segmentation_tpu_torch.metrics import region as mreg
+
+    t6 = time.perf_counter()
+    split = ev.load_split("test", limit=8)
+    check(len(split) == 8 and all(rgb.shape == (321, 481, 3) and len(gts) == 3
+                                  for _, rgb, gts in split),
+          "load_split('test', limit=8) did not give eight 321x481 images with 3 ground truths")
+    tol6 = mb.default_tolerance(321, 481)
+    cells6 = (("config1 bf16 batch 8", cfg1.replace(batch_size=8),
+               ["gabor_energies_fused", "kmeans_coarse_centers_xp", "lloyd_chw_pass"]),
+              ("config0 f32 batch 1", cfg0,
+               ["gabor_energies_fused", "maximin_chw_pass", "lloyd_chw_pass"]))
+    # the rows' host metrics, recomputed from segment_images' labels for the
+    # same batches in worker processes after each evaluation (the optimal
+    # matcher, scipy's maximum_bipartite_matching, takes ~100 s on one
+    # ground truth of one of these images at config0, in the loop and again
+    # here; checking beside the loop took no less on the card and slowed the
+    # loop's reading)
+    checkers = ProcessPoolExecutor(max_workers=len(split),
+                                   mp_context=multiprocessing.get_context("spawn"))
+    evals = []
+    for label, cfg, path in cells6:
+        rows_path = os.path.join(out_dir, f"eval_{label.split()[0]}.jsonl")
+        if os.path.exists(rows_path):
+            os.remove(rows_path)
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        summary = ev.evaluate(split, cfg, out_path=rows_path, device="cuda")
+        counts = {name: counters[name].launches for name in path}
+        with open(rows_path) as f:
+            rows = [json.loads(line) for line in f]
+        check(summary["n_failed"] == 0 and summary["n_images"] == len(rows) == len(split),
+              f"phase 6 {label}: {summary['n_failed']} of {summary['n_images']} images failed")
+        for name in path:
+            check(counts[name] > 0, f"{name} was never launched on the {label} evaluation")
+            totals[name] += counts[name]
+        labels = np.concatenate([
+            pl.segment_images(np.stack([c[1] for c in chunk]), cfg, device="cuda").cpu().numpy()
+            for chunk in ev._batches(split, cfg.batch_size)])
+        futures = [checkers.submit(host_metrics, labels[i], split[i][2])
+                   for i in range(len(split))]
+        # the tensor metrics on the card against the host ones, on these labels
+        errs = {"rand_index": 0.0, "voi": 0.0, "covering": 0.0, "f_boundary (dilated)": 0.0}
+        for lab_i, (_, _, gts) in zip(labels, split):
+            lab_d = torch.from_numpy(lab_i).to(dev)
+            for g in gts:
+                g_d = torch.from_numpy(g).to(dev)
+                n_p, n_g = cfg.cluster.k, int(g.max()) + 1
+                for key, fn, ref in (("rand_index", mpri.rand_index_torch, mpri.rand_index_np),
+                                     ("voi", mreg.voi_torch, mreg.voi_np),
+                                     ("covering", mreg.covering_torch, mreg.covering_np)):
+                    errs[key] = max(errs[key], abs(fn(lab_d, g_d, n_p, n_g).item()
+                                                   - ref(lab_i, g)))
+                got = mb.fboundary_torch(lab_d, g_d, tol6).tolist()
+                want = mb.fboundary_dilated_np(lab_i, g, tol6)
+                errs["f_boundary (dilated)"] = max(errs["f_boundary (dilated)"],
+                                                   *(abs(a - b) for a, b in zip(got, want)))
+        print(f"phase 6: {label} metrics on the card against the host ones, max abs "
+              f"difference { {k: float(f'{v:.3e}') for k, v in errs.items()} } (bounds "
+              f"1e-12, dilated F 0) ({card})", flush=True)
+        check(max(errs["rand_index"], errs["voi"], errs["covering"]) <= 1e-12
+              and errs["f_boundary (dilated)"] == 0,
+              f"phase 6 {label}: the card's tensor metrics disagree with the host ones")
+        evals.append((label, summary, rows, labels, futures, counts))
+    for label, summary, rows, labels, futures, counts in evals:
+        for row, fut, (image_id, _, _), lab_i in zip(rows, futures, split, labels):
+            want = fut.result()
+            want.update(id=image_id, n_regions=int(len(np.unique(lab_i))))
+            check(row == want, f"phase 6 {label}: row {image_id} {row} is not the host "
+                  f"metrics of segment_images' labels {want}")
+        print(f"phase 6: {label} eval.evaluate over load_split('test', limit=8) on the card: "
+              f"n_failed {summary['n_failed']}, every row equal to the host metrics of "
+              f"segment_images' labels; launches {counts}; readings: mean PRI "
+              f"{summary['mean_pri']:.4f}, mean boundary F {summary['mean_f_boundary']:.4f}, "
+              f"mean VoI {summary['mean_voi']:.4f}, mean covering "
+              f"{summary['mean_covering']:.4f}, the loop's {summary['mp_per_s']:.3f} MP/s "
+              f"(host metrics included, {summary['wall_s']:.2f} s) ({card})", flush=True)
+    checkers.shutdown()
+    outs = []
+    for argv in (["info", "--preset", "config1"], ["run", "--preset", "config0", "--device",
+                                                   "cuda"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        outs.append(json.loads(buf.getvalue()))
+    info, run = outs
+    check(info["preset"] == "config1" and info["n_kernels"] == 80
+          and info["feature_dim"] == 243, f"cli info: {info}")
+    check(run["shape"] == [321, 481] and 1 <= run["n_regions"] <= 5
+          and run["preset"] == "config0", f"cli run: {run}")
+    print(f"phase 6: cli info --preset config1: {info['n_kernels']} kernels, feature_dim "
+          f"{info['feature_dim']}; cli run --preset config0 --device cuda: {run}; phase 6 "
+          f"took {time.perf_counter() - t6:.1f} s ({card})", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -1,6 +1,7 @@
 """Seeded texture mosaics with exact ground truth (the port's numpy copy of
-the JAX package's data/synthetic.py::synthetic_mosaic, bit-identical
-output; the tests hold it to that).
+the JAX package's data/synthetic.py: ``synthetic_mosaic``,
+``synthetic_mosaic_multigt`` and ``synthetic_dataset``, bit-identical
+output; the tests hold them to that).
 
 Each Voronoi region gets a distinct base colour plus an oriented sinusoidal
 texture, the signal family a Gabor + colour pipeline separates.
@@ -61,6 +62,78 @@ def synthetic_mosaic(
     img += rng.normal(0.0, noise, img.shape)
     img = np.clip(img, 0.0, 1.0)
     return (img * 255.0 + 0.5).astype(np.uint8), gt
+
+
+def synthetic_mosaic_multigt(
+    h: int = 321,
+    w: int = 481,
+    n_regions: int = 5,
+    seed: int = 0,
+    n_gts: int = 3,
+    texture_strength: float = 0.25,
+    noise: float = 0.02,
+) -> tuple[np.ndarray, list[np.ndarray]]:
+    """Mosaic with ground truths that disagree in granularity, as BSDS's
+    human segmentations do.
+
+    A fine Voronoi partition of 2 * n_regions cells, each cell given one of
+    n_regions appearance classes (colour + texture). The ground truths:
+    gt[0] the appearance classes (the exact truth), gt[1] the fine cells
+    (an over-segmenting human), gt[2] the classes merged in pairs (a coarse
+    human), and further ones alternative cell -> class merges.
+
+    Returns (rgb uint8, [gts] of length n_gts)."""
+    rng = np.random.default_rng(seed)
+    m = 2 * n_regions
+    cells = _voronoi_labels(h, w, m, rng)
+    # every class present; remaining cells assigned pseudo-randomly
+    cls_of_cell = np.concatenate(
+        [np.arange(n_regions), rng.integers(0, n_regions, m - n_regions)]
+    ).astype(np.int32)
+    rng.shuffle(cls_of_cell)
+    gt_exact = cls_of_cell[cells]
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.zeros((h, w, 3), dtype=np.float64)
+    hues = np.linspace(0.0, 1.0, n_regions, endpoint=False)
+    rng.shuffle(hues)
+    for r in range(n_regions):
+        base = _hsv_to_rgb(hues[r], 0.55, 0.75)
+        theta = rng.uniform(0, np.pi)
+        freq = rng.uniform(0.06, 0.22)
+        phase = rng.uniform(0, 2 * np.pi)
+        tex = np.sin(2 * np.pi * freq * (xx * np.cos(theta) + yy * np.sin(theta)) + phase)
+        msk = gt_exact == r
+        for c in range(3):
+            img[:, :, c][msk] = base[c] + texture_strength * tex[msk]
+    img += rng.normal(0.0, noise, img.shape)
+    img = np.clip(img, 0.0, 1.0)
+    rgb = (img * 255.0 + 0.5).astype(np.uint8)
+
+    gts = [gt_exact]
+    if n_gts > 1:
+        gts.append(cells.astype(np.int32))
+    if n_gts > 2:
+        gts.append((gt_exact // 2).astype(np.int32))
+    for g in range(3, n_gts):
+        merge = (cls_of_cell + g) % max(2, n_regions - 1)
+        gts.append(merge[cells].astype(np.int32))
+    return rgb, gts[:n_gts]
+
+
+def synthetic_dataset(
+    n_images: int,
+    h: int = 321,
+    w: int = 481,
+    n_regions: int = 5,
+    seed: int = 0,
+    n_gts: int = 3,
+):
+    """Yield (image_id, rgb, [gt variants]) for seeds seed .. seed +
+    n_images - 1 (``synthetic_mosaic_multigt``)."""
+    for i in range(n_images):
+        rgb, gts = synthetic_mosaic_multigt(h, w, n_regions, seed=seed + i, n_gts=n_gts)
+        yield f"synth{i:04d}", rgb, gts
 
 
 def spiral_path(h: int, w: int) -> np.ndarray:

@@ -365,15 +365,14 @@ def _segment_batch_transposed(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> t
 
 def _resolve_device(device) -> torch.device:
     """``None`` means the card; no path moves to the CPU by itself."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "segment_batch runs on the NVIDIA card by default and found none "
             "(torch.cuda.is_available() is False); pass device=\"cpu\" to run "
             "the plain PyTorch versions on the CPU"
         )
-    return torch.device("cuda")
+    return dev
 
 
 def segment_batch(

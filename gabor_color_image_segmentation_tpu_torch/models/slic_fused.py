@@ -144,7 +144,9 @@ def slic_route(h: int, w: int, n_superpixels: int, plan: str = "auto") -> str:
     uniform-band plan is K13, and an explicit plan raises (the banded loop
     is plan-free). Where the reference has no kernel (a w3-only frame above
     the gate, a grid too wide for any window) it runs its XLA ``slic``,
-    and K11, which has the same semantics and no window, runs here.
+    and K11, which has the same semantics and no window, runs here. K11
+    also takes a banded or w5 frame whose band plan misses a band's
+    candidate rows (``band_plan_ok`` False), for "auto" and "w5" alike.
 
     The choice mirrors the reference's kernel choice; it is not a policy
     for the GPU. The gate is sized on the TPU's packed bf16x3 image in
@@ -162,28 +164,55 @@ def slic_route(h: int, w: int, n_superpixels: int, plan: str = "auto") -> str:
                              "cols exceed the 128-candidate window; w3-only plan)")
         return "w3"
     if _fits_gate(bp):
-        return "w5" if plan == "w5" else "w3"
-    if plan != "auto":
+        route = "w5" if plan == "w5" else "w3"
+    elif plan != "auto":
         raise ValueError(f"plan={plan!r} requested but image ({h}x{w}) exceeds the "
                          "whole-image fuse gate; the banded loop is plan-free: pass "
                          "plan='auto'")
-    return "banded"
+    else:
+        route = "banded"
+    # a band plan whose window misses a band's candidate rows: K11, with no
+    # window, where the reference runs its kernel with the missing row
+    # penalised or (f32, off the TPU) its XLA slic
+    return route if route == "w3" or band_plan_ok(h, w, n_superpixels) else "w3"
 
 
-@functools.lru_cache(maxsize=None)
-def _band_plan(h: int, w: int, n_superpixels: int) -> dict:
-    """The uniform-band plan of K12 and K13, checked: every pixel's
-    candidate rows (its float32 cell row +- 1) lie in its band's window.
-    Cached: the check runs on the host, once a geometry."""
+def _band_missing_rows(h: int, w: int, n_superpixels: int) -> Optional[int]:
+    """The first band of the uniform-band plan whose window misses one of
+    its pixels' candidate rows (their float32 cell row +- 1), or None when
+    every band holds them. The plan's ``rb`` is the reference's float64
+    ``int(y0 * gh / h) - 1``; where y0 * gh / h is an exact integer the
+    float32 cell can fall a row short of it (1288x481 at S = 900, band 23)."""
     bp = slic_plan(h, w, n_superpixels)
-    _kernels.check(bp is not None and bp["w_rows"] > 0,
-                   f"no uniform-band SLIC plan at {h}x{w} with {n_superpixels} superpixels")
     gh, wr, br = bp["gh"], bp["w_rows"], bp["band_rows"]
     cy = cell_index(h, gh, "cpu").numpy()
     for t, rb in enumerate(bp["rb"]):
         rows = cy[t * br:(t + 1) * br]
-        _kernels.check(max(int(rows.min()) - 1, 0) >= rb and min(int(rows.max()) + 1, gh - 1)
-                       < rb + wr, f"band {t} of the SLIC plan misses candidate rows")
+        if not (max(int(rows.min()) - 1, 0) >= rb and min(int(rows.max()) + 1, gh - 1) < rb + wr):
+            return t
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def band_plan_ok(h: int, w: int, n_superpixels: int) -> bool:
+    """Whether the frame has a uniform-band plan (K12, K13) whose every
+    band's window holds its pixels' candidate rows. Cached: the check runs
+    on the host, once a geometry."""
+    bp = slic_plan(h, w, n_superpixels)
+    return (bp is not None and bp["w_rows"] > 0
+            and _band_missing_rows(h, w, n_superpixels) is None)
+
+
+@functools.lru_cache(maxsize=None)
+def _band_plan(h: int, w: int, n_superpixels: int) -> dict:
+    """The uniform-band plan of K12 and K13, checked (``band_plan_ok``);
+    raises where a direct ``slic_banded`` or ``slic_w5`` call meets a frame
+    that ``slic_route`` sends to K11."""
+    bp = slic_plan(h, w, n_superpixels)
+    _kernels.check(bp is not None and bp["w_rows"] > 0,
+                   f"no uniform-band SLIC plan at {h}x{w} with {n_superpixels} superpixels")
+    t = _band_missing_rows(h, w, n_superpixels)
+    _kernels.check(t is None, f"band {t} of the SLIC plan misses candidate rows")
     return bp
 
 

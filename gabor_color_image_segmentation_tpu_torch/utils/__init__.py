@@ -1,1 +1,2 @@
-"""Utilities of the port: label alignment for parity checks."""
+"""Utilities of the port: label maps, the native boundary matcher's build
+and loading, and visualisation."""

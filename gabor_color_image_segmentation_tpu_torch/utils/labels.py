@@ -1,9 +1,21 @@
-"""Label-map alignment (the port's numpy/scipy copy of the JAX package's
-utils/labels.py::align_labels)."""
+"""Label-map utilities (the port's numpy/scipy copy of the JAX package's
+utils/labels.py): contiguous relabelling, optimal permutation alignment
+for parity checks, agreement rates."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def relabel_contiguous(labels: np.ndarray) -> np.ndarray:
+    """Map label values to 0..K-1 in order of first appearance."""
+    flat = labels.reshape(-1)
+    _, first_idx, inv = np.unique(flat, return_index=True, return_inverse=True)
+    # np.unique sorts values; re-rank them by first appearance for determinism
+    order = np.argsort(first_idx, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.size)
+    return rank[inv].reshape(labels.shape).astype(np.int32)
 
 
 def align_labels(pred: np.ndarray, ref: np.ndarray, k: int | None = None) -> np.ndarray:
@@ -19,3 +31,8 @@ def align_labels(pred: np.ndarray, ref: np.ndarray, k: int | None = None) -> np.
     mapping = np.arange(kk)
     mapping[row] = col
     return mapping[pred].astype(np.int32)
+
+
+def agreement_rate(a: np.ndarray, b: np.ndarray) -> float:
+    """Fraction of pixels with equal labels (after your own alignment)."""
+    return float((a.reshape(-1) == b.reshape(-1)).mean())

@@ -131,6 +131,23 @@ def test_port_imports_without_jax():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300)
 
 
+EVALUATION_SURFACE = ("metrics", "metrics.boundary", "metrics.pri", "metrics.region",
+                      "data.bsds", "eval", "cli", "utils.native", "utils.visualize")
+
+
+def test_import_checks_cover_the_evaluation_surface():
+    """The fresh-interpreter check and the AST scan reach the metrics, the
+    BSDS loader, eval, the CLI, the native matcher's loader and the
+    visualisation, and the scan reaches chip_smoke.py."""
+    modules = _port_modules()
+    scanned = {str(p.relative_to(PORT.parent)) for p in PORT.rglob("*.py")}
+    for name in EVALUATION_SURFACE:
+        assert f"gabor_color_image_segmentation_tpu_torch.{name}" in modules, name
+        path = "gabor_color_image_segmentation_tpu_torch/" + name.replace(".", "/")
+        assert f"{path}.py" in scanned or f"{path}/__init__.py" in scanned, name
+    assert (PORT.parent / "chip_smoke.py").exists()
+
+
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(PORT.parent))
                                         for p in [*PORT.rglob("*.py"),
                                                   PORT.parent / "chip_smoke.py"]))

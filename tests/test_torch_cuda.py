@@ -608,6 +608,21 @@ def test_slic_kernel(device, geometry):
     assert (got == ref).float().mean(dim=(1, 2)).min() >= 0.999
 
 
+def test_slic_batch_missed_band_frame_runs_k11(device):
+    """config3's S = 900 on a 1288x481 frame, whose band plan misses a
+    band's candidate rows: slic_batch runs K11 alone, 0 pixels differ from
+    slic_plain."""
+    assert sf.slic_route(1288, 481, 900) == "w3"
+    lab = _lab(device, 1288, 481)
+    counts = (sf.slic_w3.launches, sf.slic_band_pass.launches, sf.slic_w5.launches)
+    got = sf.slic_batch(lab, 900, 5.0, 10)
+    ref = sl.slic_plain(lab, 900, 5.0, 10)
+    torch.cuda.synchronize()
+    assert (sf.slic_w3.launches - counts[0], sf.slic_band_pass.launches - counts[1],
+            sf.slic_w5.launches - counts[2]) == (1, 0, 0)
+    assert int((got != ref).sum()) == 0
+
+
 # K11's geometries: config3's frame and batch; a frame with one grid row
 # (gh < 3) and one with one grid column; a frame smaller than one tile;
 # ragged tiles on odd sizes; and tiles of one cell (big cells)
