@@ -116,7 +116,23 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    boundary F and the loop's MP/s as readings; then the CLI's ``info
    --preset config1`` and ``run --preset config0 --device cuda``, their
    JSON checked;
-7. a JSON line of the kernels (time, plain time, bound, library call), then
+7. the with-features path, ``segment_batch(uint8 -> (int32 labels,
+   (B, H, W, D) features))`` with the reference's default
+   ``with_features=True``: config1 batch 16 bf16 at full width (D = 243;
+   K1, then ``kmeans_batch``'s transposed multigrid solver, K6 and K5) and
+   config2 batch 8 bf16 (``gmm_fused_t``: K6, K5, K9, K8), each against
+   the all-plain path on the card (labels after alignment, the features by
+   the reference's measure, max |d| / max |ref| <= 2e-2, K1's bf16 bound),
+   with its labels-only path's labels as a reading, ms/batch (median of 5)
+   and launches a call; config0 on one 2160x3840 frame in f32 with
+   ``tile_hw`` (432, 768) (K1 on 25 windows, ``kmeans_fused_t`` at N =
+   8,294,400, D = 39) against the all-plain path; K5 and K6 each against
+   its plain version on a (1, 243, 8,294,400) bf16 buffer (D * N = 2.02e9
+   elements, the largest the route hands them); config3 batch 8 bf16 with
+   ``cue_weight="coherence"`` (the gate hands both paths K1's energies, as
+   phase 4's); config1 with k = 10 (the plain solver on the card, its
+   ms/batch a reading);
+8. a JSON line of the kernels (time, plain time, bound, library call), then
    the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances (also in the tests): energies <= 1e-4 * peak (f32), <= 2e-2 *
@@ -151,7 +167,9 @@ plain version on well-conditioned moments); K7's pass labels equal on
 plain pass; K16-K18 every value equal to the plain version in bf16 (float64
 sums of bf16 values are exact), within one ulp in f32, counts equal, and two
 launches bit-equal; end-to-end labels
-after alignment >= 0.999 (f32) / >= 0.99 (bf16); the card's Rand index,
+after alignment >= 0.999 (f32) / >= 0.99 (bf16); with features, the
+features within max |d| <= 2e-2 (bf16) / 1e-4 (f32) of the largest
+|feature|, K5 and K6 on the 2.02e9-element buffer as in phase 3; the card's Rand index,
 VoI and covering within 1e-12 of the host metrics, its dilated boundary F
 equal to the host form's.
 
@@ -1967,6 +1985,190 @@ def main() -> None:
     print(f"phase 6: cli info --preset config1: {info['n_kernels']} kernels, feature_dim "
           f"{info['feature_dim']}; cli run --preset config0 --device cuda: {run}; phase 6 "
           f"took {time.perf_counter() - t6:.1f} s ({card})", flush=True)
+
+    # ---- phase 7: the with-features path ----------------------------------
+    t7 = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    def zero_counts():
+        for wrapper in counters.values():
+            wrapper.launches = 0
+
+    def feature_err(got, ref):
+        """The reference's feature measure: max |got - ref| / max |ref|."""
+        g, r = got.float(), ref.float()
+        return ((g - r).abs().max() / r.abs().max()).item()
+
+    def with_features_cell(cfg, rgb, label, path, absent, fbound, reps=5, keep=None,
+                           plain=True):
+        """``segment_batch(rgb, cfg)`` (with features) on the card: the first
+        call and ``reps`` timed calls (host uint8 in, labels on the host, the
+        features left on the card) with the counts set to 0 just before and
+        read just after, every kernel of ``path`` launched and none of
+        ``absent``; against the all-plain path on the card (with ``keep``,
+        also against the plain versions but for ``keep``, the gate then),
+        labels after alignment and the features by the reference's measure
+        (``fbound`` of the largest |feature|). Returns (labels, features,
+        ms)."""
+        def run():
+            labels, feats = pl.segment_batch(rgb, cfg, device="cuda")
+            return labels.cpu(), feats
+
+        zero_counts()
+        t0 = time.perf_counter()
+        out, feats = run()
+        warm = time.perf_counter() - t0
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again, _ = run()
+            times.append(time.perf_counter() - t0)
+        calls = reps + 1
+        counts = {name: counters[name].launches for name in path + absent}
+        check(torch.equal(out, again), f"phase 7 {label}: labels differ between runs")
+        ms = statistics.median(times) * 1e3
+        print(f"phase 7: {label}: {ms:.2f} ms/batch (median of {reps}, first call {warm:.2f} "
+              f"s), host uint8 in -> host int32 labels out, features (B, H, W, D) "
+              f"{tuple(feats.shape)} {feats.dtype} left on the card; launches a call "
+              f"{ {n: round(c / calls, 2) for n, c in counts.items()} } ({card})", flush=True)
+        for name in path:
+            check(counts[name] > 0, f"{name} was never launched on the phase 7 {label} path")
+            totals[name] += counts[name]
+        for name in absent:
+            check(counts[name] == 0, f"{name} was launched on the phase 7 {label} path")
+        check(torch.isfinite(feats.float()).all().item(), f"phase 7 {label}: features not finite")
+        n_labels = cfg.graph.n_regions if cfg.graph.enabled else cfg.cluster.k
+        check(out.dtype == torch.int32 and tuple(out.shape) == rgb.shape[:3]
+              and int(out.min()) >= 0 and int(out.max()) < n_labels,
+              f"phase 7 {label}: labels {out.dtype} {tuple(out.shape)} outside [0, {n_labels})")
+        if not plain:
+            return out, feats, ms
+        floor = 0.99 if cfg.dtype == "bfloat16" else 0.999
+        gates = [((), "the all-plain path")] + ([(keep, f"the plain path but {keep}")]
+                                               if keep else [])
+        for kept, what in gates:
+            with plain_kernels(kept):
+                ref_l, ref_f = pl.segment_batch(rgb, cfg, device="cuda")
+            each = [aligned_agreement(out[i].numpy(), ref_l[i].cpu().numpy())
+                    for i in range(len(out))]
+            ferr = feature_err(feats, ref_f)
+            gate = kept == (keep or ())
+            print(f"phase 7: {label}: kernel path vs {what} on the card, min aligned "
+                  f"agreement {min(each):.6f} (floor {floor}{'' if gate else ', a reading'}; "
+                  f"per image {[round(v, 6) for v in each]}), features max |d| / max |ref| "
+                  f"{ferr:.3e} (bound {fbound}{'' if gate else ', a reading'}), bit-equal "
+                  f"{torch.equal(feats, ref_f)} ({card})", flush=True)
+            if gate:
+                check(min(each) >= floor and ferr <= fbound,
+                      f"phase 7 {label}: the kernel path disagrees with {what}")
+            del ref_f
+        return out, feats, ms
+
+    with_feat_kmeans = ["gabor_energies_fused", "maximin_t_pass", "lloyd_t_pass"]
+    chw_kernels = ["lloyd_chw_pass", "maximin_chw_pass", "kmeans_coarse_centers_xp"]
+    # config1 batch 16 bf16, full width (D = 243): K1, then the transposed
+    # solver's multigrid branch (K6 seeds and K5 passes on the 4x4-pooled
+    # buffer, K5 on the 2x2 one and at full resolution)
+    lab1, feats1, _ = with_features_cell(cfg1, rgb16, "config1 batch 16 bf16 with features",
+                                         with_feat_kmeans, chw_kernels + ["em_pass"], 2e-2)
+    del feats1
+    only1 = pl.segment_batch(rgb16, cfg1, with_features=False, device="cuda")[0].cpu()
+    each = [aligned_agreement(lab1[i].numpy(), only1[i].numpy()) for i in range(16)]
+    print(f"phase 7: config1 batch 16 bf16: with-features labels vs the labels-only path's "
+          f"(K1 twin, K3, K2: another assembly and solver), min aligned agreement "
+          f"{min(each):.6f}, mean {statistics.mean(each):.6f} (a reading) ({card})", flush=True)
+    # config2 batch 8 bf16: gmm_fused_t on the flat features (K6, K5, K9, K8)
+    cfg2b = cfg2.replace(dtype="bfloat16")
+    lab2, feats2, _ = with_features_cell(
+        cfg2b, rgb8, "config2 batch 8 bf16 with features",
+        with_feat_kmeans + ["precision_chol", "em_pass"], chw_kernels, 2e-2)
+    del feats2
+    only2 = pl.segment_batch(rgb8, cfg2b, with_features=False, device="cuda")[0].cpu()
+    each = [aligned_agreement(lab2[i].numpy(), only2[i].numpy()) for i in range(8)]
+    print(f"phase 7: config2 batch 8 bf16: with-features labels vs the labels-only path's, "
+          f"min aligned agreement {min(each):.6f}, mean {statistics.mean(each):.6f} (a "
+          f"reading) ({card})", flush=True)
+    torch.cuda.empty_cache()
+    # config0 on one 4K frame in f32, windowed: K1 on 25 windows, then
+    # kmeans_fused_t at N = 8,294,400, D = 39
+    cfg0k = cfg0.replace(tile_hw=(432, 768))
+    with_features_cell(cfg0k, rgb4[:1], "config0 1x2160x3840 f32 tile (432, 768) with features",
+                       with_feat_kmeans, chw_kernels, 1e-4, reps=2)
+    torch.cuda.empty_cache()
+    # K5 and K6 on the largest buffer the route hands them: (1, 243,
+    # 8,294,400) bf16, D * N = 2.02e9 elements. Five regions of the pixels
+    # lie 3 apart on their own rows, five pixels planted 50 ... 30 out on
+    # rows 200 ... 204: the seeds are the planted pixels by wide margins
+    n4k = 2160 * 3840
+    xb = torch.randn((1, 243, n4k), device=dev, dtype=torch.bfloat16,
+                     generator=torch.Generator(device=dev).manual_seed(17))
+    xb.mul_(0.1)
+    bounds = [r * n4k // 5 for r in range(6)]
+    for r in range(5):
+        xb[:, 40 * r, bounds[r]:bounds[r + 1]] += 3.0
+    planted = [j * n4k // 5 + 12345 for j in range(5)]
+    for j, p_j in enumerate(planted):
+        xb[:, 200 + j, p_j] = 50.0 - 5.0 * j
+    probe_k = probe_p = xb.mean(dim=2, dtype=torch.float32)
+    dk7 = torch.zeros((1, n4k), device=dev)
+    dp7 = torch.zeros((1, n4k), device=dev)
+    seeds7, same7, err7 = [], True, 0.0
+    for step in range(5):
+        probe_k = kf.maximin_t_pass(xb, probe_k, dk7, step < 2)
+        probe_p = kf.maximin_t_pass_plain(xb, probe_p, dp7, step < 2)
+        torch.cuda.synchronize()
+        same7 = same7 and torch.equal(probe_k, probe_p)
+        err7 = max(err7, ((dk7 - dp7).abs().max() / dp7.abs().max()).item())
+        seeds7.append(probe_k)
+    ms6 = cuda_ms(lambda: kf.maximin_t_pass(xb, probe_k, dk7, False))
+    ms6p = cuda_ms(lambda: kf.maximin_t_pass_plain(xb, probe_p, dp7, False), reps=3)
+    seed_rows = torch.stack(seeds7, dim=1)[0, :, 200:205]
+    want_rows = torch.tensor([[50.0 - 5.0 * j if i == j else 0.0 for i in range(5)]
+                              for j in range(5)], device=dev)
+    print(f"phase 7: maximin_t_pass [(1, 243, {n4k}) bf16, D * N = {243 * n4k:.3e}] five "
+          f"steps: same pixels as the plain version {same7}, the planted pixels in order "
+          f"{bool(((seed_rows - want_rows).abs() < 1.0).all())}, running minima within "
+          f"{err7:.3e} of the largest distance (bound 1e-5); kernel {ms6:.4f} ms, plain "
+          f"{ms6p:.4f} ms, bytes bound {bound(n4k * (243 * 2 + 8), 0)[0]:.4f} ms ({card})",
+          flush=True)
+    check(same7 and err7 <= 1e-5 and bool(((seed_rows - want_rows).abs() < 1.0).all()),
+          "phase 7: maximin_t_pass disagrees with its plain version at (1, 243, 8294400)")
+    centers7 = torch.zeros((1, 5, 243), device=dev)
+    for r in range(5):
+        centers7[0, r, 40 * r] = 3.0
+    lk7, sk7, nk7 = kf.lloyd_t_pass(xb, centers7)
+    lp7, sp7, np7 = kf.lloyd_t_pass_plain(xb, centers7)
+    again7 = kf.lloyd_t_pass(xb, centers7)
+    torch.cuda.synchronize()
+    bits7 = all(torch.equal(a, g) for a, g in zip(again7, (lk7, sk7, nk7)))
+    eq7 = (lk7 == lp7).float().mean().item()
+    serr7 = ((sk7 - sp7).abs().max() / sp7.abs().max()).item()
+    ms5 = cuda_ms(lambda: kf.lloyd_t_pass(xb, centers7))
+    ms5p = cuda_ms(lambda: kf.lloyd_t_pass_plain(xb, centers7), reps=3)
+    print(f"phase 7: lloyd_t_pass [(1, 243, {n4k}) bf16] labels equal {eq7:.6f} (floor "
+          f"0.9999), counts equal {torch.equal(nk7, np7)}, sums within {serr7:.3e} of their "
+          f"largest (bound 1e-3), two launches bit-equal {bits7}; kernel {ms5:.4f} ms, plain "
+          f"{ms5p:.4f} ms, bytes bound {bound(n4k * (243 * 2 + 4), 0)[0]:.4f} ms ({card})",
+          flush=True)
+    check(eq7 >= 0.9999 and torch.equal(nk7, np7) and serr7 <= 1e-3 and bits7,
+          "phase 7: lloyd_t_pass disagrees with its plain version at (1, 243, 8294400)")
+    del xb, dk7, dp7, lk7, lp7, again7
+    torch.cuda.empty_cache()
+    # config3 batch 8 bf16 with the coherence cue weights: the gate hands
+    # both paths K1's energies (GRAPH_NOTE), the all-plain path a reading
+    cfg3c = cfg3.replace(dtype="bfloat16", cluster=dataclasses.replace(
+        cfg3.cluster, cue_weight="coherence", coherence_pow=4.0))
+    with_features_cell(cfg3c, rgb8, "config3 batch 8 bf16 coherence with features",
+                       graph_path, ["slic_band_pass", "lloyd_t_pass"], 2e-2,
+                       keep=("gabor_energies_fused",))
+    # config1 with k = 10: the plain solver (kmeans_multigrid) on the card
+    cfg1k = cfg1.replace(cluster=dataclasses.replace(cfg1.cluster, k=10))
+    with_features_cell(cfg1k, rgb16, "config1 batch 16 bf16 k=10 with features (the plain "
+                       "solver, a reading)", ["gabor_energies_fused"],
+                       ["maximin_t_pass", "lloyd_t_pass"] + chw_kernels, 2e-2, plain=False)
+    torch.cuda.empty_cache()
+    print(f"phase 7 took {time.perf_counter() - t7:.1f} s ({card})", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -24,7 +24,9 @@ the per-image tol freeze, ``refine_iters`` full-resolution passes and a
 labels-only pass. Each iteration factors the covariances with K9
 (models/chol.py). The loop runs a fixed count with the freeze done by
 ``torch.where`` on the device, as the reference's ``fori_loop`` does, so the
-host never waits on the card inside the solver.
+host never waits on the card inside the solver. ``gmm_fused_t`` is its
+entry on (B, N, D) features (the with-features path): the buffer is their
+transpose, and the fit buffer their 2x2-pooled copy, transposed.
 
 ``_FUSED_PREP`` mirrors the reference's switch of the same name (off, as
 there): when on, the solver carries EM's moments (counts, sums, scatter)
@@ -48,6 +50,8 @@ from gabor_color_image_segmentation_tpu_torch.models.chol import (
     _params_to_kernel_inputs,
     precision_chol_params,
 )
+from gabor_color_image_segmentation_tpu_torch.models.gmm import gmm_fit_levels
+from gabor_color_image_segmentation_tpu_torch.models.kmeans import pool2x2
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import K_MAX
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import kmeans_fused_t_xt
 
@@ -277,3 +281,38 @@ def gmm_fused_t_xt(
         state, _ = em(state, rows, x)
         rows = x.shape[2]
     return em_pass(x, *inputs(state, rows), moments=False)
+
+
+def gmm_fused_t(
+    x: torch.Tensor,
+    k: int,
+    n_iter: int = 30,
+    reg_covar: float = 1e-4,
+    kmeans_iters: int = 10,
+    tol: float = 0.0,
+    hw=None,
+    fit_pool: int = 0,
+    refine_iters: int = 0,
+) -> torch.Tensor:
+    """(B, N, D) (or (N, D)) features -> (B, N) int32 labels through
+    ``gmm_fused_t_xt``. The buffer is x's transpose in x's dtype (bf16
+    stays bf16, anything else float32), no copy when x is the view of a
+    channel-major buffer. With ``fit_pool`` (and ``hw``) the fit buffer is
+    the features pooled ``gmm_fit_levels`` times by exact 2x2 means
+    (``kmeans.pool2x2`` on the flat features), then transposed."""
+    if x.dim() == 2:
+        return gmm_fused_t(x[None], k, n_iter, reg_covar, kmeans_iters, tol, hw, fit_pool,
+                           refine_iters)[0]
+    dtype = x.dtype if x.dtype == torch.bfloat16 else torch.float32
+    fit_x = None
+    if fit_pool > 0:
+        h, w = hw
+        lv = gmm_fit_levels(h, w, fit_pool)[2]
+        if lv > 0:
+            fit_x = x
+            for _ in range(lv):
+                fit_x = pool2x2(fit_x, h, w)
+                h, w = h // 2, w // 2
+            fit_x = fit_x.to(dtype).transpose(1, 2).contiguous()
+    return gmm_fused_t_xt(x.to(dtype).transpose(1, 2).contiguous(), k, n_iter, reg_covar,
+                          kmeans_iters, tol, fit_x, refine_iters)

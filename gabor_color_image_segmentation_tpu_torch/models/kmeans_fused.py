@@ -37,6 +37,15 @@ is built.
   padding of D are not built). It serves ``kmeans_fused``, the reference's
   drop-in for a batched ``kmeans``, which no pipeline path calls.
 
+The solvers: ``kmeans_fused_t_xt`` on the (B, D, N) buffer (K6 seeds, or
+the plain strided seeding with ``init_stride`` > 1, then K5 passes; with
+a multigrid schedule, seeds and passes on the buffer pooled
+``coarse_levels`` times by exact 2x2 means, ``mid_iters`` passes on each
+intermediate grid, then the full-resolution passes), ``kmeans_fused_t``
+on (B, N, D) features (the with-features path's, through
+models/kmeans.py::kmeans_batch; their transpose is the buffer), and
+``kmeans_fused`` on K7.
+
 Scores follow the reference: ||c||^2 - 2 c . x with c in float32 for the
 norm and rounded to the storage dtype for the cross term, first minimum
 wins, an empty cluster keeps its centre. Each source file says what bounds
@@ -52,6 +61,7 @@ import torch
 from gabor_color_image_segmentation_tpu_torch import _kernels
 from gabor_color_image_segmentation_tpu_torch.models.kmeans import maximin_init
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import K_MAX
+from gabor_color_image_segmentation_tpu_torch.ops.tiled import pool2x2_mean
 
 D_COARSE_MAX = 400  # feature rows K3 stages (two tiles of >= 32 pixels in shared memory)
 COARSE_CLUSTERS = (1, 2, 4, 8, 16)  # K3's cluster sizes (16 needs the non-portable size)
@@ -488,18 +498,62 @@ def _solve_t(x: torch.Tensor, c0: torch.Tensor, max_iter: int):
     return lloyd_t_pass(x, c, assign_only=True), c
 
 
-def kmeans_fused_t_xt(x: torch.Tensor, k: int, n_iter: int = 25, coarse_iters: int = 0):
-    """k-means on the normalised buffer x (B, D, N): maximin seeds (K6), then
-    ``n_iter`` Lloyd passes (K5). Returns (labels (B, N) int32, centres
-    (B, k, D) float32). The reference's multigrid branch (coarse_iters > 0)
-    serves the NHWC / with-features path and is not ported."""
-    if coarse_iters > 0:
-        raise NotImplementedError(
-            "the PyTorch port does not run the multigrid schedule on the (B, D, N) "
-            "buffer yet: ROADMAP queue 1 item 14 (the NHWC / with-features path)"
-        )
+def _pool_xt(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, D, N = h*w) -> (B, D, (h//2)*(w//2)): exact 2x2 block means of
+    each row, the ordered float32 sum of models.kmeans.pool2x2."""
+    b, d, _ = x.shape
+    return pool2x2_mean(x.reshape(b, d, h, w), 2).reshape(b, d, (h // 2) * (w // 2))
+
+
+def kmeans_fused_t_xt(x: torch.Tensor, k: int, n_iter: int = 25, init_stride: int = 1,
+                      hw=None, coarse_iters: int = 0, refine_iters: int = 10,
+                      coarse_levels: int = 1, mid_iters: int = 0):
+    """k-means on the normalised buffer x (B, D, N). Returns (labels (B, N)
+    int32, centres (B, k, D) float32).
+
+    Without a multigrid schedule: maximin seeds (K6; with ``init_stride`` >
+    1 ``models.kmeans.maximin_init`` on every init_stride-th pixel), then
+    ``n_iter`` Lloyd passes (K5). With
+    one (``coarse_iters`` > 0 and ``hw`` = (h, w), N = h * w): x pooled
+    ``coarse_levels`` times by exact 2x2 means, seeds (K6) and
+    ``coarse_iters`` passes (K5) on the coarsest grid, ``mid_iters`` passes
+    on each intermediate grid, coarse to fine, then ``refine_iters``
+    full-resolution passes."""
     _kernels.check(1 <= k <= K_MAX, f"fused Lloyd supports k <= {K_MAX}, got {k}")
-    return _solve_t(x, _maximin_init_t_fused(x, k), n_iter)
+    if coarse_iters > 0 and hw is not None:
+        if init_stride != 1:
+            raise ValueError("multigrid schedule requires init_stride == 1")
+        (h, w), levels, buf = hw, [], x
+        for _ in range(coarse_levels):
+            buf = _pool_xt(buf, h, w)
+            h, w = h // 2, w // 2
+            levels.append(buf)
+        c = _lloyd_t_updates(buf, _maximin_init_t_fused(buf, k), coarse_iters)
+        for lvl in reversed(levels[:-1]):
+            c = _lloyd_t_updates(lvl, c, mid_iters)
+        return _solve_t(x, c, refine_iters)
+    if init_stride == 1:
+        return _solve_t(x, _maximin_init_t_fused(x, k), n_iter)
+    # the reference's strided seeding is plain XLA: models.kmeans.maximin_init
+    # on the pixels' view of the buffer
+    return _solve_t(x, maximin_init(x.transpose(1, 2), k, init_stride).to(torch.float32),
+                    n_iter)
+
+
+def kmeans_fused_t(x: torch.Tensor, k: int, n_iter: int = 25,
+                   dtype: torch.dtype = torch.float32, init_stride: int = 1, hw=None,
+                   coarse_iters: int = 0, refine_iters: int = 10, coarse_levels: int = 1,
+                   mid_iters: int = 0):
+    """``kmeans_fused_t_xt`` on features x (B, N, D) (or one image (N, D))
+    rounded to ``dtype``: the (B, D, N) buffer is x's transpose, which
+    costs no copy when x is the view of a channel-major buffer, as the
+    pipeline's features are."""
+    if x.dim() == 2:
+        labels, centers = kmeans_fused_t(x[None], k, n_iter, dtype, init_stride, hw,
+                                         coarse_iters, refine_iters, coarse_levels, mid_iters)
+        return labels[0], centers[0]
+    return kmeans_fused_t_xt(x.to(dtype).transpose(1, 2).contiguous(), k, n_iter, init_stride,
+                             hw, coarse_iters, refine_iters, coarse_levels, mid_iters)
 
 
 def kmeans_fused(x: torch.Tensor, k: int, n_iter: int = 25,

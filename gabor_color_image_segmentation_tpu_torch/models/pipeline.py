@@ -1,10 +1,16 @@
-"""Labels-only pipeline (counterpart of the JAX package's
-models/pipeline.py: _color_transform, segment_chw_grouped,
-_segment_batch_transposed, segment_batch, segment_images).
+"""The pipeline (counterpart of the JAX package's models/pipeline.py:
+_color_transform, compute_energies, compute_features,
+_can_segment_transposed, segment_chw_grouped, _segment_batch_transposed,
+segment_batch, segment_image, segment_images).
 
 uint8 sRGB (B, H, W, 3), a numpy array or a tensor on any device -> int32
-label maps (B, H, W) on the device the caller names (the card unless
-``device="cpu"``), through the reference's production paths:
+label maps (B, H, W) and, with ``with_features`` (the default, as the
+reference's), the (B, H, W, D) features, on the device the caller names
+(the card unless ``device="cpu"``), through the reference's routes.
+
+Labels only, where ``_can_segment_transposed`` holds (k-means or GMM with
+k <= 8 on frames of 4,096 to 2,000,000 pixels that fit ``tile_hw``, K1's
+energies, the full feature set, subsample 1):
 
 k-means (config0, config1):
   1. Lab colour transform;
@@ -18,6 +24,8 @@ k-means (config0, config1):
      without one (config0): maximin seeding at full resolution (K4) and up
      to ``n_iter`` full-resolution passes (K2);
   5. one assign-only pass (K2) writes the labels.
+  With ``init_stride`` > 1: the normalised (B, E + 3, N) buffer, strided
+  maximin seeds (plain torch) and ``n_iter`` Lloyd passes (K5).
 
 GMM (config2):
   1. Lab colour transform;
@@ -27,6 +35,21 @@ GMM (config2):
   4. k-means init on the fit buffer (K6 seeds, K5 passes), EM iterations
      (K9 factors, K8 passes), the full-resolution refine passes (K8) and
      one labels-only pass (K8).
+
+Everything else takes the reference's NHWC path, which also returns the
+features:
+
+pixel clustering (any k, frame size and option):
+  1. Lab colour transform; the energies by ``feature_impl`` (K1; the
+     modulated route; the direct convolutions, the only route for a bank
+     with gamma != 1), window by window past ``tile_hw``;
+  2. ``assemble_features``: the standardised features, channel-major
+     (B, D, H, W), returned as their (B, H, W, D) view;
+  3. k-means: ``kmeans_batch`` (K6 seeds and K5 passes, its multigrid
+     schedule on the pooled buffer, where k <= 8 and 4,096 <= N <=
+     10,000,000; the plain solvers elsewhere); GMM: ``gmm_fused_t`` (K6,
+     K5, K9, K8) where k <= 8, 4,096 <= N <= 2,000,000 and subsample 1,
+     ``gmm_predict`` (plain torch) elsewhere.
 
 graph (config3, config4; ``segment_batch`` for the n-cut,
 ``segment_images`` for the min-cut too):
@@ -39,8 +62,8 @@ graph (config3, config4; ``segment_batch`` for the n-cut,
      ``feature_impl="auto"`` at batch 1 or in float32 takes the modulated
      route (ops/modulated.py, plain torch, float32 energies), production
      bf16 batches and the min-cut route K1;
-  3. the standardised (B, E + 3, N) features in the energies' dtype (the
-     storage dtype on K1, float32 on the modulated route);
+  3. ``assemble_features`` on the pooled grid (the pooled features are
+     what ``with_features`` returns), in the energies' dtype;
   4. SLIC superpixels on the float32 Lab (K11 under the reference's
      whole-image gate, the banded K13 above it, as models/slic_fused.py
      routes) and connectivity enforcement (K14);
@@ -49,9 +72,6 @@ graph (config3, config4; ``segment_batch`` for the n-cut,
      broadcast to pixels (K15); or min-cut: the greedy merge on the host
      per image;
   6. with pooling, each label repeated 2^pool times along both axes.
-
-Configurations outside these slices raise NotImplementedError naming the
-ROADMAP queue-1 item that will bring them, before any work.
 """
 
 from __future__ import annotations
@@ -65,21 +85,26 @@ from gabor_color_image_segmentation_tpu_torch.config import PipelineConfig
 from gabor_color_image_segmentation_tpu_torch.models.connectivity import (
     enforce_connectivity_fused,
 )
-from gabor_color_image_segmentation_tpu_torch.models.gmm import gmm_fit_levels
-from gabor_color_image_segmentation_tpu_torch.models.gmm_fused import gmm_fused_t_xt
+from gabor_color_image_segmentation_tpu_torch.models.gmm import gmm_fit_levels, gmm_predict
+from gabor_color_image_segmentation_tpu_torch.models.gmm_fused import gmm_fused_t, gmm_fused_t_xt
 from gabor_color_image_segmentation_tpu_torch.models.graph import (
     mincut_segment,
     ncut_regions,
     resolve_eig_method,
 )
+from gabor_color_image_segmentation_tpu_torch.models.kmeans import (
+    PIPELINE_N_MAX,
+    fused_solver_ready,
+    kmeans_batch,
+)
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import (
-    K_MAX,
     _affine_params,
     build_color4,
     kmeans_fused_chw,
 )
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import (
     kmeans_coarse_centers_xp,
+    kmeans_fused_t_xt,
 )
 from gabor_color_image_segmentation_tpu_torch.models.slic import grid_shape
 from gabor_color_image_segmentation_tpu_torch.models.slic_fused import slic_batch
@@ -87,7 +112,9 @@ from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make
 from gabor_color_image_segmentation_tpu_torch.ops.color import rgb_to_lab
 from gabor_color_image_segmentation_tpu_torch.ops.features import (
     _pool2x2_cm,
+    assemble_features,
     assemble_xp_from_affine,
+    gabor_energies,
 )
 from gabor_color_image_segmentation_tpu_torch.ops.fused import gabor_energies_fused
 from gabor_color_image_segmentation_tpu_torch.ops.lookup import table_lookup
@@ -100,61 +127,6 @@ from gabor_color_image_segmentation_tpu_torch.ops.tiled import (
     gabor_energies_tiled,
     pool2x2_mean,
 )
-
-
-# The reference's pixel-count range of its transposed pixel clustering:
-# fused_solver_eligible's 4096 <= n and models/kmeans.py's PIPELINE_N_MAX
-# (copied, not imported). Outside it the reference clusters on its NHWC path.
-PIXELS_MIN = 4096
-PIXELS_MAX = 2_000_000
-
-
-def _check_supported(cfg: PipelineConfig, with_features: bool, hw: Tuple[int, int],
-                     device: torch.device) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item or fault, for what
-    the port does not run yet; ``hw`` is the frame's (H, W), ``device``
-    where it would run. Allocates nothing."""
-    c, g = cfg.cluster, cfg.graph
-    tile = cfg.tile_hw
-    nhwc = "queue 1 item 14 (the NHWC / with-features path)"
-    features = "queue 1 item 13 (the rest of the feature stage)"
-    # the graph stage replaces the pixel clustering, so the solver's own
-    # options do not apply to it
-    solver = not g.enabled
-    unsupported = [
-        (with_features, "with_features=True", nhwc),
-        (g.enabled and c.cue_weight != "static",
-         f"the graph stage with cue_weight={c.cue_weight!r}", nhwc),
-        (solver and c.method not in ("kmeans", "gmm"), f"method={c.method!r}", nhwc),
-        # the reference sends k > 8 to its NHWC solver (fused_solver_eligible)
-        (solver and c.k > K_MAX, f"the pixel clustering with k={c.k} > {K_MAX}", nhwc),
-        # a frame larger than the tile leaves the reference's transposed
-        # clustering path for its NHWC one
-        (solver and tile is not None and (hw[0] > tile[0] or hw[1] > tile[1]),
-         "the pixel clustering on a frame larger than tile_hw (the NHWC path)", nhwc),
-        (c.feature_set != "full", f"feature_set={c.feature_set!r}", nhwc),
-        # gmm with subsample > 1 is the reference's gmm_predict (NHWC solver)
-        (solver and c.subsample != 1, f"{c.method} with subsample={c.subsample}", nhwc),
-        (cfg.bank.gamma != 1.0, f"bank gamma={cfg.bank.gamma}", features),
-        (solver and c.method == "kmeans" and c.init_stride != 1,
-         f"init_stride={c.init_stride}", nhwc),
-        # the reference's transposed pixel clustering takes the fused
-        # kernel's energies only; another impl leaves it for the NHWC path
-        (solver and cfg.feature_impl not in ("auto", "pallas"),
-         f"the pixel clustering with feature_impl={cfg.feature_impl!r}", nhwc),
-        (cfg.feature_impl not in ("auto", "pallas", "modulated"),
-         f"feature_impl={cfg.feature_impl!r}", features),
-        # the reference's transposed pixel clustering takes frames of
-        # [PIXELS_MIN, PIXELS_MAX] pixels; the graph stage has no such gate
-        (solver and not PIXELS_MIN <= hw[0] * hw[1] <= PIXELS_MAX,
-         f"the pixel clustering on a frame of {hw[0] * hw[1]} pixels, outside the "
-         f"reference's transposed range [{PIXELS_MIN}, {PIXELS_MAX}] (the NHWC path)", nhwc),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"the PyTorch port does not run {what} yet: ROADMAP {item}"
-            )
 
 
 def _color_transform(rgb: torch.Tensor, color_space: str) -> torch.Tensor:
@@ -206,21 +178,29 @@ def segment_chw_grouped(
     return labels
 
 
+def _normalised_buffer(rgb: torch.Tensor, cfg: PipelineConfig, bank):
+    """(B, H, W, 3) sRGB -> (the normalised (B, E + 3, N) buffer in the
+    storage dtype, the K1 energies (B, E, H, W), the float32 colour
+    (B, H, W, 3), the affine (a, b)): the reference's assemble_features_t,
+    whose affine reads the float32 colour."""
+    dtype = storage_dtype(cfg.dtype)
+    color = _color_transform(rgb, cfg.color_space)
+    energies = _k1_energies(color, bank, dtype)
+    c4 = build_color4(color, torch.float32)
+    a, b_aff = _affine_params(energies, c4, cfg.cluster, 1e-6)
+    return assemble_xp_from_affine(energies, c4, a, b_aff, dtype), energies, color, (a, b_aff)
+
+
 def _segment_gmm(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
     """(B, H, W, 3) sRGB -> (B, H, W) int32 labels of the per-image GMM."""
     b, h, w, _ = rgb.shape
     dtype = storage_dtype(cfg.dtype)
     c = cfg.cluster
-    color = _color_transform(rgb, cfg.color_space)
-    energies, _ = gabor_energies_fused(color, bank_tensors(bank, rgb.device), dtype,
-                                       pooled=False)
     # One affine for both buffers, from the float32 colour as the JAX
     # package's _norm_affine reads it for the full-resolution buffer; its
     # fit buffer's affine reads the colour rounded to the storage dtype, so
     # in bfloat16 the colour rows' moments differ by that rounding.
-    c4 = build_color4(color, torch.float32)
-    a, b_aff = _affine_params(energies, c4, c, 1e-6)
-    x = assemble_xp_from_affine(energies, c4, a, b_aff, dtype)
+    x, energies, color, (a, b_aff) = _normalised_buffer(rgb, cfg, bank)
     fit_x = None
     _, _, lv = gmm_fit_levels(h, w, c.gmm_fit_pool)
     if lv > 0:
@@ -246,22 +226,37 @@ def _modulated_energies(color: torch.Tensor, bank, dtype: torch.dtype) -> torch.
     return gabor_energies_mod(color, bank, dtype).permute(0, 3, 1, 2).contiguous()
 
 
+def _direct_energies(color: torch.Tensor, bank, dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, W, C) -> (B, E, H, W) float32 energies of the direct
+    convolutions (already channel-major underneath)."""
+    return gabor_energies(color, bank, dtype).permute(0, 3, 1, 2)
+
+
+_ENERGIES = {"pallas": _k1_energies, "modulated": _modulated_energies,
+             "direct": _direct_energies}
+
+
 def compute_energies(rgb: torch.Tensor, cfg: PipelineConfig, bank, pool: int = 0):
     """(B, H, W, 3) sRGB -> ((B, E, H >> pool, W >> pool) energies, (B, H, W,
     3) float32 colour), by ``cfg.feature_impl`` as the reference picks its
-    energies function: "auto" and "pallas" run K1 (the reference's choice
-    on its accelerator) in the storage dtype, "modulated" the modulated
-    route in float32. Frames larger than ``cfg.tile_hw`` run window by
-    window and pool per window; others run whole and pool the stored
-    energies after."""
+    energies function: "pallas" runs K1 in the storage dtype, "modulated"
+    the modulated route and "direct" the direct convolutions, both float32;
+    "auto" is K1 (the reference's choice on its accelerator), or "direct"
+    for a bank with gamma != 1, which the other two do not take. Frames
+    larger than ``cfg.tile_hw`` run window by window and pool per window;
+    others run whole and pool the energies after."""
+    impl = cfg.feature_impl
+    if impl == "auto":
+        impl = "pallas" if cfg.bank.gamma == 1.0 else "direct"
+    if impl not in _ENERGIES:
+        raise ValueError(f"unknown feature_impl {cfg.feature_impl!r}")
+    fn = _ENERGIES[impl]
     dtype = storage_dtype(cfg.dtype)
     color = _color_transform(rgb, cfg.color_space)
-    fn = _modulated_energies if cfg.feature_impl == "modulated" else _k1_energies
     _, h, w, _ = color.shape
     tile = cfg.tile_hw
     if tile is not None and (h > tile[0] or w > tile[1]):
-        return gabor_energies_tiled(color, bank_tensors(bank, rgb.device), dtype, tile,
-                                    bank.config.max_halo, pool,
+        return gabor_energies_tiled(color, None, dtype, tile, bank.config.max_halo, pool,
                                     energies_fn=lambda win: fn(win, bank, dtype)), color
     energies = fn(color, bank, dtype)
     for _ in range(pool):
@@ -269,19 +264,24 @@ def compute_energies(rgb: torch.Tensor, cfg: PipelineConfig, bank, pool: int = 0
     return energies, color
 
 
+def compute_features(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
+    """(B, H, W, 3) sRGB -> (B, H, W, D) standardised pixel features, the
+    view of a channel-major buffer (ops/features.py::assemble_features)."""
+    energies, color = compute_energies(rgb, cfg, bank)
+    return assemble_features(energies, color, cfg.cluster)
+
+
 def _graph_front(rgb: torch.Tensor, cfg: PipelineConfig, bank, ncut: bool = True):
-    """(B, H, W, 3) sRGB -> ((B, E + 3, n) standardised features, (B, n)
-    int32 connected superpixels of the float32 Lab, their count S), n the
-    pixels of the grid pooled ``graph.pool`` times.
+    """(B, H, W, 3) sRGB -> ((B, D, n) standardised features, (B, n) int32
+    connected superpixels of the float32 Lab, their count S), on the grid
+    pooled ``graph.pool`` times (n = (H >> pool) * (W >> pool)).
 
     The energies follow the reference's graph dispatch: for the n-cut
     (``ncut``) with ``feature_impl="auto"``, batch 1 or float32 takes the
     modulated route and bf16 batches K1; the min-cut route takes
-    ``cfg.feature_impl`` as it is. The features are the reference's
-    assemble_features on the pooled energies and the pooled float32 colour,
-    in the energies' dtype (bf16 from K1 in bf16 mode, else float32): the
-    colour rounded to that dtype before the per-image moments, the
-    sqrt(E/3) colour balance, static cue weights."""
+    ``cfg.feature_impl`` as it is. The features are ``assemble_features``
+    on the pooled energies and the pooled float32 colour, in the energies'
+    dtype (bf16 from K1 in bf16 mode, else float32)."""
     b, h, w, _ = rgb.shape
     g = cfg.graph
     p = g.pool
@@ -291,21 +291,18 @@ def _graph_front(rgb: torch.Tensor, cfg: PipelineConfig, bank, ncut: bool = True
     if ncut and cfg.feature_impl == "auto" and (b == 1 or cfg.dtype == "float32"):
         fcfg = cfg.replace(feature_impl="modulated")
     energies, color = compute_energies(rgb, fcfg, bank, p)
-    fdt = energies.dtype
     same = cfg.color_space == "lab"
     lab = color if same else _color_transform(rgb, "lab")
     for _ in range(p):
         color = pool2x2_mean(color, 1)
         lab = color if same else pool2x2_mean(lab, 1)
-    c4 = build_color4(color, fdt)
-    a, b_aff = _affine_params(energies, c4, cfg.cluster, 1e-6)
-    feats = assemble_xp_from_affine(energies, c4, a, b_aff, fdt)
-    del energies, c4
+    feats = assemble_features(energies, color, cfg.cluster)
+    del energies
     hp, wp = h >> p, w >> p
     gh, gw, _ = grid_shape(hp, wp, g.n_superpixels)
     sp = slic_batch(lab, g.n_superpixels, g.slic_compactness, g.slic_iters)
     sp = enforce_connectivity_fused(sp, gh * gw)
-    return feats, sp.reshape(b, hp * wp), gh * gw
+    return feats.permute(0, 3, 1, 2).reshape(b, -1, hp * wp), sp.reshape(b, hp * wp), gh * gw
 
 
 def _unpool(labels: torch.Tensor, pool: int) -> torch.Tensor:
@@ -315,18 +312,20 @@ def _unpool(labels: torch.Tensor, pool: int) -> torch.Tensor:
     return labels.repeat_interleave(f, dim=1).repeat_interleave(f, dim=2) if pool else labels
 
 
-def _segment_ncut(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
-    """(B, H, W, 3) sRGB -> (B, H, W) int32 region labels of the n-cut."""
+def _segment_ncut(rgb: torch.Tensor, cfg: PipelineConfig, bank):
+    """(B, H, W, 3) sRGB -> ((B, H, W) int32 region labels of the n-cut,
+    the pooled grid's (B, hp, wp, D) features)."""
     b, h, w, _ = rgb.shape
     g = cfg.graph
     if g.cut != "ncut":
         raise ValueError(f"cut={g.cut!r} is host-side (see mincut_segment); "
                          "use pipeline.segment_images")
+    hp, wp = h >> g.pool, w >> g.pool
     feats, sp, n_sp = _graph_front(rgb, cfg, bank)
     regions = ncut_regions(feats, sp, n_sp, g.n_regions, g.affinity_sigma,
-                           resolve_eig_method(g, cfg.dtype, rgb.device),
-                           g.affinity_sigma_scale)
-    return _unpool(table_lookup(sp, regions).reshape(b, h >> g.pool, w >> g.pool), g.pool)
+                           resolve_eig_method(g, cfg.dtype, rgb.device), g.affinity_sigma_scale)
+    labels = table_lookup(sp, regions).reshape(b, hp, wp)
+    return _unpool(labels, g.pool), feats.reshape(b, -1, hp, wp).permute(0, 2, 3, 1)
 
 
 def _segment_mincut(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
@@ -343,15 +342,38 @@ def _segment_mincut(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tenso
     return _unpool(torch.from_numpy(out).to(rgb.device), g.pool)
 
 
+def _can_segment_transposed(cfg: PipelineConfig, h: int, w: int) -> bool:
+    """The reference's gate of the labels-only transposed path (k-means or
+    GMM on K1's channel-major energies), with the card in place of its TPU:
+    k <= 8 and 4,096 <= H * W <= PIPELINE_N_MAX (``fused_solver_ready``),
+    no graph stage, subsample 1, the full feature set, a gamma-1 bank, K1's
+    energies and a frame that fits ``tile_hw``. Everything else takes the
+    NHWC path."""
+    c = cfg.cluster
+    tile = cfg.tile_hw
+    return (fused_solver_ready(c.k, h * w, n_max=PIPELINE_N_MAX)
+            and c.method in ("kmeans", "gmm")
+            and not cfg.graph.enabled
+            and c.subsample == 1
+            and c.feature_set == "full"
+            and cfg.bank.gamma == 1.0
+            and cfg.feature_impl in ("auto", "pallas")
+            and (tile is None or (h <= tile[0] and w <= tile[1])))
+
+
 def _segment_batch_transposed(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
-    """(B, H, W, 3) sRGB -> (B, H, W) int32 labels, the production path."""
-    if cfg.graph.enabled:
-        return _segment_ncut(rgb, cfg, bank)
+    """(B, H, W, 3) sRGB -> (B, H, W) int32 labels, the labels-only path
+    (see _can_segment_transposed)."""
     if cfg.cluster.method == "gmm":
         return _segment_gmm(rgb, cfg, bank)
-    _, h, w, _ = rgb.shape
+    b, h, w, _ = rgb.shape
     dtype = storage_dtype(cfg.dtype)
     c = cfg.cluster
+    if c.init_stride != 1:
+        # the reference's transposed route off its CHW solver: the strided
+        # seeding needs the normalised buffer
+        x = _normalised_buffer(rgb, cfg, bank)[0]
+        return kmeans_fused_t_xt(x, c.k, c.n_iter, c.init_stride)[0].reshape(b, h, w)
     lvl = c.coarse_levels
     multigrid = c.coarse_iters > 0 and h >= max(4, 1 << lvl) and w >= max(4, 1 << lvl)
     # the coherence fold's statistics want the twin even without a warm start
@@ -361,6 +383,28 @@ def _segment_batch_transposed(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> t
                                           dtype, pooled=want_twin)
     return segment_chw_grouped(color, energies, twin if multigrid else None, cfg,
                                fold_twin=twin)
+
+
+def _segment_nhwc(rgb: torch.Tensor, cfg: PipelineConfig, bank):
+    """(B, H, W, 3) sRGB -> ((B, H, W) int32 labels, the features the
+    clustering read): the reference's NHWC path (module docstring)."""
+    if cfg.graph.enabled:
+        return _segment_ncut(rgb, cfg, bank)
+    b, h, w, _ = rgb.shape
+    c = cfg.cluster
+    feats = compute_features(rgb, cfg, bank)
+    flat = feats.reshape(b, h * w, feats.shape[3])  # a view: (B, N, D) over the (B, D, N) buffer
+    if c.method == "kmeans":
+        labels, _ = kmeans_batch(flat, c.k, c.n_iter, storage_dtype(cfg.dtype), c.subsample,
+                                 c.init_stride, (h, w), c.coarse_iters, c.refine_iters,
+                                 c.coarse_levels, c.mid_iters)
+    elif fused_solver_ready(c.k, h * w, n_max=PIPELINE_N_MAX) and c.subsample == 1:
+        labels = gmm_fused_t(flat, c.k, c.n_iter, c.gmm_reg_covar, 10, c.gmm_tol, (h, w),
+                             c.gmm_fit_pool, c.gmm_refine_iters)
+    else:
+        labels = gmm_predict(flat, c.k, c.n_iter, c.gmm_reg_covar, c.subsample, c.gmm_tol,
+                             (h, w), c.gmm_fit_pool, c.gmm_refine_iters)
+    return labels.reshape(b, h, w), feats
 
 
 def _resolve_device(device) -> torch.device:
@@ -375,42 +419,59 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def segment_batch(
-    rgb: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig, bank=None,
-    with_features: bool = True, device=None,
-) -> Tuple[torch.Tensor, None]:
-    """(B, H, W, 3) uint8 (or [0, 1] float) sRGB -> ((B, H, W) int32 labels,
-    None). ``rgb`` is a numpy array or a tensor on any device; it is moved
-    to ``device`` and the labels come back there. ``device`` None means the
-    card, and raises RuntimeError when there is none: pass ``device="cpu"``
-    for the CPU. ``bank``: the port's or the JAX package's GaborBank for
-    cfg.bank (built when None). Only the labels-only paths are ported: pass
-    ``with_features=False``. The default, True as in the reference, raises
-    NotImplementedError naming ROADMAP queue 1 item 14."""
+def _prepare(rgb, cfg: PipelineConfig, bank, device):
+    """The entry points' common start: (rgb on the device, the bank)."""
     dev = _resolve_device(device)
-    _check_supported(cfg, with_features, tuple(rgb.shape[1:3]), dev)
     set_policy()
     if bank is None:
         bank = make_bank(cfg.bank)
     if isinstance(rgb, np.ndarray):
         rgb = torch.from_numpy(rgb)
-    return _segment_batch_transposed(rgb.to(dev), cfg, bank), None
+    return rgb.to(dev), bank
+
+
+def segment_batch(
+    rgb: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig, bank=None,
+    with_features: bool = True, device=None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(B, H, W, 3) uint8 (or [0, 1] float) sRGB -> ((B, H, W) int32 labels,
+    (B, H, W, D) features, or None with ``with_features=False``). With the
+    graph stage the features are the pooled grid's (B, H >> pool,
+    W >> pool, D), the tensor the cut read. ``rgb`` is a numpy array or a
+    tensor on any device; it is moved to ``device`` and the results come
+    back there. ``device`` None means the card, and raises RuntimeError
+    when there is none: pass ``device="cpu"`` for the CPU. ``bank``: the
+    port's or the JAX package's GaborBank for cfg.bank (built when None).
+    Labels only, the reference's transposed path runs where
+    ``_can_segment_transposed`` holds; every other call takes the NHWC
+    path."""
+    if not cfg.graph.enabled and cfg.cluster.method not in ("kmeans", "gmm"):
+        raise ValueError(f"unknown cluster method {cfg.cluster.method!r}")
+    rgb, bank = _prepare(rgb, cfg, bank, device)
+    _, h, w, _ = rgb.shape
+    if not with_features and _can_segment_transposed(cfg, h, w):
+        return _segment_batch_transposed(rgb, cfg, bank), None
+    labels, feats = _segment_nhwc(rgb, cfg, bank)
+    return labels, (feats if with_features else None)
+
+
+def segment_image(rgb: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig, bank=None,
+                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One image (H, W, 3) -> ((H, W) int32 labels, (H, W, D) features):
+    row 0 of ``segment_batch`` on the batch of one."""
+    labels, feats = segment_batch(rgb[None], cfg, bank, True, device)
+    return labels[0], feats[0]
 
 
 def segment_images(rgb: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig, bank=None,
                    device=None) -> torch.Tensor:
     """Batch entry point of eval and serving: (B, H, W, 3) -> (B, H, W) int32
-    on ``device`` (the card unless ``device="cpu"``). Also runs the graph
-    stage's host-side min-cut (``graph.cut="mincut"``)."""
+    on ``device`` (the card unless ``device="cpu"``), labels only (the
+    transposed path where it applies). Also runs the graph stage's
+    host-side min-cut (``graph.cut="mincut"``)."""
     g = cfg.graph
     if not (g.enabled and g.cut == "mincut"):
         labels, _ = segment_batch(rgb, cfg, bank, False, device)
         return labels
-    dev = _resolve_device(device)
-    _check_supported(cfg, False, tuple(rgb.shape[1:3]), dev)
-    set_policy()
-    if bank is None:
-        bank = make_bank(cfg.bank)
-    if isinstance(rgb, np.ndarray):
-        rgb = torch.from_numpy(rgb)
-    return _segment_mincut(rgb.to(dev), cfg, bank)
+    rgb, bank = _prepare(rgb, cfg, bank, device)
+    return _segment_mincut(rgb, cfg, bank)

@@ -167,13 +167,19 @@ def test_explicit_modulated_and_tiled_dispatch(routes):
 
 
 def test_pixel_clustering_keeps_k1(routes):
-    """config1's pixel clustering is not the graph stage: K1 at batch 1 too,
-    and another feature_impl leaves the ported path (item 14). 64x64: a
-    frame inside the reference's pixel range of the clustering."""
+    """config1's pixel clustering is not the graph stage: K1 at batch 1 too;
+    feature_impl="modulated" takes the reference's NHWC path on the
+    modulated energies, labels agreeing with the JAX package's (>= 0.999).
+    64x64: a frame inside the reference's pixel range of the clustering."""
     rgb = synthetic_mosaic(h=64, w=64, n_regions=3, seed=1)[0][None]
     cfg = preset("config1").replace(batch_size=1, dtype="float32")
     segment_batch(rgb, cfg, with_features=False, device="cpu")
     assert routes == ["gabor_energies_fused"]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        segment_batch(rgb, cfg.replace(feature_impl="modulated"), with_features=False,
-                      device="cpu")
+    routes.clear()
+    mod = cfg.replace(feature_impl="modulated")
+    labels, _ = segment_batch(rgb, mod, with_features=False, device="cpu")
+    assert routes == ["gabor_energies_mod"]
+    jcfg = jax_preset("config1").replace(batch_size=1, dtype="float32",
+                                         feature_impl="modulated")
+    ref = np.asarray(jax_segment_batch(rgb, jcfg, jax_make_bank(jcfg.bank), False)[0])
+    assert _agreement(labels.numpy()[0], ref[0]) >= 0.999

@@ -116,34 +116,86 @@ def test_constant_image_gives_valid_labels():
     assert labels.min() >= 0 and labels.max() < cfg.cluster.k
 
 
+# Configurations the pipeline once refused, each now run on the CPU against
+# the JAX package: (config, with_features, frame (H, W)). The JAX side pins
+# feature_impl="pallas" (its Pallas K1 in interpret mode, as the port's
+# "auto" runs K1), but for the gamma != 1 bank (the direct convolutions on
+# both sides) and the graph stage (its batch-1 modulated route on both).
 UNSUPPORTED = {
-    "with_features": (preset(PRESET), True),
-    # the graph stage with the coherence cue weights (the NHWC path);
-    # config3's and config4's static weights are ported
+    "with_features": (preset(PRESET), True, (32, 48)),
+    # the graph stage with the coherence cue weights
     "graph": (preset("config3").replace(cluster=dataclasses.replace(
-        preset("config3").cluster, cue_weight="coherence")), False),
-    # gmm's subsample > 1 is the reference's NHWC gmm_predict
+        preset("config3").cluster, cue_weight="coherence"), graph=dataclasses.replace(
+        preset("config3").graph, n_superpixels=24, n_regions=4, slic_compactness=10.0,
+        affinity_sigma_scale=1.0)), False, (32, 48)),
+    # gmm's subsample > 1: the reference's NHWC gmm_predict
     "gmm": (preset("config2").replace(cluster=dataclasses.replace(
-        preset("config2").cluster, subsample=2)), False),
-    # a tiled frame takes the reference's NHWC clustering path; config4's
-    # tiled graph path is ported
-    "tiling": (preset(PRESET).replace(tile_hw=(8, 8)), False),
+        preset("config2").cluster, subsample=2)), False, (32, 48)),
+    # a frame larger than tile_hw: the NHWC clustering on the tiled energies
+    "tiling": (preset(PRESET).replace(tile_hw=(16, 24)), False, (32, 48)),
     "feature_set": (preset(PRESET).replace(cluster=dataclasses.replace(
-        preset(PRESET).cluster, feature_set="color")), False),
+        preset(PRESET).cluster, feature_set="color")), False, (32, 48)),
     "subsample": (preset(PRESET).replace(cluster=dataclasses.replace(
-        preset(PRESET).cluster, subsample=2)), False),
+        preset(PRESET).cluster, subsample=2)), False, (32, 48)),
+    # 4,096 pixels: the port's transposed path with the strided seeding
+    # (the JAX package off its TPU takes its NHWC path)
     "init_stride": (preset(PRESET).replace(cluster=dataclasses.replace(
-        preset(PRESET).cluster, init_stride=2)), False),
+        preset(PRESET).cluster, init_stride=2)), False, (64, 64)),
     "gamma": (preset(PRESET).replace(bank=dataclasses.replace(
-        preset(PRESET).bank, gamma=0.5)), False),
-    "mincut": (preset(PRESET).replace(graph=GraphConfig(enabled=True, cut="mincut")),
-               False),
+        preset(PRESET).bank, gamma=0.5)), False, (32, 48)),
+    # segment_batch refuses the host-side cut with ValueError, as the
+    # reference does; segment_images runs it
+    "mincut": (preset(PRESET).replace(graph=GraphConfig(enabled=True, n_superpixels=24,
+                                                        cut="mincut", mincut_k=15.0,
+                                                        mincut_min_size=2)), False, (32, 48)),
 }
+
+
+def _jax_twin(cfg):
+    """The JAX package's config equal to the port's ``cfg``, its energies
+    pinned as the UNSUPPORTED comment says."""
+    from gabor_color_image_segmentation_tpu import config as jc
+
+    impl = "pallas" if cfg.bank.gamma == 1.0 and not cfg.graph.enabled else cfg.feature_impl
+    return jc.PipelineConfig(
+        name=cfg.name, bank=jc.BankConfig(**dataclasses.asdict(cfg.bank)),
+        cluster=jc.ClusterConfig(**dataclasses.asdict(cfg.cluster)),
+        graph=jc.GraphConfig(**dataclasses.asdict(cfg.graph)), color_space=cfg.color_space,
+        batch_size=cfg.batch_size, dtype=cfg.dtype, feature_impl=impl, tile_hw=cfg.tile_hw)
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unported_configs_raise(case):
-    cfg, with_features = UNSUPPORTED[case]
-    x = torch.zeros((1, 16, 16, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        segment_batch(x, cfg, with_features=with_features, device="cpu")
+    """Each configuration once raised NotImplementedError here (the test
+    keeps its name); each now runs, labels agreeing with the JAX package's
+    >= 0.999 after alignment (features, where asked, within 1e-4 of the
+    reference's largest)."""
+    from gabor_color_image_segmentation_tpu.models.pipeline import (
+        segment_batch as jax_segment_batch,
+    )
+    from gabor_color_image_segmentation_tpu.models.pipeline import (
+        segment_images as jax_segment_images,
+    )
+
+    cfg, with_features, (h, w) = UNSUPPORTED[case]
+    rgb = synthetic_mosaic(h=h, w=w, n_regions=4, seed=115)[0][None]
+    jcfg = _jax_twin(cfg)
+    if case == "mincut":
+        for call in (lambda: segment_batch(rgb, cfg, with_features=False, device="cpu"),
+                     lambda: jax_segment_batch(rgb, jcfg, jax_make_bank(jcfg.bank), False)):
+            with pytest.raises(ValueError, match="host-side"):
+                call()
+        got = segment_images(rgb, cfg, device="cpu").numpy()
+        ref = np.asarray(jax_segment_images(rgb, jcfg, jax_make_bank(jcfg.bank)))
+    else:
+        labels, feats = segment_batch(rgb, cfg, with_features=with_features, device="cpu")
+        ref, ref_f = jax_segment_batch(rgb, jcfg, jax_make_bank(jcfg.bank), with_features)
+        got, ref = labels.numpy(), np.asarray(ref)
+        assert (feats is None) == (not with_features)
+        if with_features:
+            ref_f = np.asarray(ref_f)
+            assert tuple(feats.shape) == ref_f.shape
+            assert np.abs(feats.numpy() - ref_f).max() <= 1e-4 * np.abs(ref_f).max()
+    assert got.dtype == np.int32 and got.shape == (1, h, w)
+    agree = _agreement(got, ref)
+    assert min(agree) >= FLOOR["float32"], agree
