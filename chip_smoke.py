@@ -132,7 +132,22 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    ``cue_weight="coherence"`` (the gate hands both paths K1's energies, as
    phase 4's); config1 with k = 10 (the plain solver on the card, its
    ms/batch a reading);
-8. a JSON line of the kernels (time, plain time, bound, library call), then
+8. ``parallel/`` on meshes whose shards all sit on ``cuda:0`` (one process
+   drives the shards in lockstep): the data-parallel leg
+   ``segment_batch_sharded`` at config1 batch 16 bf16 and config3 batch 8
+   bf16 over 8 batch shards, with and without features, labels (and
+   features) bit-equal to ``segment_batch`` run shard by shard, no
+   collective, agreement with the whole-batch call a reading;
+   ``segment_tiled`` with the real config1 bank on one 320x480 frame over 8
+   space shards (the modulated route, K5 each shard's Lloyd pass, 20 passes
+   a shard), aligned agreement with the untiled ``segment_image`` >= 0.999;
+   ``segment_tiled_batch`` at config4 as published, 2 frames of 2160x3840
+   on a (2, 4) batch x space mesh (K17 and K15 on each shard), its labels
+   against the untiled config4 path, the sharded connectivity bit-equal to
+   K14 on the same sharded SLIC labels, K5, K17 and K15 each against its
+   plain version on one strip; collectives by kind, the fixpoint loops'
+   host syncs and ms a call printed as readings;
+9. a JSON line of the kernels (time, plain time, bound, library call), then
    the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances (also in the tests): energies <= 1e-4 * peak (f32), <= 2e-2 *
@@ -2169,6 +2184,215 @@ def main() -> None:
                        ["maximin_t_pass", "lloyd_t_pass"] + chw_kernels, 2e-2, plain=False)
     torch.cuda.empty_cache()
     print(f"phase 7 took {time.perf_counter() - t7:.1f} s ({card})", flush=True)
+
+    # ---- phase 8: parallel/ on meshes of repeated cuda:0 shards -----------
+    t8 = time.perf_counter()
+    from gabor_color_image_segmentation_tpu_torch.parallel import tiled_graph as tg8
+    from gabor_color_image_segmentation_tpu_torch.parallel import tiling as tl8
+    from gabor_color_image_segmentation_tpu_torch.parallel.mesh import Mesh
+    from gabor_color_image_segmentation_tpu_torch.parallel.sharding import (
+        make_mesh,
+        segment_batch_sharded,
+    )
+
+    def phase8_counts(path, absent, label, calls=1):
+        """Read the counts of the run just made: every kernel of ``path``
+        launched, none of ``absent``; all of them added to the totals."""
+        counts = {name: wrapper.launches for name, wrapper in counters.items()}
+        for name in path:
+            check(counts[name] > 0, f"{name} was never launched on the phase 8 {label} path")
+        for name in absent:
+            check(counts[name] == 0, f"{name} was launched on the phase 8 {label} path")
+        for name in totals:
+            totals[name] += counts[name]
+        return {name: round(counts[name] / calls, 2) for name in path}
+
+    # (a) the data-parallel leg: each shard runs segment_batch on its images;
+    # its labels must be segment_batch's run shard by shard, bit for bit
+    mesh8 = make_mesh(8, devices=[dev] * 8)
+    cfg3b = cfg3.replace(dtype="bfloat16")
+    dp_runs = [(cfg1, rgb16, "config1 batch 16 bf16", {
+                   False: (["gabor_energies_fused", "kmeans_coarse_centers_xp",
+                            "lloyd_chw_pass"], ["lloyd_t_pass"]),
+                   True: (["gabor_energies_fused", "maximin_t_pass", "lloyd_t_pass"],
+                          ["lloyd_chw_pass"])}),
+               (cfg3b, rgb8, "config3 batch 8 bf16", {
+                   wf: (["slic_w3", "enforce_connectivity_fused", "superpixel_moments_fused_t",
+                         "table_lookup"], ["gabor_energies_fused"]) for wf in (False, True)})]
+    for cfg, rgb, label, paths in dp_runs:
+        for wf in (False, True):
+            tagd = f"{label} over 8 batch shards, {'with' if wf else 'without'} features"
+            zero_counts()
+            modulated.gabor_energies_mod.calls = 0
+            mesh8.reset_counts()
+            t0 = time.perf_counter()
+            lab_s, feat_s = segment_batch_sharded(rgb, cfg, None, mesh8, wf)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            mod_calls = modulated.gabor_energies_mod.calls
+            per = phase8_counts(*paths[wf], tagd)
+            colls = dict(mesh8.collectives)
+            bl = rgb.shape[0] // 8
+            ref = [pl.segment_batch(rgb[i * bl:(i + 1) * bl], cfg, with_features=wf,
+                                    device=dev) for i in range(8)]
+            same_l = torch.equal(lab_s, torch.cat([r[0] for r in ref]))
+            same_f = (not wf) or torch.equal(feat_s, torch.cat([r[1] for r in ref]))
+            whole = pl.segment_batch(rgb, cfg, with_features=wf, device=dev)[0].cpu()
+            each = [aligned_agreement(lab_s[i].cpu().numpy(), whole[i].numpy())
+                    for i in range(rgb.shape[0])]
+            print(f"phase 8: segment_batch_sharded [{tagd}]: labels{' and features' if wf else ''}"
+                  f" bit-equal to segment_batch shard by shard {same_l and same_f}, collectives "
+                  f"{colls}, launches {per}, modulated route calls {mod_calls}; against the "
+                  f"whole-batch call min aligned agreement {min(each):.6f} (a reading: the "
+                  f"local batch of {bl} picks the routes); {ms:.1f} ms (first call, a reading) "
+                  f"({card})", flush=True)
+            check(same_l and same_f, f"phase 8 {tagd}: labels differ from segment_batch "
+                  "shard by shard")
+            check(not any(colls.values()), f"phase 8 {tagd}: the DP leg called collectives")
+            check(int(lab_s.min()) >= 0 and tuple(lab_s.shape) == rgb.shape[:3],
+                  f"phase 8 {tagd}: labels outside the expected shape or range")
+            del ref, lab_s, feat_s
+    torch.cuda.empty_cache()
+
+    # (b) segment_tiled: the real config1 bank on one 320x480 frame over 8
+    # space shards (40-row strips > the 24-row halo), the modulated route,
+    # against the port's untiled segment_image
+    cfg1t = preset("config1").replace(feature_impl="modulated")
+    rgb_t, _ = synthetic_mosaic(h=320, w=480, n_regions=5, seed=77)
+    space8 = Mesh([dev] * 8, ("space",))
+    zero_counts()
+    space8.reset_counts()
+    t0 = time.perf_counter()
+    tiled_l = tl8.segment_tiled(rgb_t, cfg1t, None, space8)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    per = phase8_counts(["lloyd_t_pass"], ["gabor_energies_fused", "maximin_t_pass"],
+                        "segment_tiled config1")
+    colls = dict(space8.collectives)
+    zero_counts()
+    t0 = time.perf_counter()
+    again = tl8.segment_tiled(rgb_t, cfg1t, None, space8)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    phase8_counts(["lloyd_t_pass"], [], "segment_tiled config1")
+    zero_counts()
+    untiled = pl.segment_image(rgb_t, cfg1t, device=dev)[0].cpu().numpy()
+    agree_t = aligned_agreement(tiled_l.cpu().numpy(), untiled)
+    print(f"phase 8: segment_tiled [config1 bank, 1x320x480 over 8 space shards, 40-row "
+          f"strips, modulated route]: aligned agreement with the untiled segment_image "
+          f"{agree_t:.6f} (floor 0.999), two calls equal {torch.equal(tiled_l, again)}, K5 "
+          f"launches a call {per['lloyd_t_pass']} (8 shards x 20 passes), collectives a "
+          f"call {colls}; {ms:.1f} ms a call (first {warm:.2f} s, a reading) ({card})",
+          flush=True)
+    check(agree_t >= 0.999 and torch.equal(tiled_l, again),
+          "phase 8: segment_tiled disagrees with the untiled segment_image")
+    check(per["lloyd_t_pass"] == 8 * 20, "phase 8: segment_tiled ran K5 another number of times")
+    # K5 on one shard's strip, at the tiled path's shape, against its plain version
+    feats_t = tl8._strip_features(list(torch.from_numpy(rgb_t).to(dev).chunk(8)), cfg1t,
+                                  make_bank(cfg1t.bank), space8, "space")
+    x5 = feats_t[3].reshape(1, feats_t[3].shape[0], -1)
+    c5 = x5[:, :, ::3841].transpose(1, 2).contiguous()
+    got5, ref5 = kf.lloyd_t_pass(x5, c5), kf.lloyd_t_pass_plain(x5, c5)
+    torch.cuda.synchronize()
+    eq5 = (got5[0] == ref5[0]).float().mean().item()
+    serr5 = ((got5[1] - ref5[1]).abs().max() / ref5[1].abs().max()).item()
+    print(f"phase 8: lloyd_t_pass [one strip {tuple(x5.shape)} f32, k = {c5.shape[1]}] labels "
+          f"equal {eq5:.6f} (floor 0.9999), counts equal {torch.equal(got5[2], ref5[2])}, sums "
+          f"within {serr5:.3e} of their largest (bound 1e-4) ({card})", flush=True)
+    check(eq5 >= 0.9999 and torch.equal(got5[2], ref5[2]) and serr5 <= 1e-4,
+          "phase 8: lloyd_t_pass disagrees with its plain version on a strip")
+    del feats_t, x5, got5, ref5
+    torch.cuda.empty_cache()
+
+    # (c) segment_tiled_batch: config4 as published, 2 frames of 2160x3840
+    # on a (2, 4) batch x space mesh (540-row strips: pool 2 keeps blocks
+    # strip-local), against the port's untiled config4 path, both on the
+    # modulated route
+    cfg4m = cfg4.replace(feature_impl="modulated", batch_size=2)
+    mesh24 = Mesh(np.asarray([dev] * 8, dtype=object).reshape(2, 4), ("batch", "space"))
+    graph8 = ["superpixel_moments_fused_t", "table_lookup"]
+    zero_counts()
+    mesh24.reset_counts()
+    t0 = time.perf_counter()
+    tiled4 = tl8.segment_tiled_batch(rgb4[:2], cfg4m, None, mesh24)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    per = phase8_counts(graph8, ["gabor_energies_fused", "slic_band_pass", "slic_w3",
+                                 "enforce_connectivity_fused"], "segment_tiled_batch config4")
+    colls, syncs = dict(mesh24.collectives), mesh24.host_syncs
+    zero_counts()
+    t0 = time.perf_counter()
+    again4 = tl8.segment_tiled_batch(rgb4[:2], cfg4m, None, mesh24)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    phase8_counts(graph8, [], "segment_tiled_batch config4")
+    zero_counts()
+    untiled4 = pl.segment_batch(rgb4[:2], cfg4m, with_features=False, device=dev)[0].cpu()
+    each4 = [aligned_agreement(tiled4[i].cpu().numpy(), untiled4[i].numpy()) for i in range(2)]
+    print(f"phase 8: segment_tiled_batch [config4 2x2160x3840 on a (2, 4) batch x space mesh, "
+          f"540-row strips, pool 2, modulated route]: aligned agreement with the untiled "
+          f"config4 path per image {[round(v, 6) for v in each4]}, two calls equal "
+          f"{torch.equal(tiled4, again4)}, K17 / K15 launches a call {per} (2 frames x 4 "
+          f"shards), collectives a call {colls}, host syncs of the fixpoint loops a call "
+          f"{syncs}; {ms:.1f} ms a call (first {warm:.2f} s, a reading) ({card})", flush=True)
+    check(torch.equal(tiled4, again4), "phase 8: segment_tiled_batch differs between calls")
+    check(per["superpixel_moments_fused_t"] == 8 and per["table_lookup"] == 8,
+          "phase 8: segment_tiled_batch ran K17 / K15 another number of times")
+    check(tuple(tiled4.shape) == (2, *rgb4.shape[1:3]) and int(tiled4.min()) >= 0
+          and int(tiled4.max()) < cfg4m.graph.n_regions,
+          "phase 8: segment_tiled_batch labels outside the expected shape or range")
+    # the sharded connectivity against K14 on the same sharded SLIC labels,
+    # and the sharded SLIC against K13 on the whole pooled frame; K17 and
+    # K15 on one shard's strip against their plain versions
+    sub = mesh24.along("space", batch=0)
+    feats_g, labs_g = tl8._strip_graph_inputs(list(torch.from_numpy(rgb4[0]).to(dev).chunk(4)),
+                                              cfg4m, make_bank(cfg4m.bank), sub, "space")
+    g4m = cfg4m.graph
+    hp, wp = rgb4.shape[1] >> g4m.pool, rgb4.shape[2] >> g4m.pool
+    sp_s = tg8.slic_sharded(labs_g, hp, wp, g4m.n_superpixels, g4m.slic_compactness,
+                            g4m.slic_iters, sub, "space")
+    gh8, gw8, _ = sl.grid_shape(hp, wp, g4m.n_superpixels)
+    conn_s = torch.cat(tg8.enforce_connectivity_sharded(sp_s, gh8 * gw8, hp, sub, "space"))
+    conn_k = cn.enforce_connectivity_fused(torch.cat(sp_s)[None], gh8 * gw8)[0]
+    sp_k = sf.slic_batch(torch.cat(labs_g)[None], g4m.n_superpixels, g4m.slic_compactness,
+                         g4m.slic_iters)[0]
+    # the untiled config4 path's graph inputs on the same frame: its
+    # superpixels (K13, K14) and pooled features beside the sharded ones
+    feats_u, sp_u, _ = pl._graph_front(torch.from_numpy(rgb4[:1]).to(dev), cfg4m,
+                                       make_bank(cfg4m.bank))
+    feats_s = torch.cat(feats_g, dim=1).reshape(feats_u.shape[1], -1)
+    ferr8 = ((feats_s - feats_u[0]).abs().max() / feats_u[0].abs().max()).item()
+    torch.cuda.synchronize()
+    conn_same = torch.equal(conn_s, conn_k)
+    slic_eq = (torch.cat(sp_s) == sp_k).float().mean().item()
+    sp_same = torch.equal(conn_s.reshape(-1), sp_u[0])
+    kept8 = int(conn_s.max()) + 1
+    sp1, f1 = conn_s[hp // 4:hp // 2].reshape(1, -1), feats_g[1].reshape(1, feats_g[1].shape[0], -1)
+    m_k = gm.superpixel_moments_fused_t(sp1, f1, gh8 * gw8, dtype=f1.dtype)
+    m_p = gm.superpixel_moments_plain(sp1, f1, gh8 * gw8, True)
+    table8 = torch.arange(gh8 * gw8, dtype=torch.int32, device=dev).flip(0)[None] % 5
+    l_k, l_p = lookup.table_lookup(sp1, table8), lookup.table_lookup_plain(sp1, table8)
+    torch.cuda.synchronize()
+    mom_same = torch.equal(m_k[1], m_p[1]) and bool(
+        ((m_k[0] - m_p[0]).abs() <= 1.2e-7 * m_p[0].abs()).all())
+    print(f"phase 8: config4 frame 0 on 4 space shards: enforce_connectivity_sharded bit-equal "
+          f"to K14 on the same sharded SLIC labels {conn_same}; slic_sharded vs K13 on the "
+          f"whole pooled frame, labels equal {slic_eq:.6f} (a reading); the connected "
+          f"superpixels equal the untiled path's {sp_same}, {kept8} of {gh8 * gw8} kept; the "
+          f"pooled features within {ferr8:.3e} of the untiled path's largest (a reading: its "
+          f"432x768 windows take window-local plane waves, the strips global rows, and its "
+          f"moments are one image's one-pass ones, the strips' psum'd two-pass); superpixel "
+          f"moments "
+          f"[one strip {tuple(f1.shape)} f32, S = {gh8 * gw8}] within one ulp of the plain "
+          f"version, counts equal {mom_same}; table_lookup [{tuple(sp1.shape)}] bit-equal "
+          f"{torch.equal(l_k, l_p)} ({card})", flush=True)
+    check(conn_same, "phase 8: the sharded connectivity differs from K14")
+    check(mom_same and torch.equal(l_k, l_p),
+          "phase 8: K17 / K15 disagree with their plain versions on a strip")
+    del feats_g, labs_g, tiled4, again4, untiled4, feats_u, feats_s
+    torch.cuda.empty_cache()
+    print(f"phase 8 took {time.perf_counter() - t8:.1f} s ({card})", flush=True)
+
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

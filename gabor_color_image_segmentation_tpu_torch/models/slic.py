@@ -99,23 +99,29 @@ def cell_index(n: int, g: int, device) -> torch.Tensor:
     return (i * _f32(g / n, device)).to(torch.int32).clamp(0, g - 1).long()
 
 
-def _candidates(h: int, w: int, gh: int, gw: int, device):
+def _candidates(h: int, w: int, gh: int, gw: int, device, row0: int = 0,
+                rows: Optional[int] = None):
     """(N, 9) int64 candidate superpixel ids of each pixel in ascending id
     (the 3x3 cells around its own, clipped to the grid) and the (N, 9) mask
-    of the ones that exist."""
-    cy, cx = cell_index(h, gh, device), cell_index(w, gw, device)
+    of the ones that exist; of the image's rows [row0, row0 + rows) (all
+    by default) of an (h, w) image."""
+    rows = h - row0 if rows is None else rows
+    cy = cell_index(h, gh, device)[row0:row0 + rows]
+    cx = cell_index(w, gw, device)
     d = torch.tensor([-1, 0, 1], device=device)
-    gy = cy[:, None, None, None] + d[None, None, :, None]  # (h, 1, 3, 1)
+    gy = cy[:, None, None, None] + d[None, None, :, None]  # (rows, 1, 3, 1)
     gx = cx[None, :, None, None] + d[None, None, None, :]  # (1, w, 1, 3)
     ok = (gy >= 0) & (gy < gh) & (gx >= 0) & (gx < gw)
     ids = gy.clamp(0, gh - 1) * gw + gx.clamp(0, gw - 1)
-    return ids.reshape(h * w, 9), ok.expand(h, w, 3, 3).reshape(h * w, 9)
+    return ids.reshape(rows * w, 9), ok.expand(rows, w, 3, 3).reshape(rows * w, 9)
 
 
-def _pixel_rows(lab: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, 3) -> (B, N, 5) float32 [L, a, b, y, x]."""
+def _pixel_rows(lab: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """(B, H, W, 3) -> (B, N, 5) float32 [L, a, b, y, x], y counted from
+    the image row ``row0`` (a strip's first row)."""
     b, h, w, _ = lab.shape
-    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=lab.device),
+    yy, xx = torch.meshgrid(torch.arange(row0, row0 + h, dtype=torch.float32,
+                                         device=lab.device),
                             torch.arange(w, dtype=torch.float32, device=lab.device),
                             indexing="ij")
     pos = torch.stack([yy, xx], dim=2).expand(b, h, w, 2)
@@ -139,6 +145,18 @@ def _assign(z: list, cent: torch.Tensor, cand, ok, sw) -> torch.Tensor:
     score = csq[:, cand] - 2.0 * dot  # (B, N, 9)
     score = torch.where(ok, score, _SCORE_INF)
     return cand[torch.arange(cand.shape[0], device=cand.device), torch.argmin(score, dim=2)]
+
+
+def slic_pixel_arrays(lab: torch.Tensor, h: int, w: int, gh: int, gw: int, sw: float,
+                      row0: int = 0):
+    """(B, rows, W, 3) Lab (the whole image, or a strip whose first image
+    row is ``row0``) of an (h, w) image -> ((B, N, 5) [L, a, b, y, x] rows
+    in image coordinates, their weighted columns z, the (N, 9) candidate
+    ids and mask): what ``_assign`` and ``slic_moments`` read."""
+    swt = _f32(sw, lab.device)
+    rows = _pixel_rows(lab, row0)
+    cand, ok = _candidates(h, w, gh, gw, lab.device, row0, lab.shape[1])
+    return rows, _weighted(rows, swt), cand, ok
 
 
 def slic_moments(rows: torch.Tensor, labels: torch.Tensor, n_sp: int):

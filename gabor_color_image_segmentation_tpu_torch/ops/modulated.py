@@ -18,9 +18,9 @@ reference's: every 1-D pass casts its input and taps to ``dtype``, takes
 each product in ``dtype``, casts it to float32 and accumulates tap by tap
 in float32, so the output is float32 in both modes. Layout NHWC, as the
 reference's, energies in the feature contract's order (kernel-major,
-channel-minor within a group). The spatial-tiling hooks of the reference
-(``h_halo``, ``y0``) serve its multi-chip tiling (ROADMAP queue 1 item 12)
-and are not ported yet.
+channel-minor within a group). The spatial-tiling hooks (``h_halo``, ``y0``)
+serve parallel/tiling.py's strips: rows that carry real neighbour rows,
+and plane waves in the image's global row coordinates.
 
 The bank helpers (``_envelope_taps``, ``group_frequencies``, ``_dc_mu`` on
 the port's own ``gabor_kernel``) are ops/bank.py's copies; the bank is read
@@ -68,22 +68,39 @@ def _sep_1d(x: torch.Tensor, taps: torch.Tensor, axis: int,
 
 
 def modulated_group_magnitudes(img: torch.Tensor, group, bank,
-                               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                               dtype: torch.dtype = torch.float32, h_halo: int = 0,
+                               y0=0) -> torch.Tensor:
     """DC-corrected response magnitudes of one scale group, before the
-    smoothing: (B, H, W, C) float32 -> (B, H, W, n_g * C) float32."""
+    smoothing: (B, H_in, W, C) float32 -> (B, H, W, n_g * C) float32.
+
+    ``h_halo`` > 0: the input carries h_halo >= p real neighbour rows on
+    both sides (H = H_in - 2 h_halo) and H is not padded, so a strip's rows
+    equal the whole image's; 0 reflect-pads H. ``y0``: the global row of
+    output row 0. The plane waves take float32 arange(-p, H + p) + y0, the
+    reference's arithmetic, so a strip's phases are the whole image's."""
     if bank.config.gamma != 1.0:
         raise ValueError("modulated path requires isotropic envelope gamma=1")
-    b, h, w, c = img.shape
+    b, h_in, w, c = img.shape
     n = len(group.kernel_indices)
     p = group.ksize // 2
     dev = img.device
     env = torch.from_numpy(_envelope_taps(group.sigma, p)).to(dev)
     freqs = group_frequencies(group, bank)  # (n, 2) [wx, wy] float64
     mus = torch.from_numpy(_dc_mu(group, bank)).to(dev)
-    xpad = _reflect_pad(img.to(torch.float32), p, p)  # (B, H + 2p, W + 2p, C)
+    if h_halo:
+        if h_halo < p:
+            raise ValueError(f"h_halo {h_halo} < conv radius {p}")
+        h = h_in - 2 * h_halo
+        xpad = _reflect_pad(img[:, h_halo - p:h_in - (h_halo - p)].to(torch.float32), 0, p)
+    else:
+        h = h_in
+        xpad = _reflect_pad(img.to(torch.float32), p, p)  # (B, H + 2p, W + 2p, C)
 
-    # plane waves over the padded coordinates q
-    yy = torch.arange(-p, h + p, dtype=torch.float32, device=dev).reshape(-1, 1)
+    # plane waves over the padded coordinates q, rows from y0 - p
+    yy = torch.arange(-p, h + p, dtype=torch.float32, device=dev)
+    if y0:
+        yy = yy + torch.tensor(float(y0), dtype=torch.float32, device=dev)
+    yy = yy.reshape(-1, 1)
     xx = torch.arange(-p, w + p, dtype=torch.float32, device=dev).reshape(1, -1)
     wx = torch.tensor(freqs[:, 0], dtype=torch.float32, device=dev).reshape(1, 1, -1)
     wy = torch.tensor(freqs[:, 1], dtype=torch.float32, device=dev).reshape(1, 1, -1)
@@ -114,13 +131,22 @@ def modulated_group_magnitudes(img: torch.Tensor, group, bank,
     return mag.permute(0, 1, 2, 4, 3).reshape(b, h, w, n * c)
 
 
-def smooth_group_magnitudes(mag: torch.Tensor, group,
-                            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def smooth_group_magnitudes(mag: torch.Tensor, group, dtype: torch.dtype = torch.float32,
+                            h_halo: int = 0) -> torch.Tensor:
     """Gaussian smoothing of a group's magnitude maps over the REFLECT_101
-    padded magnitude map (the border contract), rows then columns."""
+    padded magnitude map (the border contract), rows then columns.
+    ``h_halo`` > 0: the rows carry h_halo >= r magnitude rows on both sides
+    (real neighbour rows, or at a true border the caller's REFLECT_101 of
+    its own), and H is not padded; W always reflect-pads."""
     r = group.smooth_radius
     smooth = torch.from_numpy(group.smooth_taps).to(mag.device)
-    s = _sep_1d(_reflect_pad(mag, r, 0), smooth, 1, dtype)
+    if h_halo:
+        if h_halo < r:
+            raise ValueError(f"h_halo {h_halo} < smooth radius {r}")
+        m = mag[:, h_halo - r:mag.shape[1] - (h_halo - r)]
+    else:
+        m = _reflect_pad(mag, r, 0)
+    s = _sep_1d(m, smooth, 1, dtype)
     return _sep_1d(_reflect_pad(s, 0, r), smooth, 2, dtype)
 
 

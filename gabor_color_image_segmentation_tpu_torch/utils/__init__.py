@@ -1,2 +1,2 @@
 """Utilities of the port: label maps, the native boundary matcher's build
-and loading, and visualisation."""
+and loading, visualisation and the HDF5 feature cache (``utils.cache``)."""

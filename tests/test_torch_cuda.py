@@ -1096,3 +1096,75 @@ def test_pipeline_kernels_match_plain_path(device, name, monkeypatch):
     gpu, ref = gpu.cpu().numpy(), ref.cpu().numpy()
     for i in range(2):
         assert (align_labels(gpu[i], ref[i]) == ref[i]).mean() >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# parallel/: the tiled k-means (K5 per shard) and the tiled graph (K17 and
+# K15 per shard) on a mesh of repeated cuda:0 shards
+# ---------------------------------------------------------------------------
+
+
+def _cuda_mesh(device, n):
+    from gabor_color_image_segmentation_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh([device] * n, ("space",))
+
+
+@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("n", [2, 8])
+def test_tiled_kmeans_k5_per_shard(device, monkeypatch, k, n):
+    """kmeans_sharded with K5 on each shard against the same schedule with
+    K5's plain one-hot pass, both on the card: labels equal on >= 99.99 %,
+    centres within 1e-4; K5 launched once a shard a pass."""
+    from gabor_color_image_segmentation_tpu_torch.parallel import tiling
+
+    gen = torch.Generator().manual_seed(k + n)
+    d, h, w = 39, 64, 96
+    blobs = torch.randn((k, d), generator=gen) * 4.0
+    which = torch.randint(0, k, (h * w,), generator=gen)
+    x = (blobs[which] + torch.randn((h * w, d), generator=gen)).T.reshape(d, h, w)
+    strips = [s.reshape(1, d, -1).contiguous().to(device) for s in x.chunk(n, dim=1)]
+    sched = dict(hw_local=(h // n, w), coarse_iters=5, refine_iters=2, coarse_levels=2,
+                 mid_iters=1)
+    kf.lloyd_t_pass.launches = 0
+    lab, cen = tiling.kmeans_sharded(strips, k, 10, _cuda_mesh(device, n), "space", **sched)
+    passes = 5 + 1 + 2 + 1
+    assert kf.lloyd_t_pass.launches == passes * n
+    monkeypatch.setattr(tiling, "lloyd_t_pass", kf.lloyd_t_pass_plain)
+    ref_l, ref_c = tiling.kmeans_sharded(strips, k, 10, _cuda_mesh(device, n), "space", **sched)
+    torch.cuda.synchronize()
+    got, ref = torch.cat(lab), torch.cat(ref_l)
+    assert (got == ref).float().mean().item() >= 0.9999
+    torch.testing.assert_close(cen[0], ref_c[0], rtol=1e-4, atol=1e-4)
+
+
+def test_tiled_graph_k17_k15_per_shard(device, monkeypatch):
+    """graph_cut_strip on the card with K17 and K15 on each shard against
+    the same chain with their plain versions: every label equal, the
+    sharded connectivity bit-equal to K14 on the gathered SLIC labels."""
+    from gabor_color_image_segmentation_tpu_torch.parallel import tiled_graph as tg
+
+    n, h, w = 4, 96, 128
+    cfg = preset("config3").replace(graph=dataclasses.replace(
+        preset("config3").graph, n_superpixels=96, n_regions=5))
+    rgb = synthetic_mosaic(h=h, w=w, n_regions=5, seed=4)[0]
+    lab = rgb_to_lab(torch.from_numpy(rgb).to(device).to(torch.float32) / 255.0)
+    feats = torch.randn((8, h, w), generator=torch.Generator().manual_seed(1)).to(device)
+    feats += lab.permute(2, 0, 1).repeat(3, 1, 1)[:8] * 0.05
+    mesh = _cuda_mesh(device, n)
+    labs, fs = list(lab.chunk(n)), list(feats.chunk(n, dim=1))
+    gm.superpixel_moments_fused_t.launches = 0
+    lookup.table_lookup.launches = 0
+    got = torch.cat(tg.graph_cut_strip(fs, labs, cfg, h, mesh, "space"))
+    assert gm.superpixel_moments_fused_t.launches == n and lookup.table_lookup.launches == n
+    sp = tg.slic_sharded(labs, h, w, 96, cfg.graph.slic_compactness, cfg.graph.slic_iters,
+                         mesh, "space")
+    gh, gw, _ = sl.grid_shape(h, w, 96)
+    conn = torch.cat(tg.enforce_connectivity_sharded(sp, gh * gw, h, mesh, "space"))
+    assert torch.equal(conn, cn.enforce_connectivity_fused(torch.cat(sp)[None], gh * gw)[0])
+    monkeypatch.setattr(tg, "superpixel_moments_fused_t",
+                        lambda i, f, s, dtype: gm.superpixel_moments_plain(i, f.to(dtype), s,
+                                                                           True))
+    monkeypatch.setattr(tg, "table_lookup", lookup.table_lookup_plain)
+    ref = torch.cat(tg.graph_cut_strip(fs, labs, cfg, h, mesh, "space"))
+    assert torch.equal(got, ref)
