@@ -147,7 +147,27 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    K14 on the same sharded SLIC labels, K5, K17 and K15 each against its
    plain version on one strip; collectives by kind, the fixpoint loops'
    host syncs and ms a call printed as readings;
-9. a JSON line of the kernels (time, plain time, bound, library call), then
+9. the reference's entry points on the kernels: ``graph.graph_segment_batch``
+   (the graph stage the pipeline calls) on the features and Lab of phase
+   4's config3 batch 8 bf16 cell (K11, K14, K17, K15) and config4's pooled
+   8x540x960 grid (K13's passes and updates, K14, K17, K15), its labels
+   bit-equal to phase 4's and phase 4's bit-equal to the stage composed by
+   hand (``_graph_front``, ``ncut_regions``, K15, the unpooling), with its
+   launches; ``ncut_segment`` on image 0 bit-equal to
+   ``graph_segment_batch`` on the batch of one; ``slic`` on one 321x481
+   frame bit-equal to ``slic_batch`` on the batch of 8 (one K11 launch);
+   ``enforce_connectivity_device`` bit-equal to K14 and its plain version;
+   ``slic_batch(impl="fused")`` bit-equal to "auto" on config3's frame and
+   raising on a frame the reference's ``slic_fused_eligible`` refuses;
+   ``kmeans_fused_chw(coarse_iters=15, refine_iters=1)`` on config1's
+   16x321x481 energies (K4 and K2 on the twin, K2 at full resolution) in
+   bf16 (K1's twin handed in) and f32 (pooled inside) against its plain
+   version (aligned agreement >= 0.99 bf16, >= 0.999 f32), launches and ms
+   a call; ``evaluate(debug_nans=True)`` over ``load_split("test",
+   limit=2)`` at config1 bf16 (K1, K3, K2) and config3 bf16 (K1, K11, K14,
+   K17, K15): no FloatingPointError, rows equal to the mode off's, both
+   times;
+10. a JSON line of the kernels (time, plain time, bound, library call), then
    the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances (also in the tests): energies <= 1e-4 * peak (f32), <= 2e-2 *
@@ -1659,6 +1679,11 @@ def main() -> None:
             return kf.kmeans_coarse_centers_xp_plain(xq, k, d, m, iters)
         return kf.kmeans_coarse_centers_xp(xq, k, d, m, iters)
 
+    def slic_batch_plain(lab, n_superpixels, ruler=10.0, n_iter=10, impl="auto"):
+        """The graph stage's SLIC call on K11's plain version (every route
+        gives its labels)."""
+        return sl.slic_plain(lab, n_superpixels, ruler, n_iter)
+
     @contextlib.contextmanager
     def plain_kernels(keep=()):
         """Route the pipeline through the plain versions (on the card), but
@@ -1673,9 +1698,9 @@ def main() -> None:
                  (gf, "em_pass", gf.em_pass_plain),
                  (chol, "precision_chol", chol.precision_chol_plain),
                  (gf, "precision_chol_params", chol.precision_chol_params_plain),
-                 (pl, "slic_batch", sl.slic_plain),
-                 (pl, "enforce_connectivity_fused", sl.enforce_connectivity_plain),
-                 (pl, "table_lookup", lookup.table_lookup_plain),
+                 (gr, "slic_batch", slic_batch_plain),
+                 (gr, "enforce_connectivity_fused", sl.enforce_connectivity_plain),
+                 (gr, "table_lookup", lookup.table_lookup_plain),
                  (gr, "superpixel_moments_fused_t", moments_t_plain)]
         swaps = [(mod, name, fn) for mod, name, fn in swaps if name not in keep]
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -2392,6 +2417,168 @@ def main() -> None:
     del feats_g, labs_g, tiled4, again4, untiled4, feats_u, feats_s
     torch.cuda.empty_cache()
     print(f"phase 8 took {time.perf_counter() - t8:.1f} s ({card})", flush=True)
+
+    # ---- phase 9: the reference's entry points on the kernels -------------
+    t9 = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    def phase9_counts(path, label):
+        """The counts of the run just made: every kernel of ``path``
+        launched; all of them added to the totals."""
+        counts = {name: wrapper.launches for name, wrapper in counters.items()}
+        for name in path:
+            check(counts[name] > 0, f"{name} was never launched on the phase 9 {label} path")
+        for name in totals:
+            totals[name] += counts[name]
+        return {name: counts[name] for name in path}
+
+    phase4 = {label: out for _, _, _, label, out, _, _ in outputs}
+    # (a) graph_segment_batch, the graph stage the pipeline now calls, on
+    # the features and Lab of phase 4's bf16 graph cells: labels bit-equal
+    # to phase 4's, and phase 4's bit-equal to the stage composed by hand
+    # (_graph_front, ncut_regions, K15, the unpooling)
+    feats3 = lab3 = None
+    for cfg, rgb, label, path in (
+            (cfg3.replace(dtype="bfloat16"), rgb8, "config3 batch 8 bf16", graph_path[1:]),
+            (cfg4.replace(dtype="bfloat16"), rgb4, "config4 batch 8 of 2160x3840 bf16",
+             banded_path[1:])):
+        g = cfg.graph
+        x = torch.from_numpy(rgb).to(dev)
+        bank9 = make_bank(cfg.bank)
+        feats9, lab9 = pl._graph_features(x, cfg, bank9)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = gr.graph_segment_batch(feats9, lab9, cfg)
+        torch.cuda.synchronize()
+        gsb_ms = (time.perf_counter() - t0) * 1e3
+        counts = phase9_counts(path, f"graph_segment_batch {label}")
+        got = pl._unpool(got, g.pool).cpu()
+        f_old, sp_old, n_old = pl._graph_front(x, cfg, bank9)
+        regions = gr.ncut_regions(f_old, sp_old, n_old, g.n_regions, g.affinity_sigma,
+                                  gr.resolve_eig_method(g, cfg.dtype, dev),
+                                  g.affinity_sigma_scale)
+        old = pl._unpool(lookup.table_lookup(sp_old, regions).reshape(
+            rgb.shape[0], rgb.shape[1] >> g.pool, rgb.shape[2] >> g.pool), g.pool).cpu()
+        same_new, same_old = torch.equal(got, phase4[label]), torch.equal(old, phase4[label])
+        print(f"phase 9: graph_segment_batch [{label}, features {tuple(feats9.shape)} "
+              f"{feats9.dtype}]: labels bit-equal to phase 4's segment_batch {same_new}, "
+              f"phase 4's bit-equal to the stage composed by hand {same_old}; launches "
+              f"{counts}; {gsb_ms:.2f} ms (one call, host to host, a reading) ({card})",
+              flush=True)
+        check(same_new and same_old, f"phase 9 {label}: graph_segment_batch's labels differ")
+        if feats3 is None:
+            feats3, lab3, cfg9 = feats9, lab9, cfg
+        del x, feats9, lab9, f_old, sp_old
+    # (b) ncut_segment on image 0 is graph_segment_batch's batch of one
+    g = cfg9.graph
+    eig9 = gr.resolve_eig_method(g, cfg9.dtype, dev)
+    one = gr.ncut_segment(feats3[0], lab3[0], g.n_superpixels, g.n_regions, g.slic_compactness,
+                          g.slic_iters, g.affinity_sigma, eig9, g.affinity_sigma_scale)
+    batch1 = gr.graph_segment_batch(feats3[:1], lab3[:1], cfg9)[0]
+    same_ncut = torch.equal(one, batch1)
+    # (c) slic on one 321x481 frame against slic_batch on the batch of 8;
+    # (d) enforce_connectivity_device against K14 and its plain version;
+    # (e) slic_batch(impl="fused") on config3's frame and on a frame the
+    # reference's slic_fused_eligible refuses (a grid too wide for a window)
+    zero_counts()
+    sp_one = sl.slic(lab3[0], g.n_superpixels, g.slic_compactness, g.slic_iters)
+    slic_launches = sf.slic_w3.launches
+    sp_all = sf.slic_batch(lab3, g.n_superpixels, g.slic_compactness, g.slic_iters)
+    same_slic = torch.equal(sp_one, sp_all[0])
+    gh9, gw9, _ = sl.grid_shape(*sp_one.shape, g.n_superpixels)
+    conn = sl.enforce_connectivity_device(sp_all, gh9 * gw9)
+    same_conn = (torch.equal(conn, cn.enforce_connectivity_fused(sp_all, gh9 * gw9))
+                 and torch.equal(conn, sl.enforce_connectivity_plain(sp_all, gh9 * gw9)))
+    fused_same = torch.equal(sf.slic_batch(lab3, g.n_superpixels, g.slic_compactness,
+                                           g.slic_iters, "fused"), sp_all)
+    try:
+        sf.slic_batch(torch.zeros((1, 30, 440, 3), device=dev), 132, impl="fused")
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    print(f"phase 9: ncut_segment(features[0], lab[0]) [config3 bf16] bit-equal to "
+          f"graph_segment_batch on the batch of one {same_ncut} (eig {eig9}); slic on one "
+          f"{tuple(sp_one.shape)} frame bit-equal to slic_batch(...)[0] on the batch of 8 "
+          f"{same_slic} (K11 launches {slic_launches}); enforce_connectivity_device "
+          f"bit-equal to K14 and its plain version {same_conn}; slic_batch(impl='fused') "
+          f"runs config3's frame bit-equal to impl='auto' {fused_same} and refuses 30x440 "
+          f"with S = 132, as slic_fused_eligible: {refused!r} ({card})", flush=True)
+    check(same_ncut and same_slic and same_conn and fused_same and slic_launches == 1
+          and refused is not None and "ineligible" in refused,
+          "phase 9: the graph and SLIC entry points disagree with the batched path")
+    del feats3, lab3, one, batch1, sp_one, sp_all, conn
+    torch.cuda.empty_cache()
+
+    # (f) kmeans_fused_chw's own multigrid (coarse_iters 15, refine_iters 1)
+    # on config1's energies: K4 and K2 on the 2x2 twin (K1's own twin in
+    # bf16, pooled here in f32), then K2 at full resolution
+    color9 = pl._color_transform(torch.from_numpy(rgb16).to(dev), "lab")
+    groups9 = bank_tensors(make_bank(cfg1.bank), dev)
+    k9 = cfg1.cluster.k
+    for dt, floor, twin_given in ((torch.bfloat16, 0.99, True), (torch.float32, 0.999, False)):
+        tag9 = f"config1 16x321x481 {'bf16' if dt == torch.bfloat16 else 'f32'}"
+        e9, tw9 = fused.gabor_energies_fused(color9, groups9, dt, pooled=True)
+        xc9 = kc.build_color4(color9, dt)
+        pc9 = ft._pool2x2_cm(xc9)
+        aff9 = kc._affine_params(e9, xc9, cfg1.cluster, 1e-6, pooled=(tw9, pc9))
+        kw9 = dict(coarse_iters=15, refine_iters=1,
+                   pooled=(tw9, pc9) if twin_given else None)
+        zero_counts()
+        lab_k, _ = kc.kmeans_fused_chw(e9, xc9, aff9, k9, **kw9)
+        counts = phase9_counts(["maximin_chw_pass", "lloyd_chw_pass"], f"kmeans_fused_chw {tag9}")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again, _ = kc.kmeans_fused_chw(e9, xc9, aff9, k9, **kw9)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        with plain_kernels():
+            lab_p, _ = kc.kmeans_fused_chw(e9, xc9, aff9, k9, **kw9)
+        lab_k, lab_p = lab_k.cpu().numpy(), lab_p.cpu().numpy()
+        each = [aligned_agreement(lab_k[i], lab_p[i]) for i in range(len(lab_k))]
+        print(f"phase 9: kmeans_fused_chw [{tag9}, coarse_iters 15, refine_iters 1, twin "
+              f"{'K1s' if twin_given else 'pooled inside'}]: against its plain version min "
+              f"aligned agreement {min(each):.6f} (floor {floor}), launches {counts}, two calls "
+              f"equal {np.array_equal(again.cpu().numpy(), lab_k)}; "
+              f"{statistics.median(times):.2f} ms a call (median of 3, host to host) "
+              f"({card})", flush=True)
+        check(min(each) >= floor and np.array_equal(again.cpu().numpy(), lab_k),
+              f"phase 9: kmeans_fused_chw's multigrid disagrees with its plain version ({tag9})")
+        del e9, tw9, xc9, pc9, again
+    del color9
+    torch.cuda.empty_cache()
+
+    # (g) evaluate(debug_nans=True): every operation's and kernel's
+    # floating-point outputs checked for NaN; the rows equal the mode off's
+    split9 = ev.load_split("test", limit=2)
+    for cfg, label, path in (
+            (cfg1, "config1 bf16", ["gabor_energies_fused", "kmeans_coarse_centers_xp",
+                                    "lloyd_chw_pass"]),
+            (cfg3.replace(dtype="bfloat16"), "config3 bf16", graph_path)):
+        rows9, secs9 = {}, {}
+        for on in (False, True):
+            path9 = os.path.join(out_dir, f"eval_debug_nans_{label.split()[0]}_"
+                                 f"{'on' if on else 'off'}.jsonl")
+            if os.path.exists(path9):
+                os.remove(path9)
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev.evaluate(split9, cfg, out_path=path9, debug_nans=on, device="cuda")
+            secs9[on] = time.perf_counter() - t0
+            counts9 = phase9_counts(path, f"{label} evaluate(debug_nans={on})")
+            with open(path9) as f:
+                rows9[on] = [json.loads(line) for line in f]
+        print(f"phase 9: evaluate(debug_nans=True) over load_split('test', limit=2) [{label}]: "
+              f"no FloatingPointError, rows equal to the mode off's "
+              f"{rows9[True] == rows9[False]}, launches {counts9}; {secs9[True]:.2f} s with "
+              f"the mode, {secs9[False]:.2f} s without (host metrics included, readings) "
+              f"({card})", flush=True)
+        check(rows9[True] == rows9[False] and len(rows9[True]) == 2,
+              f"phase 9: evaluate(debug_nans=True) gave other rows ({label})")
+    print(f"phase 9 took {time.perf_counter() - t9:.1f} s ({card})", flush=True)
 
 
     print(json.dumps({"kernels": [

@@ -76,9 +76,10 @@ def swapped(pairs):
 
 PLAIN_K1 = [((pl, "gabor_energies_fused"), fused.gabor_energies_fused_plain),
             ((tiled, "gabor_energies_fused"), fused.gabor_energies_fused_plain)]
-PLAIN_GRAPH = [((pl, "slic_batch"), sl.slic_plain),
-               ((pl, "enforce_connectivity_fused"), sl.enforce_connectivity_plain),
-               ((pl, "table_lookup"), lookup.table_lookup_plain)]
+PLAIN_GRAPH = [((graph, "slic_batch"),
+                lambda lab, n_sp, ruler, n_iter, impl: sl.slic_plain(lab, n_sp, ruler, n_iter)),
+               ((graph, "enforce_connectivity_fused"), sl.enforce_connectivity_plain),
+               ((graph, "table_lookup"), lookup.table_lookup_plain)]
 
 
 def agree(a: np.ndarray, r: np.ndarray) -> float:

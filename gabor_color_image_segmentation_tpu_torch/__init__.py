@@ -19,3 +19,15 @@ window, the graph stage on the pooled grid), through
 the graph stage's host-side min-cut through ``segment_images``; both run on
 the card unless the caller passes ``device="cpu"``.
 """
+
+from gabor_color_image_segmentation_tpu_torch.config import (
+    PRESETS,
+    BankConfig,
+    ClusterConfig,
+    GraphConfig,
+    PipelineConfig,
+    preset,
+)
+
+__all__ = ["BankConfig", "ClusterConfig", "GraphConfig", "PipelineConfig", "PRESETS",
+           "preset"]

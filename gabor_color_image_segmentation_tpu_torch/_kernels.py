@@ -10,7 +10,8 @@ sources grow; any failed compile or link raises with its log). The library goes 
 an edited source rebuilds and an unchanged one loads the cached build. It is
 loaded with ``ctypes``: every pointer and the CUDA stream travel as ``c_void_p``,
 every C entry point returns ``cudaGetLastError()`` after its launches, and
-:func:`launch` raises on a non-zero code.
+:func:`launch` raises on a non-zero code, and under ``utils.debug.debug_nans``
+checks the launch's outputs for NaN.
 
 Without ``nvcc`` (or without a card) the kernels cannot run, and the
 wrappers raise: no wrapper falls back to its plain PyTorch version for a
@@ -28,6 +29,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from gabor_color_image_segmentation_tpu_torch.utils.debug import check_kernel_outputs
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -132,9 +135,12 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, outputs: tuple = ()) -> None:
     """Call C entry point ``name`` on the current CUDA stream (appended as
-    the last argument) and raise if it reports a CUDA error."""
+    the last argument) and raise if it reports a CUDA error. ``outputs``,
+    the tensors the launch writes, are checked for NaN under
+    ``utils.debug.debug_nans`` (the kernels write outside the dispatcher
+    that mode watches)."""
     lib = library()
     rc = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -142,6 +148,8 @@ def launch(name: str, *args) -> None:
             f"{name} failed: CUDA error {rc} "
             f"({lib.gcis_error_string(rc).decode()})"
         )
+    if outputs:
+        check_kernel_outputs(name, outputs)
 
 
 def sm_count(device: torch.device) -> int:

@@ -190,8 +190,10 @@ def main(argv=None):
     p_eval.add_argument("--profile", default=None,
                         help="directory for a torch.profiler Chrome trace of the loop")
     p_eval.add_argument("--debug-nans", action="store_true",
-                        help="the JAX package's jax_debug_nans; not available in the "
-                        "PyTorch port (raises NotImplementedError)")
+                        help="check every operation's and kernel's floating-point "
+                        "outputs for NaN, as the JAX package's jax_debug_nans: the first "
+                        "one raises FloatingPointError naming it (slow: each check waits "
+                        "for the device)")
     p_eval.add_argument(
         "--sweep-k",
         default=None,

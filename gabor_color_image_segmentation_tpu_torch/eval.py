@@ -12,7 +12,10 @@ yields a row with its error, never a batch abort.
 PyTorch versions on the CPU. ``profile_dir`` records the loop with
 ``torch.profiler`` (CPU and, on the card, CUDA activity) and writes a
 Chrome trace there. ``debug_nans`` (the reference's ``jax_debug_nans``)
-has no counterpart in torch and raises NotImplementedError.
+runs the segmentation under ``utils.debug.debug_nans``: every operation's
+floating-point outputs, and every kernel's, are checked, and the first NaN
+raises FloatingPointError naming the operation. Each check waits for the
+device, so the loop runs slower with it on.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from gabor_color_image_segmentation_tpu_torch.models.pipeline import (
     segment_images,
 )
 from gabor_color_image_segmentation_tpu_torch.ops.bank import make_bank
+from gabor_color_image_segmentation_tpu_torch.utils.debug import debug_nans as nan_check
 
 log = logging.getLogger("gaborseg_torch.eval")
 
@@ -90,11 +94,6 @@ def evaluate(
     device=None,
 ) -> dict:
     """Run cfg over (id, rgb, gts) items -> summary dict; jsonl side effect."""
-    if debug_nans:
-        raise NotImplementedError(
-            "debug_nans (the JAX package's jax_debug_nans) has no counterpart in "
-            "the PyTorch port: torch has no mode that checks every operation's "
-            "output for NaN")
     dev = _resolve_device(device)
     bank = make_bank(cfg.bank)
     done = _done_ids(out_path) if (resume and out_path) else set()
@@ -112,7 +111,8 @@ def evaluate(
                 gts = [c[2] for c in chunk]
                 pixels += rgbs.shape[0] * rgbs.shape[1] * rgbs.shape[2]
                 t0 = time.perf_counter()
-                labels = segment_images(rgbs, cfg, bank, device=dev).cpu().numpy()
+                with nan_check(debug_nans):
+                    labels = segment_images(rgbs, cfg, bank, device=dev).cpu().numpy()
                 log.info(
                     "batch %s..%s: segment %.1f ms (%d images)",
                     ids[0], ids[-1], (time.perf_counter() - t0) * 1e3, len(ids),

@@ -63,7 +63,7 @@ def precision_chol(covs: torch.Tensor):
     pt = torch.empty_like(covs)
     diag = torch.empty((m, d), dtype=torch.float32, device=covs.device)
     _kernels.launch("gcis_precision_chol", covs.data_ptr(), pt.data_ptr(),
-                    diag.data_ptr(), m, d)
+                    diag.data_ptr(), m, d, outputs=(pt, diag))
     precision_chol.launches += 1
     return pt, diag
 
@@ -125,7 +125,7 @@ def precision_chol_params(counts: torch.Tensor, sums: torch.Tensor, scatter: tor
     const = torch.empty_like(counts)
     _kernels.launch("gcis_precision_chol_params", counts.data_ptr(), sums.data_ptr(),
                     scatter.data_ptr(), pt.data_ptr(), bias.data_ptr(), const.data_ptr(),
-                    b * k, d, float(m_rows), float(reg_covar))
+                    b * k, d, float(m_rows), float(reg_covar), outputs=(pt, bias, const))
     precision_chol_params.launches += 1
     return pt, bias, const
 

@@ -198,7 +198,7 @@ def em_pass(x, pt, bias, const, moments: bool = True):
         "gcis_em_pass", x.data_ptr(), pt.data_ptr(), bias.data_ptr(), const.data_ptr(),
         codes.data_ptr(), labels.data_ptr(), None if partial is None else partial.data_ptr(),
         None if packed is None else packed.data_ptr(), b, d, n, k, chunks, codes.numel(),
-        _kernels.storage_code(x.dtype), int(moments),
+        _kernels.storage_code(x.dtype), int(moments), outputs=(packed,) if moments else (),
     )
     em_pass.launches += 1
     if not moments:

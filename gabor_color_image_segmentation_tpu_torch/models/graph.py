@@ -13,8 +13,15 @@ superpixel sums and counts: the reference takes them with a one-hot
 matmul (its Pallas moments kernels K16-K18 are off its path), the port
 with K17's segmented sum (models/graph_fused.py), which reads the features
 once. Everything runs on the device of its inputs with no host sync of its
-own; the other graph-stage kernels (K11 or K13, K14, K15) are called by
-the pipeline.
+own.
+
+The entry points keep the reference's names and contracts:
+``graph_segment_batch`` (the pipeline's graph stage: SLIC through K11 or
+K13, connectivity K14, the batched n-cut, the region ids broadcast to the
+pixels by K15), ``ncut_segment`` (one image through ``slic``,
+``enforce_connectivity_device`` and ``ncut_from_superpixels``) and
+``ncut_from_superpixels`` (one image's n-cut on given superpixels). On CPU
+tensors each runs the kernels' plain versions.
 
 Where the two libraries differ the port follows the reference:
 ``jnp.median`` of an even count is the mean of the two middle values
@@ -34,21 +41,51 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gabor_color_image_segmentation_tpu_torch.config import PipelineConfig
+from gabor_color_image_segmentation_tpu_torch.models.connectivity import (
+    enforce_connectivity_fused,
+)
 from gabor_color_image_segmentation_tpu_torch.models.graph_fused import (
     superpixel_moments_fused_t,
 )
 from gabor_color_image_segmentation_tpu_torch.models.kmeans import kmeans_batched
+from gabor_color_image_segmentation_tpu_torch.models.slic import (
+    enforce_connectivity_device,
+    grid_shape,
+    slic,
+)
+from gabor_color_image_segmentation_tpu_torch.models.slic_fused import slic_batch
+from gabor_color_image_segmentation_tpu_torch.ops.lookup import table_lookup
+
+
+def resolve_graph_impls(g, dtype: str) -> Tuple[str, str]:
+    """(GraphConfig, pipeline dtype) -> (slic_impl, eig_method), the
+    reference's mapping: in float32 parity mode "auto" resolves to "xla"
+    and "eigh"; in bfloat16 production mode it stays "auto", which
+    ``spectral_labels`` resolves by device (the subspace iteration on the
+    card, the dense eigh on the CPU); explicit settings win. Every
+    ``slic_impl`` runs the port's one exact-float32 SLIC (slic_batch)."""
+    slic_impl, eig_method = g.slic_impl, g.eig_method
+    if dtype == "float32":
+        if slic_impl == "auto":
+            slic_impl = "xla"
+        if eig_method == "auto":
+            eig_method = "eigh"
+    return slic_impl, eig_method
+
+
+def _eig_on(eig_method: str, device: torch.device) -> str:
+    """"auto" -> "subspace" on the card (the reference's choice on its
+    TPU), "eigh" elsewhere; any other method as it is."""
+    if eig_method != "auto":
+        return eig_method
+    return "subspace" if device.type == "cuda" else "eigh"
 
 
 def resolve_eig_method(g, dtype: str, device: torch.device) -> str:
-    """(GraphConfig, pipeline dtype, device) -> "eigh" | "subspace" (the
-    reference's resolve_graph_impls with "cuda" in place of "tpu"): "auto"
-    is the subspace iteration on the card in bfloat16 production mode and
-    the dense eigh in float32 parity mode or on the CPU. The port has one
-    SLIC, exact float32, so ``slic_impl`` chooses nothing."""
-    if g.eig_method != "auto":
-        return g.eig_method
-    return "subspace" if (device.type == "cuda" and dtype == "bfloat16") else "eigh"
+    """(GraphConfig, pipeline dtype, device) -> "eigh" | "subspace":
+    ``resolve_graph_impls``' eig_method, "auto" resolved for ``device``."""
+    return _eig_on(resolve_graph_impls(g, dtype)[1], device)
 
 
 def superpixel_means(features: torch.Tensor, labels: torch.Tensor,
@@ -127,9 +164,11 @@ def smallest_eigvecs_subspace(l_sym: torch.Tensor, k: int, n_iter: int = 80,
 
 
 def spectral_labels(w: torch.Tensor, n_regions: int, n_iter: int = 30,
-                    eig_method: str = "eigh") -> torch.Tensor:
+                    eig_method: str = "auto") -> torch.Tensor:
     """(B, S, S) affinity -> (B, S) int32 region labels via the
-    normalized-cut embedding."""
+    normalized-cut embedding; eig_method "auto" is the subspace iteration
+    on the card and the dense eigh on the CPU."""
+    eig_method = _eig_on(eig_method, w.device)
     s = w.shape[1]
     deg = w.sum(dim=2)
     d_isqrt = 1.0 / torch.sqrt(torch.clamp(deg, min=1e-12))
@@ -147,13 +186,78 @@ def spectral_labels(w: torch.Tensor, n_regions: int, n_iter: int = 30,
 
 
 def ncut_regions(features: torch.Tensor, sp: torch.Tensor, n_sp: int, n_regions: int,
-                 affinity_sigma: Optional[float] = None, eig_method: str = "eigh",
+                 affinity_sigma: Optional[float] = None, eig_method: str = "auto",
                  sigma_scale: float = 1.0) -> torch.Tensor:
     """(B, D, N) features + (B, N) superpixel labels -> (B, S) int32 region
     ids."""
     f, counts = superpixel_means(features, sp, n_sp)
     aff = affinity_matrix(f, affinity_sigma, counts, sigma_scale)
     return spectral_labels(aff, n_regions, eig_method=eig_method)
+
+
+def ncut_from_superpixels(features: torch.Tensor, sp: torch.Tensor, n_sp: int,
+                          n_regions: int, affinity_sigma: Optional[float] = None,
+                          eig_method: str = "auto", sigma_scale: float = 1.0) -> torch.Tensor:
+    """One image: (H, W, D) features + (H, W) superpixel labels in [0, n_sp)
+    -> (H, W) int32 region labels (the region ids broadcast by K15)."""
+    features, sp = torch.as_tensor(features), torch.as_tensor(sp)
+    h, w, d = features.shape
+    sp = sp.reshape(1, h * w).to(torch.int32)
+    feats = features.permute(2, 0, 1).reshape(1, d, h * w)
+    regions = ncut_regions(feats, sp, n_sp, n_regions, affinity_sigma, eig_method, sigma_scale)
+    return table_lookup(sp, regions).reshape(h, w)
+
+
+def ncut_segment(features: torch.Tensor, lab: torch.Tensor, n_superpixels: int,
+                 n_regions: int, ruler: float = 10.0, slic_iters: int = 10,
+                 affinity_sigma: Optional[float] = None, eig_method: str = "auto",
+                 sigma_scale: float = 1.0) -> torch.Tensor:
+    """One image: (H, W, D) features + (H, W, 3) Lab -> (H, W) int32 region
+    labels: ``slic``, ``enforce_connectivity_device``, then
+    ``ncut_from_superpixels``."""
+    features = torch.as_tensor(features)
+    h, w, _ = features.shape
+    sp = slic(lab, n_superpixels, ruler, slic_iters)
+    gh, gw, _ = grid_shape(h, w, n_superpixels)
+    sp = enforce_connectivity_device(sp[None], gh * gw)[0]
+    return ncut_from_superpixels(features, sp, gh * gw, n_regions, affinity_sigma,
+                                 eig_method, sigma_scale)
+
+
+def superpixels(lab: torch.Tensor, g, slic_impl: str = "auto") -> Tuple[torch.Tensor, int]:
+    """(B, H, W, 3) float32 Lab -> ((B, H, W) int32 4-connected superpixels,
+    their count S): ``slic_batch`` under ``g``'s settings, then K14 (the
+    reference's connectivity pass, which its graph stage runs after SLIC)."""
+    _, h, w, _ = lab.shape
+    gh, gw, _ = grid_shape(h, w, g.n_superpixels)
+    sp = slic_batch(lab, g.n_superpixels, g.slic_compactness, g.slic_iters, slic_impl)
+    return enforce_connectivity_fused(sp, gh * gw), gh * gw
+
+
+def graph_segment_batch(features: torch.Tensor, lab: torch.Tensor,
+                        cfg: PipelineConfig) -> torch.Tensor:
+    """(B, H, W, D) features + (B, H, W, 3) float32 Lab -> (B, H, W) int32
+    region labels of the n-cut: ``superpixels`` (K11 or K13, then K14), the
+    batched n-cut with the superpixel sums from K17, and the region ids
+    broadcast to the pixels by K15.
+
+    K17 reads the features channel-major: where ``features`` is the
+    (B, H, W, D) view of a channel-major buffer (what ``assemble_features``
+    returns), that buffer is read in place; any other layout is copied once.
+    The min-cut is host-side (``mincut_segment``, through
+    ``pipeline.segment_images``) and raises here, as the reference's."""
+    g = cfg.graph
+    if g.cut != "ncut":
+        raise ValueError(f"cut={g.cut!r} is host-side (see mincut_segment); "
+                         "use pipeline.segment_images")
+    b, h, w, d = features.shape
+    slic_impl, eig_method = resolve_graph_impls(g, cfg.dtype)
+    sp, n_sp = superpixels(lab, g, slic_impl)
+    sp = sp.reshape(b, h * w)
+    feats = features.permute(0, 3, 1, 2).reshape(b, d, h * w)
+    regions = ncut_regions(feats, sp, n_sp, g.n_regions, g.affinity_sigma, eig_method,
+                           g.affinity_sigma_scale)
+    return table_lookup(sp, regions).reshape(b, h, w)
 
 
 # ---------------------------------------------------------------------------

@@ -122,7 +122,7 @@ def _moments(idx: torch.Tensor, feats: torch.Tensor, n_sp: int, channel_major: b
     _kernels.launch("gcis_superpixel_moments", feats.data_ptr(), idx.data_ptr(),
                     sums.data_ptr(), counts.data_ptr(), part.data_ptr(), ranges.data_ptr(),
                     b, d, n, n_sp, chunk, n_chunks, ch_stride, px_stride,
-                    _kernels.storage_code(feats.dtype))
+                    _kernels.storage_code(feats.dtype), outputs=(sums, counts))
     wrapper.launches += 1
     return sums, counts
 

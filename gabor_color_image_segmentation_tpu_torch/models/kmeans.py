@@ -21,6 +21,8 @@ reference computes them in XLA).
 
 from __future__ import annotations
 
+import functools
+
 from typing import Optional, Tuple
 
 import torch
@@ -56,6 +58,7 @@ def _batched(fn):
     axis is added to x and to every tensor argument, and taken off every
     tensor it returns."""
 
+    @functools.wraps(fn)
     def wrapper(x, *args, **kw):
         if x.dim() == 3:
             return fn(x, *args, **kw)
@@ -63,7 +66,6 @@ def _batched(fn):
         kw = {n: a[None] if isinstance(a, torch.Tensor) else a for n, a in kw.items()}
         return _first(fn(x[None], *args, **kw))
 
-    wrapper.__doc__, wrapper.__name__ = fn.__doc__, fn.__name__
     return wrapper
 
 

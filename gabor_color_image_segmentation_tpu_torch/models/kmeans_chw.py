@@ -29,7 +29,10 @@ from typing import Optional, Tuple
 import torch
 
 from gabor_color_image_segmentation_tpu_torch import _kernels
-from gabor_color_image_segmentation_tpu_torch.ops.features import fold_coherence_affine
+from gabor_color_image_segmentation_tpu_torch.ops.features import (
+    _pool2x2_cm,
+    fold_coherence_affine,
+)
 
 K_MAX = 8  # centre rows the kernels hold
 _TILE = 256  # pixels per block of K4
@@ -170,7 +173,7 @@ def lloyd_chw_pass(xe, xc4, wc, offs, assign_only=False):
         offs.data_ptr(), labels.data_ptr(),
         *(None if t is None else t.data_ptr() for t in (partial, sums, accs)),
         b, e, n, k, _kernels.storage_code(xe.dtype), p, stages, rb, ctas, tpc,
-        int(assign_only),
+        int(assign_only), outputs=() if assign_only else (sums,),
     )
     lloyd_chw_pass.launches += 1
     if assign_only:
@@ -221,6 +224,7 @@ def maximin_chw_pass(xe, xc4, a2, probe, dmin, reset: bool):
         "gcis_maximin_chw", xe.data_ptr(), xc4.data_ptr(), a2.data_ptr(),
         probe.data_ptr(), dmin.data_ptr(), bestv.data_ptr(), besti.data_ptr(),
         best.data_ptr(), b, e, n, _kernels.storage_code(xe.dtype), int(reset),
+        outputs=(dmin, best),
     )
     maximin_chw_pass.launches += 1
     return best
@@ -296,7 +300,7 @@ def build_color4(color: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def kmeans_fused_chw(
-    energies: torch.Tensor,
+    energies_cm,
     color4: torch.Tensor,
     affine: Tuple[torch.Tensor, torch.Tensor],
     k: int,
@@ -304,18 +308,32 @@ def kmeans_fused_chw(
     refine_iters: int = 10,
     init_centers: Optional[torch.Tensor] = None,
     with_labels: bool = True,
+    coarse_iters: int = 0,
+    eps: float = 1e-6,
+    pooled: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Lloyd directly on raw (B, E, H, W) energies + color4 under ``affine``.
 
+    ``energies_cm`` is the (B, E, H, W) tensor or, as the reference takes
+    it, a tuple of per-group (B, E_g, H, W) buffers (concatenated once).
     Returns (labels (B, H, W) int32 or None, centres (B, k, E + 3) float32
     in normalised feature space). With ``init_centers`` (normalised; the
     pipeline's multigrid warm start) it runs up to ``refine_iters`` passes
-    from them; without, maximin seeding and up to ``n_iter`` passes.
-    with_labels=False skips the final assign-only pass."""
+    from them. Without, and with ``coarse_iters`` > 0 on a frame of at
+    least 2x2, the reference's own multigrid: maximin seeding (K4) and up to
+    ``coarse_iters`` passes (K2) on the 2x2 twin (``pooled`` = (energy
+    twin, colour twin) when given, else pooled here from the raw rows,
+    since pooling commutes with the affine), then up to ``refine_iters``
+    full-resolution passes (K2). Otherwise maximin seeding and up to
+    ``n_iter`` passes at full resolution. with_labels=False skips the final
+    assign-only pass. ``eps`` is the reference's parameter, which its body
+    does not read either: the affine already holds it."""
     if k > K_MAX:
         raise ValueError(f"fused chw Lloyd supports k <= {K_MAX}, got {k}")
+    if isinstance(energies_cm, (tuple, list)):
+        energies_cm = torch.cat(list(energies_cm), dim=1)
     a, b_aff = affine
-    mm = energies.dtype
+    mm = energies_cm.dtype
 
     def folded(c):
         u = c - b_aff[:, None, :]
@@ -323,20 +341,31 @@ def kmeans_fused_chw(
         # reference's kernel operands were
         return (a[:, None, :] * u).to(mm).to(torch.float32), u.square().sum(dim=2)
 
-    if init_centers is None:
-        c = _maximin_init_chw(energies, color4, a, b_aff, k)
-        max_iter = n_iter
+    def solve(xe, xc4, c, max_iter):
+        """Up to ``max_iter`` Lloyd passes from ``c`` on one level, stopping
+        at the fixed point, where further passes are identities."""
+        for _ in range(max_iter):
+            _, sums, counts = lloyd_chw_pass(xe, xc4, *folded(c))
+            raw_mean = sums / torch.clamp(counts, min=1.0)[:, :, None]
+            new = a[:, None, :] * raw_mean + b_aff[:, None, :]
+            new = torch.where(counts[:, :, None] > 0, new, c)
+            changed = bool((new != c).any())
+            c = new
+            if not changed:
+                break
+        return c
+
+    h, w = energies_cm.shape[2:]
+    if init_centers is not None:
+        c = solve(energies_cm, color4, init_centers, refine_iters)
+    elif coarse_iters > 0 and h >= 2 and w >= 2:
+        pe, pc = pooled if pooled is not None else (_pool2x2_cm(energies_cm),
+                                                    _pool2x2_cm(color4))
+        c = solve(pe, pc, _maximin_init_chw(pe, pc, a, b_aff, k), coarse_iters)
+        c = solve(energies_cm, color4, c, refine_iters)
     else:
-        c, max_iter = init_centers, refine_iters
-    for _ in range(max_iter):
-        _, sums, counts = lloyd_chw_pass(energies, color4, *folded(c))
-        raw_mean = sums / torch.clamp(counts, min=1.0)[:, :, None]
-        new = a[:, None, :] * raw_mean + b_aff[:, None, :]
-        new = torch.where(counts[:, :, None] > 0, new, c)
-        changed = bool((new != c).any())
-        c = new
-        if not changed:  # the Lloyd fixed point: further passes are identities
-            break
+        c = solve(energies_cm, color4, _maximin_init_chw(energies_cm, color4, a, b_aff, k),
+                  n_iter)
     if not with_labels:
         return None, c
-    return lloyd_chw_pass(energies, color4, *folded(c), True), c
+    return lloyd_chw_pass(energies_cm, color4, *folded(c), True), c

@@ -174,7 +174,7 @@ def kmeans_coarse_centers_xp(xp, k: int, d: int, m: int, coarse_iters: int):
     dmin = torch.empty((b, m), dtype=torch.float32, device=xp.device)
     _kernels.launch(
         "gcis_coarse_centers", xp.data_ptr(), centers.data_ptr(), dmin.data_ptr(),
-        b, rows, cols, d, m, k, coarse_iters, code, ctas,
+        b, rows, cols, d, m, k, coarse_iters, code, ctas, outputs=(centers,),
     )
     kmeans_coarse_centers_xp.launches += 1
     return centers
@@ -273,6 +273,7 @@ def lloyd_t_pass(x, centers, assign_only: bool = False):
             "gcis_lloyd_t", x.data_ptr(), centers.data_ptr(), labels.data_ptr(),
             *(None if assign_only else t.data_ptr() for t in (sums, part, counters)),
             b, d, n, k, _kernels.storage_code(x.dtype), int(assign_only), cpi,
+            outputs=() if assign_only else (sums,),
         )
     lloyd_t_pass.launches += 1
     if assign_only:
@@ -331,7 +332,7 @@ def maximin_t_pass(x, probe, dmin, reset: bool):
             "gcis_maximin_t", x.data_ptr(), probe.data_ptr(), dmin.data_ptr(),
             bestv.data_ptr(), besti.data_ptr(), best.data_ptr(),
             _counters(x.device, b).data_ptr(), b, d, n, _kernels.storage_code(x.dtype),
-            int(reset), cpi,
+            int(reset), cpi, outputs=(dmin, best),
         )
     maximin_t_pass.launches += 1
     return best
@@ -448,7 +449,8 @@ def lloyd_pass(x, centers, k: int):
         _kernels.launch("gcis_lloyd_rows", x.data_ptr(), centers.data_ptr(), labels.data_ptr(),
                         sums.data_ptr(), *ptrs,
                         _counters(x.device, b * (ngrp + 1)).data_ptr(), b, d, n, k,
-                        _kernels.storage_code(x.dtype), ctas, tpc, p, stages, vb)
+                        _kernels.storage_code(x.dtype), ctas, tpc, p, stages, vb,
+                        outputs=(sums[:, :w],))
     lloyd_pass.launches += 1
     sums = sums[:, :w].view(b, k, d + 1)
     return labels, sums[:, :, :d], sums[:, :, d]

@@ -67,10 +67,11 @@ graph (config3, config4; ``segment_batch`` for the n-cut,
   4. SLIC superpixels on the float32 Lab (K11 under the reference's
      whole-image gate, the banded K13 above it, as models/slic_fused.py
      routes) and connectivity enforcement (K14);
-  5. n-cut: superpixel means, affinity, spectral embedding and k-means,
-     batched over the images (models/graph.py), then the region ids
-     broadcast to pixels (K15); or min-cut: the greedy merge on the host
-     per image;
+  5. n-cut: ``graph.graph_segment_batch`` on the features and the Lab
+     (steps 4 and 5 there: superpixel means, affinity, spectral embedding
+     and k-means, batched over the images, then the region ids broadcast
+     to pixels by K15); or min-cut: the greedy merge on the host per
+     image;
   6. with pooling, each label repeated 2^pool times along both axes.
 """
 
@@ -82,15 +83,12 @@ import numpy as np
 import torch
 
 from gabor_color_image_segmentation_tpu_torch.config import PipelineConfig
-from gabor_color_image_segmentation_tpu_torch.models.connectivity import (
-    enforce_connectivity_fused,
-)
 from gabor_color_image_segmentation_tpu_torch.models.gmm import gmm_fit_levels, gmm_predict
 from gabor_color_image_segmentation_tpu_torch.models.gmm_fused import gmm_fused_t, gmm_fused_t_xt
 from gabor_color_image_segmentation_tpu_torch.models.graph import (
+    graph_segment_batch,
     mincut_segment,
-    ncut_regions,
-    resolve_eig_method,
+    superpixels,
 )
 from gabor_color_image_segmentation_tpu_torch.models.kmeans import (
     PIPELINE_N_MAX,
@@ -106,8 +104,6 @@ from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import (
     kmeans_coarse_centers_xp,
     kmeans_fused_t_xt,
 )
-from gabor_color_image_segmentation_tpu_torch.models.slic import grid_shape
-from gabor_color_image_segmentation_tpu_torch.models.slic_fused import slic_batch
 from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
 from gabor_color_image_segmentation_tpu_torch.ops.color import rgb_to_lab
 from gabor_color_image_segmentation_tpu_torch.ops.features import (
@@ -117,7 +113,6 @@ from gabor_color_image_segmentation_tpu_torch.ops.features import (
     gabor_energies,
 )
 from gabor_color_image_segmentation_tpu_torch.ops.fused import gabor_energies_fused
-from gabor_color_image_segmentation_tpu_torch.ops.lookup import table_lookup
 from gabor_color_image_segmentation_tpu_torch.ops.modulated import gabor_energies_mod
 from gabor_color_image_segmentation_tpu_torch.ops.precision import (
     set_policy,
@@ -139,7 +134,7 @@ def _color_transform(rgb: torch.Tensor, color_space: str) -> torch.Tensor:
 
 def segment_chw_grouped(
     color: torch.Tensor,
-    energies: torch.Tensor,
+    energies_cm: torch.Tensor,
     pooled_e: Optional[torch.Tensor],
     cfg: PipelineConfig,
     fold_twin: Optional[torch.Tensor] = None,
@@ -150,13 +145,13 @@ def segment_chw_grouped(
     the multigrid warm start on, or None for none; fold_twin: the twin for
     the coherence statistics when there is no warm start."""
     _, h, w, _ = color.shape
-    dtype = energies.dtype
+    dtype = energies_cm.dtype
     c = cfg.cluster
     multigrid = pooled_e is not None
     xc4 = build_color4(color, dtype)
     twin = fold_twin if fold_twin is not None else pooled_e
     pc0 = _pool2x2_cm(xc4) if (multigrid or twin is not None) else None
-    affine = _affine_params(energies, xc4, c, 1e-6,
+    affine = _affine_params(energies_cm, xc4, c, 1e-6,
                             pooled=(twin, pc0) if twin is not None else None)
     c0 = None
     if multigrid:
@@ -165,7 +160,7 @@ def segment_chw_grouped(
         for _ in range(c.coarse_levels - 1):
             pe_l, pc_l = _pool2x2_cm(pe_l), _pool2x2_cm(pc_l)
             levels.append((pe_l, pc_l))
-        e = energies.shape[1]
+        e = energies_cm.shape[1]
         m = pe_l.shape[2] * pe_l.shape[3]
         xp = assemble_xp_from_affine(pe_l, pc_l, affine[0], affine[1], dtype)
         c0 = kmeans_coarse_centers_xp(xp, c.k, e + 3, m, c.coarse_iters)
@@ -173,7 +168,7 @@ def segment_chw_grouped(
             for pe_m, pc_m in reversed(levels[:-1]):
                 _, c0 = kmeans_fused_chw(pe_m, pc_m, affine, c.k, 0, c.mid_iters,
                                          init_centers=c0, with_labels=False)
-    labels, _ = kmeans_fused_chw(energies, xc4, affine, c.k, c.n_iter,
+    labels, _ = kmeans_fused_chw(energies_cm, xc4, affine, c.k, c.n_iter,
                                  c.refine_iters, init_centers=c0)
     return labels
 
@@ -271,10 +266,11 @@ def compute_features(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tens
     return assemble_features(energies, color, cfg.cluster)
 
 
-def _graph_front(rgb: torch.Tensor, cfg: PipelineConfig, bank, ncut: bool = True):
-    """(B, H, W, 3) sRGB -> ((B, D, n) standardised features, (B, n) int32
-    connected superpixels of the float32 Lab, their count S), on the grid
-    pooled ``graph.pool`` times (n = (H >> pool) * (W >> pool)).
+def _graph_features(rgb: torch.Tensor, cfg: PipelineConfig, bank, ncut: bool = True):
+    """(B, H, W, 3) sRGB -> ((B, hp, wp, D) standardised features, the
+    (B, hp, wp, 3) float32 Lab), on the grid pooled ``graph.pool`` times
+    (hp, wp = H >> pool, W >> pool). The features are the (B, hp, wp, D)
+    view of ``assemble_features``' channel-major buffer.
 
     The energies follow the reference's graph dispatch: for the n-cut
     (``ncut``) with ``feature_impl="auto"``, batch 1 or float32 takes the
@@ -283,8 +279,7 @@ def _graph_front(rgb: torch.Tensor, cfg: PipelineConfig, bank, ncut: bool = True
     on the pooled energies and the pooled float32 colour, in the energies'
     dtype (bf16 from K1 in bf16 mode, else float32)."""
     b, h, w, _ = rgb.shape
-    g = cfg.graph
-    p = g.pool
+    p = cfg.graph.pool
     if p and (h % (1 << p) or w % (1 << p)):
         raise ValueError(f"graph.pool={p} needs H, W divisible by {1 << p}, got {h}x{w}")
     fcfg = cfg
@@ -296,13 +291,20 @@ def _graph_front(rgb: torch.Tensor, cfg: PipelineConfig, bank, ncut: bool = True
     for _ in range(p):
         color = pool2x2_mean(color, 1)
         lab = color if same else pool2x2_mean(lab, 1)
-    feats = assemble_features(energies, color, cfg.cluster)
-    del energies
-    hp, wp = h >> p, w >> p
-    gh, gw, _ = grid_shape(hp, wp, g.n_superpixels)
-    sp = slic_batch(lab, g.n_superpixels, g.slic_compactness, g.slic_iters)
-    sp = enforce_connectivity_fused(sp, gh * gw)
-    return feats.permute(0, 3, 1, 2).reshape(b, -1, hp * wp), sp.reshape(b, hp * wp), gh * gw
+    return assemble_features(energies, color, cfg.cluster), lab
+
+
+def _graph_front(rgb: torch.Tensor, cfg: PipelineConfig, bank, ncut: bool = True):
+    """(B, H, W, 3) sRGB -> ((B, D, n) standardised features, (B, n) int32
+    connected superpixels of the float32 Lab, their count S), on the grid
+    pooled ``graph.pool`` times (n = (H >> pool) * (W >> pool)): the
+    min-cut's front end (``_graph_features``, then
+    ``graph.superpixels``)."""
+    b = rgb.shape[0]
+    feats, lab = _graph_features(rgb, cfg, bank, ncut)
+    _, hp, wp, _ = feats.shape
+    sp, n_sp = superpixels(lab, cfg.graph)
+    return feats.permute(0, 3, 1, 2).reshape(b, -1, hp * wp), sp.reshape(b, hp * wp), n_sp
 
 
 def _unpool(labels: torch.Tensor, pool: int) -> torch.Tensor:
@@ -314,18 +316,14 @@ def _unpool(labels: torch.Tensor, pool: int) -> torch.Tensor:
 
 def _segment_ncut(rgb: torch.Tensor, cfg: PipelineConfig, bank):
     """(B, H, W, 3) sRGB -> ((B, H, W) int32 region labels of the n-cut,
-    the pooled grid's (B, hp, wp, D) features)."""
-    b, h, w, _ = rgb.shape
+    the pooled grid's (B, hp, wp, D) features): the graph features, then
+    ``graph_segment_batch`` on them, as the reference's segment_batch."""
     g = cfg.graph
     if g.cut != "ncut":
         raise ValueError(f"cut={g.cut!r} is host-side (see mincut_segment); "
                          "use pipeline.segment_images")
-    hp, wp = h >> g.pool, w >> g.pool
-    feats, sp, n_sp = _graph_front(rgb, cfg, bank)
-    regions = ncut_regions(feats, sp, n_sp, g.n_regions, g.affinity_sigma,
-                           resolve_eig_method(g, cfg.dtype, rgb.device), g.affinity_sigma_scale)
-    labels = table_lookup(sp, regions).reshape(b, hp, wp)
-    return _unpool(labels, g.pool), feats.reshape(b, -1, hp, wp).permute(0, 2, 3, 1)
+    feats, lab = _graph_features(rgb, cfg, bank)
+    return _unpool(graph_segment_batch(feats, lab, cfg), g.pool), feats
 
 
 def _segment_mincut(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:

@@ -36,6 +36,12 @@ pointer jumping), bit-equal to ``enforce_connectivity_plain``;
 
 ``enforce_connectivity`` is the copy of the reference's host pass
 (numpy/scipy; largest-shared-border absorption).
+
+The reference's single-image entry points keep its names and contracts:
+``slic`` (one (H, W, 3) image: ``slic_fused.slic_batch`` on a batch of one
+on the card, ``slic_plain`` on the CPU), ``slic_assign`` (its dense masked
+assignment) and ``enforce_connectivity_device`` (K14 on the card,
+``enforce_connectivity_plain`` on the CPU).
 """
 
 from __future__ import annotations
@@ -170,11 +176,11 @@ def slic_moments(rows: torch.Tensor, labels: torch.Tensor, n_sp: int):
     return sums.reshape(b, n_sp, 5), counts.reshape(b, n_sp)
 
 
-def slic_update(cent: torch.Tensor, sums: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+def slic_update(centroids: torch.Tensor, sums: torch.Tensor, cnts: torch.Tensor) -> torch.Tensor:
     """Centroid step with the empty-cluster rule (keep the previous one)."""
-    c = counts.to(torch.float32)[:, :, None]
+    c = cnts.to(torch.float32)[:, :, None]
     new = sums.to(torch.float32) / torch.clamp(c, min=1.0)
-    return torch.where(c > 0, new, cent)
+    return torch.where(c > 0, new, centroids)
 
 
 def slic_plain(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
@@ -193,6 +199,45 @@ def slic_plain(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
     for _ in range(n_iter):
         cent = slic_update(cent, *slic_moments(rows, _assign(z, cent, cand, ok, swt), n_sp))
     return _assign(z, cent, cand, ok, swt).to(torch.int32).reshape(b, h, w)
+
+
+def slic_assign(z: torch.Tensor, centroids: torch.Tensor, neighbor: torch.Tensor,
+                sw: float) -> torch.Tensor:
+    """The reference's assignment: (N, 5) z + (S, 5) centroids [L, a, b, y,
+    x] + (N, S) bool candidate mask -> (N,) int32 argmin of |c|^2 - 2 z.c
+    over the candidates (c the centroids with sw * y, sw * x), the lowest
+    id on ties, as one dense (N, S) score matrix.
+
+    The float32 arithmetic is the reference's term for term, so that ties
+    within rounding fall the same way: |c|^2 summed in column order, and
+    z.c in the order of its five-term float32 dot (a fused multiply-add
+    chain over the even terms and one over the odd, their sum, then the
+    fifth product; each fused step is taken exactly in float64 and rounded
+    once). Not on the pipeline's path, which runs K11-K13."""
+    cs = torch.cat([centroids[:, :3], sw * centroids[:, 3:]], dim=1)
+    csq = cs[:, 0] * cs[:, 0]
+    for j in range(1, 5):
+        csq = csq + cs[:, j] * cs[:, j]
+    prod = [z[:, j, None].double() * cs[None, :, j].double() for j in range(5)]  # exact
+    even = (prod[0].float().double() + prod[2]).float()
+    odd = (prod[1].float().double() + prod[3]).float()
+    dot = (even + odd) + prod[4].float()
+    scores = torch.where(neighbor, csq - 2.0 * dot, _SCORE_INF)
+    return torch.argmin(scores, dim=1).to(torch.int32)
+
+
+def slic(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
+         n_iter: int = 10) -> torch.Tensor:
+    """(H, W, 3) Lab image -> (H, W) int32 superpixel labels in [0, gh * gw):
+    ``slic_fused.slic_batch`` on a batch of one on the card (the kernel
+    ``slic_route`` picks), ``slic_plain`` on the CPU."""
+    from gabor_color_image_segmentation_tpu_torch import _kernels
+    from gabor_color_image_segmentation_tpu_torch.models.slic_fused import slic_batch
+
+    lab = torch.as_tensor(lab).to(torch.float32)[None]
+    if _kernels.use_plain(lab):
+        return slic_plain(lab, n_superpixels, ruler, n_iter)[0]
+    return slic_batch(lab, n_superpixels, ruler, n_iter)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +354,20 @@ def enforce_connectivity_plain(labels: torch.Tensor, n_sp: int,
     min_size, s_max = connectivity_defaults(h, w, n_sp, min_size, s_max)
     lab, _ = _jacobi_adoption(_seeds(labels, connected_components(labels), min_size, s_max))
     return torch.clamp(lab, min=0).to(torch.int32)
+
+
+def enforce_connectivity_device(labels: torch.Tensor, n_sp: int,
+                                min_size: Optional[int] = None,
+                                s_max: Optional[int] = None) -> torch.Tensor:
+    """The reference's name for the connectivity pass: (B, H, W) int32 SLIC
+    labels -> (B, H, W) int32 4-connected superpixels in [0, s_max), K14
+    (``connectivity.enforce_connectivity_fused``) on the card and
+    ``enforce_connectivity_plain`` on the CPU."""
+    from gabor_color_image_segmentation_tpu_torch.models.connectivity import (
+        enforce_connectivity_fused,
+    )
+
+    return enforce_connectivity_fused(labels, n_sp, min_size, s_max)
 
 
 DIST_INF = 0x3FFFFFFF  # csrc/connectivity.cu's INF: no kept pixel in reach

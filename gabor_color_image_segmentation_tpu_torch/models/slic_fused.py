@@ -1,6 +1,6 @@
 """SLIC superpixels on the card: kernels K11, K12 and K13 (counterpart of the
 JAX package's models/slic_pallas.py: _plan, slic_fused_eligible, the fuse
-gate, slic_fused and slic_batch).
+gate, slic_fused and slic_batch, with its ``impl``).
 
 All three compute the exact-float32 SLIC of ``slic_plain`` (models/slic.py)
 and give the same labels; the reference's band plan decides which one runs,
@@ -352,7 +352,8 @@ def slic_w3_pass(lab: torch.Tensor, cent: torch.Tensor, n_superpixels: int, sw: 
              if partials else None)
     geom, scales = _w3_args(lab, plan, n_superpixels, sw)
     _kernels.launch("gcis_slic_w3_pass", lab.data_ptr(), cent.data_ptr(), labels.data_ptr(),
-                    parts.data_ptr() if partials else None, *geom, *scales)
+                    parts.data_ptr() if partials else None, *geom, *scales,
+                    outputs=(parts,) if partials else ())
     slic_w3_pass.launches += 1
     return labels, parts
 
@@ -376,7 +377,7 @@ def slic_w3_update(cent: torch.Tensor, parts: torch.Tensor, h: int, w: int,
     _kernels.check(cent.is_contiguous() and parts.is_contiguous(),
                    "cent and parts must be contiguous")
     _kernels.launch("gcis_slic_w3_update", parts.data_ptr(), cent.data_ptr(), b, plan["gh"],
-                    plan["gw"], plan["ty"], plan["tx"])
+                    plan["gw"], plan["ty"], plan["tx"], outputs=(cent,))
     slic_w3_update.launches += 1
     return cent
 
@@ -402,7 +403,7 @@ def slic_w3(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
     parts = torch.empty((b,) + plan["parts_shape"], dtype=torch.float64, device=lab.device)
     geom, scales = _w3_args(lab, plan, n_superpixels, sw)
     _kernels.launch("gcis_slic", lab.data_ptr(), cent.data_ptr(), labels.data_ptr(),
-                    parts.data_ptr(), *geom, n_iter, *scales)
+                    parts.data_ptr(), *geom, n_iter, *scales, outputs=(cent,))
     slic_w3.launches += 1
     return labels
 
@@ -481,7 +482,7 @@ def slic_band_pass(lab: torch.Tensor, cent: torch.Tensor, bp: dict, sw: float,
     _kernels.launch("gcis_slic_band_pass", lab.data_ptr(), cent.data_ptr(),
                     labels.data_ptr(), parts.data_ptr() if partials else None,
                     b, h, w, bp["gh"], bp["gw"], bp["w_rows"], bp["band_rows"], cols,
-                    *_scales(h, w, bp, sw))
+                    *_scales(h, w, bp, sw), outputs=(parts,) if partials else ())
     slic_band_pass.launches += 1
     return labels, parts
 
@@ -504,7 +505,8 @@ def slic_band_update(cent: torch.Tensor, parts: torch.Tensor, bp: dict, h: int) 
     _kernels.check(cent.is_contiguous() and parts.is_contiguous(),
                    "cent and parts must be contiguous")
     _kernels.launch("gcis_slic_band_update", parts.data_ptr(), cent.data_ptr(), b, h,
-                    bp["gh"], bp["gw"], bp["w_rows"], bp["band_rows"], parts.shape[2])
+                    bp["gh"], bp["gw"], bp["w_rows"], bp["band_rows"], parts.shape[2],
+                    outputs=(cent,))
     slic_band_update.launches += 1
     return cent
 
@@ -733,14 +735,42 @@ def slic_w5(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
 slic_w5.launches = 0
 
 
-def slic_batch(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
+def slic_fused(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
                n_iter: int = 10, plan: str = "auto") -> torch.Tensor:
-    """(B, H, W, 3) float32 Lab -> (B, H, W) int32 superpixel labels in
-    [0, gh * gw), through the kernel ``slic_route`` picks; ``plan`` as the
-    reference's slic_fused takes it."""
+    """The reference's kernel entry point: (B, H, W, 3) float32 Lab -> (B,
+    H, W) int32 superpixel labels through the kernel ``slic_route`` picks.
+    Its callers must check ``slic_fused_eligible`` first, as the
+    reference's: an ineligible frame raises ValueError."""
     _check_lab(lab)
     _, h, w, _ = lab.shape
-    route = slic_route(h, w, n_superpixels, plan)
+    if plan not in ("auto", "w3", "w5"):
+        raise ValueError(f"unknown SLIC plan {plan!r}")
+    if not slic_fused_eligible(h, w, n_superpixels):
+        raise ValueError(f"ineligible shape ({h}x{w}, {n_superpixels} superpixels): the "
+                         "reference has no SLIC kernel here; use slic_batch(impl='auto')")
+    return slic_batch(lab, n_superpixels, ruler, n_iter, "auto", plan)
+
+
+def slic_batch(lab: torch.Tensor, n_superpixels: int, ruler: float = 10.0,
+               n_iter: int = 10, impl: str = "auto", plan: str = "auto") -> torch.Tensor:
+    """(B, H, W, 3) float32 Lab -> (B, H, W) int32 superpixel labels in
+    [0, gh * gw), through the kernel ``slic_route`` picks; ``plan`` as the
+    reference's slic_fused takes it.
+
+    ``impl`` as the reference's: "auto", "xla" or "fused", anything else
+    raises ValueError, and "fused" raises where ``slic_fused_eligible`` is
+    False. All three run the same exact-float32 SLIC on the kernels (the
+    semantics the reference's "xla" asks for, which its bf16x3 kernel did
+    not give); "xla" takes no plan, as the reference's exact path has
+    none."""
+    _check_lab(lab)
+    if impl not in ("auto", "xla", "fused"):
+        raise ValueError(f"unknown SLIC impl {impl!r}")
+    _, h, w, _ = lab.shape
+    if impl == "fused" and not slic_fused_eligible(h, w, n_superpixels):
+        raise ValueError(f"impl='fused' ineligible at {h}x{w} with {n_superpixels} "
+                         "superpixels (slic_fused_eligible is False)")
+    route = slic_route(h, w, n_superpixels, "auto" if impl == "xla" else plan)
     if route == "banded":
         return slic_banded(lab, n_superpixels, ruler, n_iter)
     if route == "w5":

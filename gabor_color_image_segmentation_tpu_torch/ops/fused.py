@@ -148,6 +148,8 @@ def gabor_energies_fused(
             g.env.data_ptr(),
             g.freqs.data_ptr(), g.mus.data_ptr(), g.smooth.data_ptr(),
             b, c, h, w, g.n, g.p, g.r, e, goff, _kernels.storage_code(dtype),
+            outputs=(out[:, goff:goff + g.n * c],)
+            + ((twin[:, goff:goff + g.n * c],) if pooled else ()),
         )
         goff += g.n * c
     gabor_energies_fused.launches += 1

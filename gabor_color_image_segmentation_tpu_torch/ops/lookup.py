@@ -10,7 +10,8 @@ writes four pixels at a time (16 bytes) and reads the table through the
 L1, so a table of any size S >= 1 works. The graph stage uses it to
 broadcast region ids to pixels. The wrapper launches K15 for CUDA tensors
 and runs ``table_lookup_plain`` for CPU tensors. ``idx`` must lie in
-[0, S).
+[0, S). ``table_lookup_int``, the reference's exact form for tables of
+values past bf16's integers, is the same call.
 """
 
 from __future__ import annotations
@@ -47,3 +48,10 @@ def table_lookup(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 table_lookup.launches = 0
+
+
+def table_lookup_int(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The reference's exact lookup for int32 tables of pixel-index-scale
+    values (it splits them into bf16-exact digits for its one-hot matmul
+    kernel): K15 reads int32 tables exactly, so this is ``table_lookup``."""
+    return table_lookup(idx, table)

@@ -19,6 +19,7 @@ from gabor_color_image_segmentation_tpu_torch.data import connectivity_maze, syn
 from gabor_color_image_segmentation_tpu_torch.models import chol
 from gabor_color_image_segmentation_tpu_torch.models import connectivity as cn
 from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf
+from gabor_color_image_segmentation_tpu_torch.models import graph as gr
 from gabor_color_image_segmentation_tpu_torch.models import graph_fused as gm
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_chw as kc
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_fused as kf
@@ -1063,6 +1064,11 @@ def test_gmm_fused_prep_kernel(device, dtype, monkeypatch):
         assert (align_labels(got, ref) == ref).mean() >= 0.999
 
 
+def _slic_batch_plain(lab, n_superpixels, ruler=10.0, n_iter=10, impl="auto", plan="auto"):
+    """slic_batch's plain version on the graph stage's call (K11's)."""
+    return sl.slic_plain(lab, n_superpixels, ruler, n_iter)
+
+
 @pytest.mark.parametrize("name", ["config0", "config1", "config2", "config3", "config4"])
 def test_pipeline_kernels_match_plain_path(device, name, monkeypatch):
     # config2 at 160x224 fits its GMM on the 2x2-pooled grid (one level);
@@ -1086,10 +1092,10 @@ def test_pipeline_kernels_match_plain_path(device, name, monkeypatch):
         # isolated: PERF.md §7), so K1's last-bit differences from its plain
         # version move its labels; the graph stage's kernels are held with
         # both paths on K1's energies
-        for attr, plain in (("slic_batch", sl.slic_plain),
+        for attr, plain in (("slic_batch", _slic_batch_plain),
                             ("enforce_connectivity_fused", sl.enforce_connectivity_plain),
                             ("table_lookup", lookup.table_lookup_plain)):
-            monkeypatch.setattr(pipeline, attr, plain)
+            monkeypatch.setattr(gr, attr, plain)
         ref, _ = segment_batch(rgb, cfg, with_features=False)
     else:
         ref, _ = segment_batch(rgb, cfg, with_features=False, device="cpu")
@@ -1168,3 +1174,88 @@ def test_tiled_graph_k17_k15_per_shard(device, monkeypatch):
     monkeypatch.setattr(tg, "table_lookup", lookup.table_lookup_plain)
     ref = torch.cat(tg.graph_cut_strip(fs, labs, cfg, h, mesh, "space"))
     assert torch.equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# The reference's entry points: the graph stage, SLIC, kmeans_fused_chw's
+# own multigrid and evaluate(debug_nans=True), on the kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_graph_segment_batch_kernels(device, dtype):
+    """graph_segment_batch on the card launches K11, K14, K17 and K15 and
+    gives segment_batch's labels; ncut_segment on image 0 is its batch of
+    one; the same stage on the plain versions agrees."""
+    rgb = np.stack([synthetic_mosaic(h=64, w=96, n_regions=4, seed=i)[0] for i in range(2)])
+    cfg = preset("config3").replace(batch_size=2, dtype=dtype)
+    cfg = cfg.replace(graph=dataclasses.replace(cfg.graph, n_superpixels=48, n_regions=4))
+    labels, feats = segment_batch(rgb, cfg)
+    x = torch.from_numpy(rgb).to(device)
+    lab = pipeline._graph_features(x, cfg, make_bank(cfg.bank))[1]
+    for wrapper in (sf.slic_w3, cn.enforce_connectivity_fused, gm.superpixel_moments_fused_t,
+                    lookup.table_lookup):
+        wrapper.launches = 0
+    got = gr.graph_segment_batch(feats, lab, cfg)
+    assert torch.equal(got, labels)
+    for wrapper in (sf.slic_w3, cn.enforce_connectivity_fused, gm.superpixel_moments_fused_t,
+                    lookup.table_lookup):
+        assert wrapper.launches == 1, wrapper.__name__
+    one = gr.graph_segment_batch(feats[:1], lab[:1], cfg)[0]
+    g = cfg.graph
+    single = gr.ncut_segment(feats[0], lab[0], g.n_superpixels, g.n_regions,
+                             g.slic_compactness, g.slic_iters, g.affinity_sigma,
+                             gr.resolve_eig_method(g, dtype, device), g.affinity_sigma_scale)
+    assert torch.equal(single, one)
+    plain = gr.ncut_segment(feats[0].cpu(), lab[0].cpu(), g.n_superpixels, g.n_regions,
+                            g.slic_compactness, g.slic_iters, g.affinity_sigma,
+                            gr.resolve_eig_method(g, dtype, device), g.affinity_sigma_scale)
+    ref = plain.numpy()
+    assert (align_labels(single.cpu().numpy(), ref) == ref).mean() >= 0.99
+
+
+def test_slic_entry_points_kernels(device):
+    rgb, _ = synthetic_mosaic(h=96, w=128, n_regions=4, seed=3)
+    lab = rgb_to_lab(torch.from_numpy(rgb)).to(device)
+    got = sl.slic(lab, 64, 10.0, 5)
+    assert torch.equal(got, sf.slic_batch(lab[None], 64, 10.0, 5)[0])
+    assert torch.equal(got.cpu(), sl.slic(lab.cpu(), 64, 10.0, 5))
+    for impl in ("auto", "xla", "fused"):
+        assert torch.equal(sf.slic_batch(lab[None], 64, 10.0, 5, impl)[0], got)
+    assert torch.equal(sf.slic_fused(lab[None], 64, 10.0, 5)[0], got)
+    with pytest.raises(ValueError, match="ineligible"):
+        sf.slic_batch(torch.zeros((1, 30, 440, 3), device=device), 132, impl="fused")
+    gh, gw, _ = sl.grid_shape(96, 128, 64)
+    conn = sl.enforce_connectivity_device(got[None], gh * gw)
+    assert torch.equal(conn, cn.enforce_connectivity_fused(got[None], gh * gw))
+    assert torch.equal(conn.cpu(), sl.enforce_connectivity_plain(got[None].cpu(), gh * gw))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_kmeans_fused_chw_multigrid_kernels(device, dtype, monkeypatch):
+    """kmeans_fused_chw's own multigrid on the card (K4 and K2 on the twin,
+    K2 at full resolution) against the same call on the plain versions."""
+    xe, xc4, _, _ = _chw_blobs(device, DTYPES[dtype], 2, 12, 37, 45, 5, seed=5)
+    affine = kc._affine_params(xe, xc4, preset("config1").cluster, 1e-6)
+    kc.lloyd_chw_pass.launches = kc.maximin_chw_pass.launches = 0
+    labels, centers = kc.kmeans_fused_chw(xe, xc4, affine, 5, coarse_iters=6, refine_iters=2)
+    assert kc.lloyd_chw_pass.launches > 0 and kc.maximin_chw_pass.launches == 5
+    monkeypatch.setattr(kc, "lloyd_chw_pass", kc.lloyd_chw_pass_plain)
+    monkeypatch.setattr(kc, "maximin_chw_pass", kc.maximin_chw_pass_plain)
+    ref, _ = kc.kmeans_fused_chw(xe, xc4, affine, 5, coarse_iters=6, refine_iters=2)
+    floor = 0.999 if dtype == "float32" else 0.99
+    for i in range(2):
+        got, want = labels[i].cpu().numpy(), ref[i].cpu().numpy()
+        assert (align_labels(got, want) == want).mean() >= floor
+
+
+def test_evaluate_debug_nans_on_the_card(device, tmp_path):
+    from gabor_color_image_segmentation_tpu_torch.data.synthetic import synthetic_dataset
+    from gabor_color_image_segmentation_tpu_torch.eval import evaluate
+
+    items = list(synthetic_dataset(2, h=96, w=128, seed=5))
+    cfg = preset("config1").replace(batch_size=2, dtype="bfloat16")
+    off, on = tmp_path / "off.jsonl", tmp_path / "on.jsonl"
+    evaluate(items, cfg, out_path=str(off))
+    evaluate(items, cfg, out_path=str(on), debug_nans=True)
+    assert off.read_text() == on.read_text()

@@ -3,7 +3,8 @@
 ``evaluate`` (``device="cpu"``, config0 f32 on two 96x128 synthetic images)
 writes one row per image whose metrics equal the JAX package's host metrics
 applied to the port's labels; ``resume`` skips the ids already written;
-``profile_dir`` writes a torch.profiler trace; ``debug_nans`` raises. The
+``profile_dir`` writes a torch.profiler trace; ``debug_nans`` runs and
+finds no NaN. The
 CLI's ``info`` JSON equals the JAX package's for every preset; ``run``
 writes its overlay PNG; ``bench`` exits non-zero naming the roadmap item
 that owns it; ``run`` and ``eval`` default to the card. (The JAX
@@ -84,15 +85,20 @@ def test_evaluate_isolates_a_failed_image(split):
     assert summary["mean_pri"] is not None
 
 
-def test_evaluate_profile_and_debug_nans(split, tmp_path):
+def test_evaluate_profile_and_debug_nans(split, tmp_path, capsys):
     prof = tmp_path / "prof"
-    evaluate(split[:1], CFG, profile_dir=str(prof), device="cpu")
+    plain = evaluate(split[:1], CFG, profile_dir=str(prof), device="cpu")
     trace = json.loads((prof / "trace.json").read_text())
     assert trace["traceEvents"]
-    with pytest.raises(NotImplementedError, match="jax_debug_nans"):
-        evaluate(split[:1], CFG, debug_nans=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="jax_debug_nans"):
-        cli_main(["eval", "--device", "cpu", "--limit", "1", "--debug-nans"])
+    # debug_nans checks every operation for NaN (tests/test_torch_debug_nans.py)
+    # and finds none: the same metrics
+    checked = evaluate(split[:1], CFG, debug_nans=True, device="cpu")
+    for key in ("n_images", "n_failed", "mean_pri", "mean_f_boundary", "mean_voi",
+                "mean_covering"):
+        assert checked[key] == plain[key], key
+    capsys.readouterr()
+    cli_main(["eval", "--device", "cpu", "--limit", "1", "--debug-nans"])
+    assert json.loads(capsys.readouterr().out)["n_failed"] == 0
 
 
 def test_evaluate_and_cli_default_to_the_card(split):
