@@ -99,7 +99,9 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    energies, see GRAPH_NOTE; for config2 with the switch on, with the
    switch off);
    the Rand index against the mosaics' ground truth (the port's
-   ``metrics.pri.rand_index_np``; a reading, not a gate); the eight 4K mosaics (bench seeds 100-107) are made on the host
+   ``metrics.pri.rand_index_np``; a reading, not a gate); config2's bf16
+   labels against its f32 labels, image by image (a reading: the
+   reference's own bf16-vs-f32 measure of a stable image); the eight 4K mosaics (bench seeds 100-107) are made on the host
    in worker processes while the kernels build, outside any timed window;
 5. where the time goes: ``torch.profiler`` tables of one config1 call,
    one config2 bf16 call with ``_FUSED_PREP`` off and one with it on, one
@@ -623,9 +625,14 @@ def main() -> None:
         b, h, w, c = color.shape
         # tap-loop FMAs of the separable modulated blur (rows over the conv
         # halo's width, then columns; real and imaginary parts) and of the
-        # separable smoothing, per plane
+        # separable smoothing, per plane; with the twin, its pooled
+        # smoothing (2r + 2 taps, down the rows over the halo's width, then
+        # across)
         flops = sum(2 * b * g.n * c * (2 * (2 * g.p + 1) * (h * (w + 2 * g.p) + h * w)
-                                       + 2 * (2 * g.r + 1) * h * w) for g in groups)
+                                       + 2 * (2 * g.r + 1) * h * w
+                                       + (2 * (g.r + 1) * (h // 2) * (w + 2 * g.r + w // 2)
+                                          if pooled else 0))
+                    for g in groups)
         nbytes = color.numel() * 4 + e.numel() * size(dt) + (tw.numel() * size(dt)
                                                             if pooled else 0)
         ms = report("gabor_energies_fused", tag, abs_err, rel, f"{tol}*peak={tol * peak:.4g}",
@@ -1895,6 +1902,18 @@ def main() -> None:
         print(f"phase 4: {label}: Rand index against the mosaics' ground truth, "
               f"mean {statistics.mean(pri):.4f}, min {min(pri):.4f} (a reading; "
               f"the gate is the agreement above)", flush=True)
+
+    # a reading: config2's bf16 labels against its f32 labels on the same
+    # mosaics (the reference's own measure of a stable image; its CPU run
+    # reads 0.986535 on seed 107, a borderline image)
+    by_label = {label: out for _, _, _, label, out, _, _ in outputs}
+    lo, hi = by_label["config2 batch 8 bf16"], by_label["config2 batch 8 f32"]
+    each = [aligned_agreement(lo[i].numpy(), hi[i].numpy()) for i in range(len(hi))]
+    print(f"phase 4: config2 batch 8: bf16 labels vs f32 labels on the card, min aligned "
+          f"agreement {min(each):.6f} (per image, seeds 100-{99 + len(each)}: "
+          f"{[round(v, 6) for v in each]}; under 0.99: seeds "
+          f"{[100 + i for i, v in enumerate(each) if v < 0.99]}; a reading), {card}",
+          flush=True)
 
     # ---- phase 5: where the time goes -------------------------------------
     os.makedirs(out_dir, exist_ok=True)

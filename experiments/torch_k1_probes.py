@@ -92,13 +92,20 @@ def main() -> None:
     p_, i_ = ctypes.c_void_p, ctypes.c_int
     for (name, _, _), path in zip(PROBES, libs):
         fn = ctypes.CDLL(str(path)).gcis_gabor_group
-        fn.argtypes = [p_] * 8 + [i_] * 10 + [p_]
+        fn.argtypes = [p_] * 13 + [i_] * 10 + [p_]
         fn.restype = i_
         for g in groups:
+            # bf16 mode's inputs, as ops/fused.py hands them over
+            env = fused._round_storage(g.env, True)
+            taps = (fused.smooth_taps(g, False, True), fused.smooth_taps(g, True, True),
+                    fused.smooth_table(g, h, False, True), fused.smooth_table(g, w, False, True),
+                    fused.smooth_table(g, h, True, True), fused.smooth_table(g, w, True, True))
+
             def run():
                 rc = fn(x.data_ptr(), mag.data_ptr(), out.data_ptr(), twin.data_ptr(),
-                        g.env.data_ptr(), g.freqs.data_ptr(), g.mus.data_ptr(),
-                        g.smooth.data_ptr(), b, c, h, w, g.n, g.p, g.r, e, 0, 1,
+                        env.data_ptr(), g.freqs.data_ptr(), g.mus.data_ptr(),
+                        *(t.data_ptr() for t in taps),
+                        b, c, h, w, g.n, g.p, g.r, e, 0, 1,
                         torch.cuda.current_stream().cuda_stream)
                 if rc:
                     sys.exit(f"gcis_gabor_group failed: CUDA error {rc}")

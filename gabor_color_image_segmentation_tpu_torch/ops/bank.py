@@ -154,6 +154,7 @@ class GroupTensors:
     freqs: torch.Tensor  # (n, 2) float32 [wx, wy]
     mus: torch.Tensor  # (n,) float32 DC means
     smooth: torch.Tensor  # (2r+1,) float32 smoothing taps
+    smooth_host: Tuple[float, ...]  # the same taps on the host (fused.smooth_table's key)
 
 
 @functools.lru_cache(maxsize=64)
@@ -174,6 +175,7 @@ def _bank_tensors(bank, device: str) -> Tuple[GroupTensors, ...]:
             freqs=t(group_frequencies(g, bank).astype(np.float32)),
             mus=t(_dc_mu(g, bank)),
             smooth=t(taps),
+            smooth_host=tuple(float(v) for v in taps),
         ))
     return tuple(out)
 

@@ -14,12 +14,27 @@ register-blocked.
 
 Output order is the feature contract: groups in bank order, kernel-major,
 channel-minor within a group (the reference's features.py energy_index).
-Arithmetic is float32 throughout; in bf16 mode only the stored energies and
-twin are rounded.
+
+Arithmetic is float32, rounded to bfloat16 in bf16 mode where the
+reference's kernel rounds its matmul operands: the image before the box
+sums and the box sums' vertical pass, the envelope taps, the modulated
+planes, the vertical blur, the magnitude, the smoothing taps and the
+vertical smoothing, then the stored energies and twin. Labels turn on
+those bits: maximin seeding on bf16 features meets exact ties, and
+rounding only the stored values seeds other pixels on some frames
+(config2 at 321x481 agreed 0.54 with the reference on one mosaic).
+
+The smoothing follows the reference's Toeplitz matrices: REFLECT_101
+borders folded into each output's taps (two taps that reach the same
+source pixel sum first, in float32, and round once), and the twin is the
+pooled smoothing (P_v S_v) mag (S_h P_h), its taps the mean of two rows of
+the folded matrix, not the mean of four stored energies. ``smooth_table``
+gives each output's taps over the padded axis.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,31 +43,109 @@ import torch
 from gabor_color_image_segmentation_tpu_torch import _kernels
 from gabor_color_image_segmentation_tpu_torch.ops.bank import GroupTensors
 
-def _reflect_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
-    """Source indices of a REFLECT_101 pad of ``lo``/``hi`` samples around a
-    length-``n`` axis (folded as often as needed)."""
-    idx = np.arange(-lo, n + hi)
+def _reflect_np(idx: np.ndarray, n: int) -> np.ndarray:
+    """REFLECT_101 source indices of positions ``idx`` on a length-``n``
+    axis (folded as often as needed)."""
     if n == 1:
-        return torch.zeros(idx.size, dtype=torch.long, device=device)
+        return np.zeros_like(idx)
     period = 2 * (n - 1)
     idx = np.mod(idx, period)
-    idx = np.where(idx >= n, period - idx, idx)
-    return torch.from_numpy(idx).to(device)
+    return np.where(idx >= n, period - idx, idx)
 
 
 def _reflect_pad(x: torch.Tensor, r: int, axis: int) -> torch.Tensor:
     """REFLECT_101 pad of ``axis`` by r on both sides."""
-    return x.index_select(axis, _reflect_index(x.shape[axis], r, r, x.device))
+    n = x.shape[axis]
+    idx = torch.from_numpy(_reflect_np(np.arange(-r, n + r), n)).to(x.device)
+    return x.index_select(axis, idx)
 
 
-def _taps_1d(x: torch.Tensor, taps: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
-    """VALID correlation along ``axis`` as an ordered shift-multiply-add
-    (tap 0 first), the accumulation order of the CUDA tap loops."""
-    acc = None
-    for t in range(taps.shape[0]):
-        term = taps[t] * x.narrow(axis, t, n_out)
-        acc = term if acc is None else acc + term
-    return acc
+def _round_storage(x, bf16: bool):
+    """x rounded to bfloat16 (kept in float32) in bf16 mode, else x."""
+    if not bf16:
+        return x
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x).to(torch.bfloat16).to(torch.float32).numpy()
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=256)
+def _smooth_matrix_np(taps: Tuple[float, ...], n: int, pooled: bool, bf16: bool) -> np.ndarray:
+    """The reference's smoothing matrix over an axis of length n: (n, n)
+    with REFLECT_101 folded in (T[i, reflect(i - r + t)] += taps[t], float32
+    adds in tap order), or its pooled rows (n // 2, n), the mean of rows 2i
+    and 2i + 1 in float64 rounded to float32; rounded to bfloat16 in bf16
+    mode. Output i reads source j with weight M[i, j]."""
+    taps32 = np.asarray(taps, np.float32)
+    k = taps32.size
+    rows = np.arange(n)
+    m = np.zeros((n, n), np.float32)
+    cols = _reflect_np(rows[:, None] - k // 2 + np.arange(k)[None, :], n)
+    for t in range(k):
+        np.add.at(m, (rows, cols[:, t]), taps32[t])
+    if pooled:
+        n2 = n // 2
+        m = (0.5 * (m[0:2 * n2:2].astype(np.float64) + m[1:2 * n2:2])).astype(np.float32)
+    return _round_storage(m, bf16)
+
+
+@functools.lru_cache(maxsize=256)
+def _smooth_table_np(taps: Tuple[float, ...], n: int, pooled: bool, bf16: bool) -> np.ndarray:
+    m = _smooth_matrix_np(taps, n, pooled, bf16)
+    r = len(taps) // 2
+    stride, ntap = (2, 2 * r + 2) if pooled else (1, 2 * r + 1)
+    n_out = m.shape[0]
+    src = _reflect_np(stride * np.arange(n_out)[:, None] - r + np.arange(ntap)[None, :], n)
+    # each source pixel's tap sits at the first padded position that reaches it
+    first = (src[:, :, None] == src[:, None, :]).argmax(axis=2) == np.arange(ntap)[None, :]
+    table = np.where(first, m[np.arange(n_out)[:, None], src], 0.0).astype(np.float32)
+    assert np.count_nonzero(table) == np.count_nonzero(m), "a fold left the band"
+    return table
+
+
+def _smooth_taps_np(taps: Tuple[float, ...], pooled: bool, bf16: bool) -> np.ndarray:
+    """The taps of outputs clear of the borders: the plain taps (2r + 1), or
+    the twin's (2r + 2), the mean of two shifted copies in float64 rounded
+    to float32; rounded to bfloat16 in bf16 mode."""
+    t = np.asarray(taps, np.float64)
+    if pooled:
+        t = 0.5 * (np.append(t, 0.0) + np.insert(t, 0, 0.0))
+    return _round_storage(t.astype(np.float32), bf16)
+
+
+@functools.lru_cache(maxsize=256)
+def _on_device(fn, device: str, *args) -> torch.Tensor:
+    return torch.from_numpy(fn(*args)).to(device)
+
+
+def smooth_taps(g: GroupTensors, pooled: bool, bf16: bool) -> torch.Tensor:
+    """The smoothing taps the kernel's register-blocked loops read
+    (``_smooth_taps_np``), on g's device."""
+    return _on_device(_smooth_taps_np, str(g.smooth.device), g.smooth_host, pooled, bf16)
+
+
+def smooth_table(g: GroupTensors, n: int, pooled: bool, bf16: bool) -> torch.Tensor:
+    """Per-output smoothing taps over a REFLECT_101-padded axis of length
+    ``n``, the kernel's input: (n, 2r + 1) for the smoothing, (n // 2,
+    2r + 2) for the twin (``pooled``), output i reading padded positions
+    stride * i + t (stride 2 for the twin; the pad is r). The rows of
+    ``_smooth_matrix_np`` laid on the padded axis: a source pixel reached
+    from two padded positions takes its folded tap at the first and zero at
+    the other. Rows clear of the borders hold the plain taps."""
+    return _on_device(_smooth_table_np, str(g.smooth.device), g.smooth_host, n, pooled, bf16)
+
+
+def _smooth_matrix(g: GroupTensors, n: int, pooled: bool, bf16: bool) -> torch.Tensor:
+    return _on_device(_smooth_matrix_np, str(g.smooth.device), g.smooth_host, n, pooled, bf16)
+
+
+def _band_matrix(taps: torch.Tensor, n_out: int) -> torch.Tensor:
+    """(n_out, n_out + len(taps) - 1) VALID correlation matrix, T[i, i + t]
+    = taps[t] (the reference's _toeplitz)."""
+    k = taps.shape[0]
+    idx = torch.arange(n_out, device=taps.device)[:, None] + torch.arange(k, device=taps.device)
+    t = taps.new_zeros((n_out, n_out + k - 1))
+    return t.scatter_(1, idx, taps.expand(n_out, k).contiguous())
 
 
 def _centered(img: torch.Tensor) -> torch.Tensor:
@@ -64,10 +157,18 @@ def _centered(img: torch.Tensor) -> torch.Tensor:
     return (x - x.mean(dim=(2, 3), keepdim=True)).contiguous()
 
 
-def _group_plain(x: torch.Tensor, g: GroupTensors) -> torch.Tensor:
-    """Smoothed float32 energies of one group, (B, n*C, H, W)."""
+def _group_plain(x: torch.Tensor, g: GroupTensors, bf16: bool,
+                 pooled: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Smoothed float32 energies of one group, (B, n*C, H, W), and its
+    twin (B, n*C, H//2, W//2) or None, as the reference computes them: each
+    1-D pass a product with a banded matrix (float32, no TF32), ``bf16``
+    rounding where the reference's bf16 kernel does (module docstring)."""
     b, c, h, w = x.shape
     p, dev = g.p, x.device
+
+    def rq(v):
+        return _round_storage(v, bf16)
+
     xpad = _reflect_pad(_reflect_pad(x, p, 2), p, 3)[:, None]  # (B, 1, C, Hp, Wp)
     hp, wp = h + 2 * p, w + 2 * p
     wx = g.freqs[:, 0].reshape(1, -1, 1, 1, 1)
@@ -76,46 +177,41 @@ def _group_plain(x: torch.Tensor, g: GroupTensors) -> torch.Tensor:
     xv = torch.arange(wp, dtype=torch.float32, device=dev).reshape(1, 1, 1, 1, -1)
     cy, sy = torch.cos(wy * yv), torch.sin(wy * yv)  # (1, n, 1, Hp, 1)
     cx, sx = torch.cos(wx * xv), torch.sin(wx * xv)  # (1, n, 1, 1, Wp)
-    m_re = xpad * (cy * cx) - xpad * (sy * sx)
-    m_im = -xpad * (sy * cx) - xpad * (cy * sx)
-    g_re = _taps_1d(_taps_1d(m_re, g.env, 3, h), g.env, 4, w)
-    del m_re
-    g_im = _taps_1d(_taps_1d(m_im, g.env, 3, h), g.env, 4, w)
-    del m_im
+    env = rq(g.env)
+    ev, eh = _band_matrix(env, h), _band_matrix(env, w).T
+    g_re = rq(ev @ rq(xpad * (cy * cx) - xpad * (sy * sx))) @ eh
+    g_im = rq(ev @ rq(-xpad * (sy * cx) - xpad * (cy * sx))) @ eh
     ones = torch.ones_like(g.env)
-    box = _taps_1d(_taps_1d(xpad, ones, 3, h), ones, 4, w)  # (B, 1, C, H, W)
+    box = rq(_band_matrix(ones, h) @ rq(xpad)) @ _band_matrix(ones, w).T  # (B, 1, C, H, W)
     cyp, syp = cy[:, :, :, p : p + h], sy[:, :, :, p : p + h]
     cxp, sxp = cx[..., p : p + w], sx[..., p : p + w]
     cos_p = cyp * cxp - syp * sxp
     sin_p = syp * cxp + cyp * sxp
     re = cos_p * g_re - sin_p * g_im - g.mus.reshape(1, -1, 1, 1, 1) * box
     im = sin_p * g_re + cos_p * g_im
-    mag = torch.sqrt(re * re + im * im).reshape(b, g.n * c, h, w)
-    del re, im, g_re, g_im
-    r = g.r
+    del g_re, g_im
+    mag = rq(torch.sqrt(re * re + im * im)).reshape(b, g.n * c, h, w)
+    del re, im
     # the border contract: reflect the MAGNITUDE map; rows, then columns
-    sm = _taps_1d(_reflect_pad(mag, r, 2), g.smooth, 2, h)
-    return _taps_1d(_reflect_pad(sm, r, 3), g.smooth, 3, w)
-
-
-def _twin(sm: torch.Tensor) -> torch.Tensor:
-    """2x2 block means ((x00 + x01) + (x10 + x11)) / 4 of float32 maps."""
-    h2, w2 = sm.shape[2] // 2, sm.shape[3] // 2
-    s = sm[:, :, : 2 * h2, : 2 * w2]
-    return 0.25 * ((s[:, :, 0::2, 0::2] + s[:, :, 0::2, 1::2])
-                   + (s[:, :, 1::2, 0::2] + s[:, :, 1::2, 1::2]))
+    sm = rq(_smooth_matrix(g, h, False, bf16) @ mag) @ _smooth_matrix(g, w, False, bf16).T
+    if not pooled:
+        return sm, None
+    if h < 2 or w < 2:
+        return sm, sm.new_zeros((b, g.n * c, h // 2, w // 2))
+    tw = rq(_smooth_matrix(g, h, True, bf16) @ mag) @ _smooth_matrix(g, w, True, bf16).T
+    return sm, tw
 
 
 def gabor_energies_fused_plain(
     img: torch.Tensor, groups: Sequence[GroupTensors], dtype: torch.dtype,
     pooled: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version of K1: the same math in float32 tensor ops."""
+    """Plain PyTorch version of K1: the same math in tensor ops."""
     x = _centered(img)
-    parts = [_group_plain(x, g) for g in groups]
-    twins = [_twin(s) for s in parts] if pooled else None
-    out = torch.cat(parts, dim=1).to(dtype)
-    return out, (torch.cat(twins, dim=1).to(dtype) if pooled else None)
+    bf16 = _kernels.storage_code(dtype) == 1
+    parts = [_group_plain(x, g, bf16, pooled) for g in groups]
+    out = torch.cat([s for s, _ in parts], dim=1).to(dtype)
+    return out, (torch.cat([t for _, t in parts], dim=1).to(dtype) if pooled else None)
 
 
 def gabor_energies_fused(
@@ -140,14 +236,21 @@ def gabor_energies_fused(
             if pooled else None)
     mag = torch.empty((b, max(g.n for g in groups) * c, h, w),
                       dtype=torch.float32, device=img.device)
+    bf16 = _kernels.storage_code(dtype) == 1
     goff = 0
+    has_twin = pooled and twin.numel() > 0
     for g in groups:
+        # the taps of the smoothing and the twin, then their per-output tables
+        twin_in = ((smooth_taps(g, True, bf16), smooth_table(g, h, True, bf16),
+                    smooth_table(g, w, True, bf16)) if has_twin else (None,) * 3)
+        taps = (smooth_taps(g, False, bf16), twin_in[0], smooth_table(g, h, False, bf16),
+                smooth_table(g, w, False, bf16), twin_in[1], twin_in[2])
         _kernels.launch(
             "gcis_gabor_group", x.data_ptr(), mag.data_ptr(), out.data_ptr(),
-            twin.data_ptr() if pooled and twin.numel() else None,
-            g.env.data_ptr(),
-            g.freqs.data_ptr(), g.mus.data_ptr(), g.smooth.data_ptr(),
-            b, c, h, w, g.n, g.p, g.r, e, goff, _kernels.storage_code(dtype),
+            twin.data_ptr() if has_twin else None, _round_storage(g.env, bf16).data_ptr(),
+            g.freqs.data_ptr(), g.mus.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in taps),
+            b, c, h, w, g.n, g.p, g.r, e, goff, int(bf16),
             outputs=(out[:, goff:goff + g.n * c],)
             + ((twin[:, goff:goff + g.n * c],) if pooled else ()),
         )

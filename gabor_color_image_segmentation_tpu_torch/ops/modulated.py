@@ -36,7 +36,7 @@ from gabor_color_image_segmentation_tpu_torch.ops.bank import (
     _envelope_taps,
     group_frequencies,
 )
-from gabor_color_image_segmentation_tpu_torch.ops.fused import _reflect_index
+from gabor_color_image_segmentation_tpu_torch.ops import fused
 
 __all__ = ["_dc_mu", "_envelope_taps", "_sep_1d", "gabor_energies_mod",
            "group_frequencies", "modulated_group_energies", "modulated_group_magnitudes",
@@ -46,9 +46,9 @@ __all__ = ["_dc_mu", "_envelope_taps", "_sep_1d", "gabor_energies_mod",
 def _reflect_pad(x: torch.Tensor, rh: int, rw: int) -> torch.Tensor:
     """REFLECT_101 pad of NHWC along H by rh and W by rw."""
     if rh:
-        x = x.index_select(1, _reflect_index(x.shape[1], rh, rh, x.device))
+        x = fused._reflect_pad(x, rh, 1)
     if rw:
-        x = x.index_select(2, _reflect_index(x.shape[2], rw, rw, x.device))
+        x = fused._reflect_pad(x, rw, 2)
     return x
 
 

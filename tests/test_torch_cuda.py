@@ -75,6 +75,22 @@ def test_gabor_energies_kernel(device, dtype, hw, bank_name):
     assert (twin.float() - ref_twin.float()).abs().max() <= tol * peak
 
 
+@pytest.mark.parametrize("hw", [(37, 53), (64, 96)])
+@pytest.mark.parametrize("bank_name", sorted(K1_BANKS))
+def test_gabor_energies_kernel_rounds_as_plain(device, hw, bank_name):
+    """bf16: the kernel rounds where its plain version does (the reference's
+    rounding points, folded border taps, the pooled-smoothing twin), so all
+    but a few stored values are equal, where rounding only at the store
+    leaves most of them a bit apart."""
+    groups = bank_tensors(make_bank(K1_BANKS[bank_name]), device)
+    img = torch.randn((2, *hw, 3), generator=torch.Generator().manual_seed(1)).to(device)
+    out, twin = fused.gabor_energies_fused(img, groups, torch.bfloat16)
+    ref, ref_twin = fused.gabor_energies_fused_plain(img, groups, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (out == ref).float().mean().item() >= 0.99
+    assert (twin == ref_twin).float().mean().item() >= 0.99
+
+
 def _rows(device, dt, b=2, e=7, h=29, w=41, seed=0):
     rng = np.random.default_rng(seed)
     xe = torch.from_numpy(np.abs(rng.normal(size=(b, e, h, w))).astype(np.float32))

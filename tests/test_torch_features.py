@@ -4,9 +4,9 @@ feature-assembly helpers, against the JAX package.
 The JAX side runs its Pallas kernel in interpret mode on the CPU (as the
 JAX package's own tests do). Tolerances: energies and twin within 1e-4 of
 the peak in float32 and 2e-2 of the peak in bfloat16 (the repo's bf16
-bound, tests/test_fused_pallas.py); the port computes in float32 and
-rounds only the stored values, the TPU kernel's bf16 mode rounds its
-matmul operands too."""
+bound, tests/test_fused_pallas.py); in bf16 the port rounds where the TPU
+kernel rounds its matmul operands, and test_torch_k1_rounding.py holds
+those bits."""
 
 import jax.numpy as jnp
 import numpy as np

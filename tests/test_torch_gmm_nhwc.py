@@ -102,10 +102,10 @@ def test_gmm_fit_tol_freezes_each_image(features):
     by less than tol from the one before: its responsibilities equal the
     fixed-count fit of t + 1 iterations, image by image."""
     x = torch.from_numpy(features)
-    _, resp, _ = tg.gmm_fit(x, 5, 30, 1e-4, 10, 1e-3)
+    _, resp, _ = tg.gmm_fit(x, 5, 30, 1e-4, 10, 2e-3)
     lls = torch.stack([tg._e_step(x, tg.gmm_fit(x, 5, n, 1e-4, 10)[2])[1] for n in range(30)])
     for i in range(2):
-        moved = (lls[1:, i] - lls[:-1, i]).abs() < 1e-3
+        moved = (lls[1:, i] - lls[:-1, i]).abs() < 2e-3
         stop = int(torch.nonzero(moved)[0, 0]) + 2 if bool(moved.any()) else 30
         assert stop < 30, "the fit never stopped early: pick a larger tol"
         assert torch.equal(resp[i], tg.gmm_fit(x, 5, stop, 1e-4, 10)[1][i]), (i, stop)
