@@ -99,7 +99,11 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    energies, see GRAPH_NOTE; for config2 with the switch on, with the
    switch off);
    the Rand index against the mosaics' ground truth (the port's
-   ``metrics.pri.rand_index_np``; a reading, not a gate); config2's bf16
+   ``metrics.pri.rand_index_np``; a reading, not a gate); for config4's
+   cells, as readings, the affinity the graph stage builds from the
+   pipeline's own features and superpixels: live superpixels per image,
+   the median of d2, s2, whether W is 0 between every two live
+   superpixels and the live ids whose W_ii is 1; config2's bf16
    labels against its f32 labels, image by image (a reading: the
    reference's own bf16-vs-f32 measure of a stable image); the eight 4K mosaics (bench seeds 100-107) are made on the host
    in worker processes while the kernels build, outside any timed window;
@@ -132,8 +136,13 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    its plain version on a (1, 243, 8,294,400) bf16 buffer (D * N = 2.02e9
    elements, the largest the route hands them); config3 batch 8 bf16 with
    ``cue_weight="coherence"`` (the gate hands both paths K1's energies, as
-   phase 4's); config1 with k = 10 (the plain solver on the card, its
-   ms/batch a reading);
+   phase 4's); config4 at its published geometry, batch 2 of 2160x3840
+   bf16 (K1 on 25 windows a frame, K13, K14, K17, K15), its labels
+   bit-equal to its labels-only path's and its pooled (2, 540, 960, 39)
+   features within 2e-2 of the peak of the all-plain path's (the gates;
+   the labels against the all-plain path and its ms/batch readings);
+   config1 with k = 10 (the plain solver on the card, its ms/batch a
+   reading);
 8. ``parallel/`` on meshes whose shards all sit on ``cuda:0`` (one process
    drives the shards in lockstep): the data-parallel leg
    ``segment_batch_sharded`` at config1 batch 16 bf16 and config3 batch 8
@@ -252,10 +261,14 @@ CHOL_DIAG_TOL = 1e-6
 # turn the ulp-level differences between K1 and its plain version (2e-5 of
 # the bf16 energies, the f32 ones in their last bits) into whole superpixels
 # changing region; experiments/torch_graph_stages.py measures it. At
-# config4 the cut is not determined at all (connectivity keeps a few of its
-# 405 superpixels, the affinity median is 0 and L_sym's null space is larger
-# than the 5 regions). K1 is held at config3's and config4's shapes in phase
-# 3, and the gate hands both paths the same energies.
+# config4 the cut is not determined at all, in the reference as in the port
+# (experiments/torch_published_stages.py config4): connectivity keeps a few
+# of its 405 superpixels, so the median of d2 over all 405^2 entries is 0,
+# s2 is clamped to 1e-12, W is 0 between every two live superpixels and 1
+# on the diagonal only where d2_ii rounds to exactly 0, and L_sym is a
+# diagonal of 0s and 1s whose null space is larger than the 5 regions.
+# K1 is held at config3's and config4's shapes in phase 3, and the gate
+# hands both paths the same energies.
 GRAPH_NOTE = ", a reading for the graph stage: the gate is the next line"
 # K11's time at config3 before its tiled redesign (a thread a pixel, a block
 # a superpixel's window; H100 80GB HBM3 at 700 W, this script's reading),
@@ -1731,6 +1744,34 @@ def main() -> None:
         row, col = linear_sum_assignment(-cont)
         return float(cont[row, col].sum() / p.size)
 
+    def affinity_readings(cfg, rgb):
+        """The graph stage's affinity on the card, as ``affinity_matrix``
+        builds it from the pipeline's own features and superpixels: per
+        image the live superpixels, the median of d2 over the entries the
+        median reads (every S x S entry, dead ids included, for S <= 512),
+        s2, whether W is 0 between every two live superpixels, and the live
+        ids whose W_ii is 1 (d2_ii rounded to exactly 0). Readings: at
+        config4 they show why its cut is not determined (ROADMAP "Not
+        faults")."""
+        g = cfg.graph
+        feats, sp, n_sp = pl._graph_front(torch.from_numpy(rgb).to(dev), cfg,
+                                          make_bank(cfg.bank))
+        means, counts = gr.superpixel_means(feats, sp, n_sp)
+        sq = (means * means).sum(dim=2)
+        d2 = torch.clamp(sq[:, :, None] - 2.0 * (means @ means.transpose(1, 2))
+                         + sq[:, None, :], min=0.0)
+        d2m = d2[:, ::4, ::4] if n_sp > 512 else d2
+        med = gr._median(d2m.reshape(d2.shape[0], -1))
+        s2 = torch.clamp(med, min=1e-12) * g.affinity_sigma_scale
+        w = gr.affinity_matrix(means, g.affinity_sigma, counts, g.affinity_sigma_scale)
+        live = counts > 0
+        pairs = live[:, :, None] & live[:, None, :] & ~torch.eye(n_sp, dtype=torch.bool,
+                                                                 device=dev)
+        zero = [not bool(w[i][pairs[i]].any()) for i in range(w.shape[0])]
+        ones = ((torch.diagonal(w, dim1=1, dim2=2) == 1) & live).sum(dim=1)
+        return (n_sp, live.sum(dim=1).tolist(), med.tolist(), s2.tolist(), zero,
+                ones.tolist())
+
     # (config, images, ground truth, label, kernels that must launch,
     # kernels that must not, the _FUSED_PREP switch)
     k1to4 = ["gabor_energies_fused", "lloyd_chw_pass"]
@@ -1828,6 +1869,12 @@ def main() -> None:
             totals[name] += counts[name]
         for name in absent:
             check(counts[name] == 0, f"{name} was launched on the {label} path")
+        if cfg.graph.enabled and cfg.graph.pool:
+            n_sp, live, med, s2, zero, ones = affinity_readings(cfg, rgb)
+            print(f"phase 4: {label}: the affinity (readings, after the counts were read): "
+                  f"live superpixels per image {live} of {n_sp}, "
+                  f"median of d2 {med}, s2 {s2}, W zero between every two live superpixels "
+                  f"{zero}, live ids with W_ii = 1 {ones} ({card})", flush=True)
 
     # the host-side min-cut route, with tests/test_pipeline_configs.py's pins
     # on its fixture (two 96x128 mosaics of 4 regions, seeds 20 and 21)
@@ -2059,7 +2106,7 @@ def main() -> None:
         return ((g - r).abs().max() / r.abs().max()).item()
 
     def with_features_cell(cfg, rgb, label, path, absent, fbound, reps=5, keep=None,
-                           plain=True):
+                           plain=True, labels_gate=True):
         """``segment_batch(rgb, cfg)`` (with features) on the card: the first
         call and ``reps`` timed calls (host uint8 in, labels on the host, the
         features left on the card) with the counts set to 0 just before and
@@ -2067,8 +2114,9 @@ def main() -> None:
         ``absent``; against the all-plain path on the card (with ``keep``,
         also against the plain versions but for ``keep``, the gate then),
         labels after alignment and the features by the reference's measure
-        (``fbound`` of the largest |feature|). Returns (labels, features,
-        ms)."""
+        (``fbound`` of the largest |feature|); with ``labels_gate`` False the
+        labels' agreement is a reading and the features alone the gate.
+        Returns (labels, features, ms)."""
         def run():
             labels, feats = pl.segment_batch(rgb, cfg, device="cuda")
             return labels.cpu(), feats
@@ -2113,13 +2161,14 @@ def main() -> None:
                     for i in range(len(out))]
             ferr = feature_err(feats, ref_f)
             gate = kept == (keep or ())
+            lgate = gate and labels_gate
             print(f"phase 7: {label}: kernel path vs {what} on the card, min aligned "
-                  f"agreement {min(each):.6f} (floor {floor}{'' if gate else ', a reading'}; "
+                  f"agreement {min(each):.6f} (floor {floor}{'' if lgate else ', a reading'}; "
                   f"per image {[round(v, 6) for v in each]}), features max |d| / max |ref| "
                   f"{ferr:.3e} (bound {fbound}{'' if gate else ', a reading'}), bit-equal "
                   f"{torch.equal(feats, ref_f)} ({card})", flush=True)
             if gate:
-                check(min(each) >= floor and ferr <= fbound,
+                check((min(each) >= floor or not labels_gate) and ferr <= fbound,
                       f"phase 7 {label}: the kernel path disagrees with {what}")
             del ref_f
         return out, feats, ms
@@ -2221,6 +2270,25 @@ def main() -> None:
     with_features_cell(cfg3c, rgb8, "config3 batch 8 bf16 coherence with features",
                        graph_path, ["slic_band_pass", "lloyd_t_pass"], 2e-2,
                        keep=("gabor_energies_fused",))
+    # config4 with features at its published geometry, batch 2 of 2160x3840
+    # bf16 (K1 on 25 windows a frame, K13, K14, K17, K15): its labels
+    # bit-equal to the labels-only path's, its pooled (2, 540, 960, 39)
+    # features against the all-plain path; the labels against the all-plain
+    # path are a reading (config4's cut is not determined by its features,
+    # GRAPH_NOTE)
+    cfg4f = cfg4.replace(batch_size=2, dtype="bfloat16")
+    lab4f, feats4f, _ = with_features_cell(
+        cfg4f, rgb4[:2], "config4 batch 2 of 2160x3840 bf16 with features", banded_path,
+        ["slic_w3"] + moments_off, 2e-2, reps=3, labels_gate=False)
+    check(tuple(feats4f.shape) == (2, 540, 960, 39) and feats4f.dtype == torch.bfloat16,
+          f"phase 7 config4: features {tuple(feats4f.shape)} {feats4f.dtype}")
+    only4 = pl.segment_batch(rgb4[:2], cfg4f, with_features=False, device="cuda")[0].cpu()
+    same4 = torch.equal(lab4f, only4)
+    print(f"phase 7: config4 batch 2 of 2160x3840 bf16: with-features labels bit-equal to the "
+          f"labels-only path's {same4} (the gate) ({card})", flush=True)
+    check(same4, "phase 7 config4: the with-features labels differ from the labels-only path's")
+    del feats4f, lab4f, only4
+    torch.cuda.empty_cache()
     # config1 with k = 10: the plain solver (kmeans_multigrid) on the card
     cfg1k = cfg1.replace(cluster=dataclasses.replace(cfg1.cluster, k=10))
     with_features_cell(cfg1k, rgb16, "config1 batch 16 bf16 k=10 with features (the plain "

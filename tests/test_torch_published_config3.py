@@ -27,10 +27,15 @@ inputs and holds each part on its own:
   own SLIC with float32 sums in pixel order on 0.15 %;
 - connectivity on the reference's SLIC labels: bit-equal.
 
-config4 is not held at its published frame: its reference on a batch of
-2160x3840 frames does not fit the CPU tests' time (test_torch_pipeline_
-config4.py pins it to a toy geometry). A file of its own: the reference's
-stages take ~10 s per dtype on the CPU."""
+config4's published geometry is held stage by stage in files of its own,
+one seed a file: test_torch_published_config4_energies*.py (the tiled
+energies on 3x3 of its 432x768 windows, bf16 and f32) and
+test_torch_published_config4_graph*.py (the graph stage on the 540x960
+grid of its 2160x3840 frames); its whole frames in
+experiments/torch_published_stages.py config4. Its labels are not
+determined by its features in either package (ROADMAP "Not faults"), so
+no file holds them against the reference. A file of its own: the
+reference's stages take ~10 s per dtype on the CPU."""
 
 import numpy as np
 import pytest
