@@ -178,7 +178,18 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    limit=2)`` at config1 bf16 (K1, K3, K2) and config3 bf16 (K1, K11, K14,
    K17, K15): no FloatingPointError, rows equal to the mode off's, both
    times;
-10. a JSON line of the kernels (time, plain time, bound, library call), then
+10. the benchmark core (``benchmark.py``): ``run_benchmark`` for each
+   preset at its published batch in bf16, labels only (config0-config3
+   five iterations, config4 two), device-resident MP/s and ``vs_baseline``
+   (the JAX package's CPU golden table) printed beside the card's name and
+   power limit; gated: the four keys, a finite positive value equal to the
+   timed loop's MP/s, each preset's kernels launched inside the timed loop
+   (the counts set to 0 just before ``benchmark._timed_loop`` and read just
+   after; added to the totals), the modulated route not run, and the timed
+   loop's label checksum equal to the untimed loop's over the same
+   iterations; then ``cli bench --preset config1 --iters 5`` on the card
+   prints one JSON line with the four keys;
+11. a JSON line of the kernels (time, plain time, bound, library call), then
    the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances (also in the tests): energies <= 1e-4 * peak (f32), <= 2e-2 *
@@ -229,7 +240,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
+import math
 import multiprocessing
 import os
 import statistics
@@ -2666,6 +2679,88 @@ def main() -> None:
         check(rows9[True] == rows9[False] and len(rows9[True]) == 2,
               f"phase 9: evaluate(debug_nans=True) gave other rows ({label})")
     print(f"phase 9 took {time.perf_counter() - t9:.1f} s ({card})", flush=True)
+
+    # ---- phase 10: the benchmark core, device-resident MP/s ---------------
+    t10 = time.perf_counter()
+    torch.cuda.empty_cache()
+    from gabor_color_image_segmentation_tpu_torch import benchmark as bm
+    from gabor_color_image_segmentation_tpu_torch import cli
+
+    # build_batch's mosaics are the ones made above (the same seeds and
+    # generator): config4's eight 4K frames took seconds each on the host
+    made = {arr.shape: arr for arr in (rgb1, rgb8, rgb16, rgb4)}
+    real_build, real_loop = bm.build_batch, bm._timed_loop
+
+    def build_batch(cfg, n_images):
+        key = (n_images, *cfg.image_hw, 3)
+        return made[key] if key in made else real_build(cfg, n_images)
+
+    loops = []
+
+    def timed_loop(*args, **kwargs):
+        """benchmark._timed_loop with its launches counted: the counts set
+        to 0 just before each loop and read just after."""
+        zero_counts()
+        modulated.gabor_energies_mod.calls = 0
+        seconds, checksum = real_loop(*args, **kwargs)
+        loops.append((seconds, checksum,
+                      {name: wrapper.launches for name, wrapper in counters.items()},
+                      modulated.gabor_energies_mod.calls))
+        return seconds, checksum
+
+    bm.build_batch, bm._timed_loop = build_batch, timed_loop
+    bench_paths = {
+        "config0": ["gabor_energies_fused", "maximin_chw_pass", "lloyd_chw_pass"],
+        "config1": ["gabor_energies_fused", "kmeans_coarse_centers_xp", "lloyd_chw_pass"],
+        "config2": gmm_path + ["precision_chol"],
+        "config3": graph_path,
+        "config4": banded_path,
+    }
+    bench_keys = {"metric", "value", "unit", "vs_baseline"}
+    try:
+        for name, path in bench_paths.items():
+            iters = 2 if name == "config4" else 5
+            loops.clear()
+            out = bm.run_benchmark(name, iters=iters, dtype="bfloat16")
+            check(len(loops) == 2, f"phase 10 {name}: run_benchmark ran {len(loops)} loops")
+            (_, warm_sum, _, _), (secs, timed_sum, counts, mod_calls) = loops
+            pcfg = preset(name)
+            h, w = pcfg.image_hw
+            mp_s = pcfg.batch_size * h * w / 1e6 / (secs / iters)
+            print(f"phase 10: run_benchmark('{name}', batch {pcfg.batch_size}, bf16, iters "
+                  f"{iters}): {out['value']} {out['unit']}, vs_baseline {out['vs_baseline']} "
+                  f"(the JAX package's CPU golden table), {secs / iters * 1e3:.2f} ms a call "
+                  f"in the timed loop; checksum {timed_sum}, the untimed loop's {warm_sum}; "
+                  f"launches in the timed loop {({k: counts[k] for k in path})}, modulated "
+                  f"route calls {mod_calls}; {json.dumps(out)} ({card})", flush=True)
+            check(set(out) == bench_keys, f"phase 10 {name}: keys {sorted(out)}")
+            check(math.isfinite(out["value"]) and out["value"] > 0,
+                  f"phase 10 {name}: MP/s {out['value']}")
+            check(abs(out["value"] - round(mp_s, 3)) < 1e-9,
+                  f"phase 10 {name}: the value is not the timed loop's MP/s")
+            check(out["unit"] == "MP/s/GPU" and out["vs_baseline"] == round(
+                mp_s / bm.CPU_BASELINE_MP_S[name], 1),
+                f"phase 10 {name}: unit {out['unit']} or vs_baseline {out['vs_baseline']}")
+            check(timed_sum == warm_sum,
+                  f"phase 10 {name}: the timed loop's checksum differs from the untimed one's")
+            check(mod_calls == 0, f"phase 10 {name}: the modulated route ran in bf16")
+            for k in path:
+                check(counts[k] > 0, f"{k} was never launched in the phase 10 {name} loop")
+            for k in totals:
+                totals[k] += counts[k]
+        buf = io.StringIO()
+        loops.clear()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["bench", "--preset", "config1", "--iters", "5"])
+        lines = buf.getvalue().strip().splitlines()
+        print(f"phase 10: cli bench --preset config1 --iters 5 on the card printed "
+              f"{len(lines)} line(s): {lines[-1] if lines else ''} ({card})", flush=True)
+        check(len(lines) == 1 and set(json.loads(lines[0])) == bench_keys
+              and json.loads(lines[0])["unit"] == "MP/s/GPU",
+              "phase 10: cli bench did not print one JSON line with the four keys")
+    finally:
+        bm.build_batch, bm._timed_loop = real_build, real_loop
+    print(f"phase 10 took {time.perf_counter() - t10:.1f} s ({card})", flush=True)
 
 
     print(json.dumps({"kernels": [

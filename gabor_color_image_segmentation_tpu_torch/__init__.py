@@ -17,7 +17,8 @@ and the spectral n-cut) and ``config4`` (tiled 4K features pooled per
 window, the graph stage on the pooled grid), through
 ``models/pipeline.py::segment_batch``, and
 the graph stage's host-side min-cut through ``segment_images``; both run on
-the card unless the caller passes ``device="cpu"``.
+the card unless the caller passes ``device="cpu"``. ``benchmark.py`` (behind
+``cli bench``) times the labels-only path device-resident.
 """
 
 from gabor_color_image_segmentation_tpu_torch.config import (

@@ -1,11 +1,12 @@
 """gaborseg-torch CLI, the port's counterpart of the JAX package's cli.py:
-run / eval / info (and ``bench``, registered, whose port is still to come).
+run / eval / bench / info.
 
     gaborseg-torch run  --preset config0 --image img.jpg --out seg.png
     gaborseg-torch eval --preset config3 --split test --out results.jsonl --resume
+    gaborseg-torch bench --preset config1 --iters 50
     gaborseg-torch info --preset config1
 
-``--device`` (default ``cuda``) picks where ``run`` and ``eval`` segment;
+``--device`` (default ``cuda``) picks where ``run``, ``eval`` and ``bench`` segment;
 ``--device cpu`` runs the plain PyTorch versions on the CPU. The kernels'
 build is cached by source hash in the package's ``_build/``, so the CLI
 sets up no compilation cache of its own.
@@ -135,9 +136,32 @@ def cmd_eval(args):
 
 
 def cmd_bench(args):
-    sys.exit("gaborseg-torch bench: the PyTorch port has no benchmark yet; it is "
-             "ROADMAP.md queue 1 item 7 (a GPU benchmark of its own). The JAX "
-             "package's benchmark is `gaborseg bench`.")
+    from gabor_color_image_segmentation_tpu_torch.benchmark import run_benchmark
+    from gabor_color_image_segmentation_tpu_torch.config import preset
+
+    if args.measure_cpu:
+        sys.exit("gaborseg-torch bench --measure-cpu: the port imports no golden/ module, "
+                 "so it cannot time the CPU golden path; vs_baseline divides by the JAX "
+                 "package's stored CPU_BASELINE_MP_S (`gaborseg bench --measure-cpu` "
+                 "measures it)")
+    cfg = _build_cfg(args)  # every preset-override flag (--k, --method, ...)
+    if not args.dtype:
+        cfg = cfg.replace(dtype="bfloat16")  # the bench's default is production mode
+    # an unmodified preset -> run_benchmark divides by the stored CPU baseline
+    stock = cfg == preset(args.preset).replace(dtype=cfg.dtype, batch_size=cfg.batch_size)
+    print(
+        json.dumps(
+            run_benchmark(
+                preset_name=args.preset,
+                batch_size=cfg.batch_size,
+                iters=args.iters,
+                dtype=cfg.dtype,
+                subsample=args.subsample,
+                cfg=None if stock else cfg,
+                device=args.device,
+            )
+        )
+    )
 
 
 def cmd_info(args):
@@ -202,11 +226,12 @@ def main(argv=None):
     )
     p_eval.set_defaults(fn=cmd_eval)
 
-    p_bench = sub.add_parser("bench", help="end-to-end throughput (not ported yet)")
+    p_bench = sub.add_parser("bench", help="end-to-end throughput (device-resident MP/s)")
     _add_preset_args(p_bench)
     p_bench.add_argument("--iters", type=int, default=50)
     p_bench.add_argument("--subsample", type=int, default=1)
-    p_bench.add_argument("--measure-cpu", action="store_true")
+    p_bench.add_argument("--measure-cpu", action="store_true",
+                         help="not carried: the port cannot time the golden path (exits 1)")
     p_bench.set_defaults(fn=cmd_bench)
 
     p_info = sub.add_parser("info", help="describe a preset / bank")

@@ -11,7 +11,7 @@ module that the kernel table names (``PAIRED``).
 Two explicit tables hold the exceptions, each entry with its reason:
 ``RENAMES`` (a name or a parameter the port carries under another name) and
 ``NOT_CARRIED`` (what answers the TPU's layouts, the JAX precision enums,
-``enable_compilation_cache``, ``benchmark.py`` as a whole, and the
+``enable_compilation_cache``, the benchmark's golden-path timer, and the
 parameters the single-controller mesh replaces). An entry that no longer
 names anything of the JAX package fails its module's case, so the tables
 cannot go stale. One case per JAX module.
@@ -90,8 +90,12 @@ RENAMES = {
 _MESH = ("the single-controller mesh (parallel/mesh.py) is passed as mesh and axis; "
          "there is no named axis of a traced program")
 _XT = "the TPU's padded transposed xt layout; the port's buffers are unpadded (B, D, N)"
+_GOLDEN = ("times the numpy golden path, and the port imports no golden/ module (the "
+           "ground rule); vs_baseline divides by the copied CPU_BASELINE_MP_S")
 NOT_CARRIED = {
-    ("benchmark.py",): "the port's benchmark is ROADMAP queue 1 item 7, a PR of its own",
+    ("benchmark.py", "measure_cpu_golden"): _GOLDEN,
+    ("benchmark.py", "run_benchmark", "measure_cpu"): _GOLDEN,
+    ("benchmark.py", "run_benchmark", "cpu_images"): _GOLDEN,
     ("utils/jit_cache.py",): ("JAX's persistent compilation cache; the kernels' build is "
                               "cached by source hash in _build/ (_kernels.py)"),
     ("ops/precision.py", "HIGHEST"): "a JAX matmul precision enum; the port turns TF32 off",
@@ -152,6 +156,9 @@ PORTED = [
     ("models/kmeans_chw.py", "kmeans_fused_chw", "energies_cm"),
     ("ops/lookup.py", "table_lookup_int"),
     ("eval.py", "evaluate", "debug_nans"),
+    ("benchmark.py", "build_batch"),
+    ("benchmark.py", "bench_device"),
+    ("benchmark.py", "run_benchmark"),
 ]
 
 

@@ -119,12 +119,13 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     """Every module of the port imports, in a fresh interpreter, without
-    loading jax or any module of the JAX package."""
+    loading jax, any module of the JAX package or of golden/ (the numpy
+    oracle behind both)."""
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'golden')\n"
         f"             or m == {JAX_PKG!r} or m.startswith({JAX_PKG + '.'!r}))\n"
         "assert not bad, f'the port imported {bad}'\n"
     )
@@ -152,14 +153,15 @@ def test_import_checks_cover_the_evaluation_surface():
                                         for p in [*PORT.rglob("*.py"),
                                                   PORT.parent / "chip_smoke.py"]))
 def test_port_sources_import_no_jax(path):
-    """No import statement of the port or of chip_smoke.py names jax or the
-    JAX package, at any depth (function-local imports included)."""
+    """No import statement of the port or of chip_smoke.py names jax, the
+    JAX package or golden/, at any depth (function-local imports
+    included)."""
     tree = ast.parse((PORT.parent / path).read_text())
     names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
              for a in node.names]
     names += [node.module or "" for node in ast.walk(tree)
               if isinstance(node, ast.ImportFrom)]
-    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib")
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "golden")
            or m == JAX_PKG or m.startswith(JAX_PKG + ".")]
     assert not bad, f"{path} imports {bad}"
 

@@ -6,8 +6,8 @@ applied to the port's labels; ``resume`` skips the ids already written;
 ``profile_dir`` writes a torch.profiler trace; ``debug_nans`` runs and
 finds no NaN. The
 CLI's ``info`` JSON equals the JAX package's for every preset; ``run``
-writes its overlay PNG; ``bench`` exits non-zero naming the roadmap item
-that owns it; ``run`` and ``eval`` default to the card. (The JAX
+writes its overlay PNG; ``run`` and ``eval`` default to the card
+(``bench`` in tests/test_torch_benchmark.py). (The JAX
 package's ``evaluate`` itself runs in tests/test_torch_eval_reference.py.)"""
 
 import json
@@ -124,12 +124,6 @@ def test_cli_run_writes_png(capsys, tmp_path):
     out = json.loads(capsys.readouterr().out)
     assert out == {"shape": [321, 481], "n_regions": 5, "preset": "config0"}
     assert os.path.getsize(out_png) > 1000
-
-
-def test_cli_bench_names_its_roadmap_item(capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli_main(["bench", "--preset", "config1"])
-    assert exc.value.code != 0 and "item 7" in str(exc.value.code)
 
 
 def test_plot_metrics(tmp_path):

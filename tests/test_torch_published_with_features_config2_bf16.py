@@ -1,0 +1,56 @@
+"""PyTorch port at config2's published frame with features, bfloat16, the
+default path (tests/published_with_features.py): batch 2 of 321x481
+mosaics, seeds 100 (fault 13's frame) and 101, ``segment_batch``
+against the JAX package's (K1 pinned, interpret mode; the port's
+``gmm_fused_t``: K6, K5, K9 and K8's plain versions). Bounds: labels
+>= 0.99 on images whose reference bf16 and f32 labels agree >= 0.99,
+features within 2e-2 of the reference's peak. A file per dtype: this one
+runs the reference in both (~35 s on the CPU)."""
+
+import pytest
+import torch
+
+from gabor_color_image_segmentation_tpu_torch.config import preset
+from gabor_color_image_segmentation_tpu_torch.models import pipeline
+from published_with_features import check_features, check_labels, mosaics, port, reference
+
+torch.set_num_threads(2)
+
+PRESET, DTYPE, SEEDS = "config2", "bfloat16", (100, 101)
+
+
+@pytest.fixture(scope="module")
+def batch():
+    return mosaics(SEEDS)
+
+
+@pytest.fixture(scope="module")
+def ref(batch):
+    """The reference's bf16 (labels, features) and its f32 labels."""
+    labels, feats = reference(PRESET, batch, DTYPE)
+    return labels, feats, reference(PRESET, batch, "float32")[0]
+
+
+@pytest.fixture(scope="module")
+def got(batch):
+    """The port's (labels, features, solver calls)."""
+    calls = []
+    real = pipeline.gmm_fused_t
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pipeline, "gmm_fused_t", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+        labels, feats = port(PRESET, batch, DTYPE)
+    return labels, feats, len(calls)
+
+
+def test_with_features_route(got):
+    labels, feats, calls = got
+    assert calls == 1 and preset(PRESET).cluster.method == "gmm"
+    assert labels.dtype == torch.int32 and tuple(feats.shape) == (2, 321, 481, 39)
+
+
+def test_published_features_match_jax(got, ref):
+    check_features(got[1], ref[1], DTYPE)
+
+
+def test_published_labels_match_jax(got, ref):
+    check_labels(got[0], ref[0], DTYPE, ref_f32=ref[2], k=preset(PRESET).cluster.k)
