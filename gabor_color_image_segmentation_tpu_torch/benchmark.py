@@ -73,9 +73,13 @@ def bench_device(cfg, batch: np.ndarray, iters: int, device=None) -> float:
     The batch is uploaded once; one untimed loop of ``iters`` calls builds
     the kernels and warms the caches (the reference's first ``run``, which
     compiles); then the same loop is timed (``_timed_loop``). Nothing in it
-    synchronises beyond what ``segment_batch`` does itself: config0's host
-    sync a Lloyd pass (its convergence test), config2's EM loop, and the
-    graph stage's host reads (configs 3 and 4). The figure differs from the
+    synchronises beyond what ``segment_batch`` does itself: the k-means's
+    fixed-point test after each Lloyd pass with sums (config0: up to
+    ``n_iter`` a call; config1: up to four, three mid-level passes and one
+    refine pass) and the graph stage's host reads (configs 3 and 4);
+    config2's EM loop freezes converged images on the card and reads
+    nothing back. A traced call shows each sync as a ``gcis.sync.*`` range
+    (utils/trace.py). The figure differs from the
     reference's, which times one jitted ``fori_loop``: both exclude the
     upload and the labels' download, but here the host orchestrates each
     call, and its launches and syncs count."""

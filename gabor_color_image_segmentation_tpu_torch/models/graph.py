@@ -56,6 +56,7 @@ from gabor_color_image_segmentation_tpu_torch.models.slic import (
 )
 from gabor_color_image_segmentation_tpu_torch.models.slic_fused import slic_batch
 from gabor_color_image_segmentation_tpu_torch.ops.lookup import table_lookup
+from gabor_color_image_segmentation_tpu_torch.utils.trace import span
 
 
 def resolve_graph_impls(g, dtype: str) -> Tuple[str, str]:
@@ -230,8 +231,9 @@ def superpixels(lab: torch.Tensor, g, slic_impl: str = "auto") -> Tuple[torch.Te
     reference's connectivity pass, which its graph stage runs after SLIC)."""
     _, h, w, _ = lab.shape
     gh, gw, _ = grid_shape(h, w, g.n_superpixels)
-    sp = slic_batch(lab, g.n_superpixels, g.slic_compactness, g.slic_iters, slic_impl)
-    return enforce_connectivity_fused(sp, gh * gw), gh * gw
+    with span("superpixels"):
+        sp = slic_batch(lab, g.n_superpixels, g.slic_compactness, g.slic_iters, slic_impl)
+        return enforce_connectivity_fused(sp, gh * gw), gh * gw
 
 
 def graph_segment_batch(features: torch.Tensor, lab: torch.Tensor,
@@ -253,11 +255,12 @@ def graph_segment_batch(features: torch.Tensor, lab: torch.Tensor,
     b, h, w, d = features.shape
     slic_impl, eig_method = resolve_graph_impls(g, cfg.dtype)
     sp, n_sp = superpixels(lab, g, slic_impl)
-    sp = sp.reshape(b, h * w)
-    feats = features.permute(0, 3, 1, 2).reshape(b, d, h * w)
-    regions = ncut_regions(feats, sp, n_sp, g.n_regions, g.affinity_sigma, eig_method,
-                           g.affinity_sigma_scale)
-    return table_lookup(sp, regions).reshape(b, h, w)
+    with span("graph_cut"):
+        sp = sp.reshape(b, h * w)
+        feats = features.permute(0, 3, 1, 2).reshape(b, d, h * w)
+        regions = ncut_regions(feats, sp, n_sp, g.n_regions, g.affinity_sigma, eig_method,
+                               g.affinity_sigma_scale)
+        return table_lookup(sp, regions).reshape(b, h, w)
 
 
 # ---------------------------------------------------------------------------

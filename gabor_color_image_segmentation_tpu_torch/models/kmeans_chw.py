@@ -33,6 +33,7 @@ from gabor_color_image_segmentation_tpu_torch.ops.features import (
     _pool2x2_cm,
     fold_coherence_affine,
 )
+from gabor_color_image_segmentation_tpu_torch.utils.trace import sync
 
 K_MAX = 8  # centre rows the kernels hold
 _TILE = 256  # pixels per block of K4
@@ -349,7 +350,7 @@ def kmeans_fused_chw(
             raw_mean = sums / torch.clamp(counts, min=1.0)[:, :, None]
             new = a[:, None, :] * raw_mean + b_aff[:, None, :]
             new = torch.where(counts[:, :, None] > 0, new, c)
-            changed = bool((new != c).any())
+            changed = sync("lloyd_fixed_point", bool, (new != c).any())
             c = new
             if not changed:
                 break

@@ -62,6 +62,7 @@ from gabor_color_image_segmentation_tpu_torch import _kernels
 from gabor_color_image_segmentation_tpu_torch.models.kmeans import maximin_init
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import K_MAX
 from gabor_color_image_segmentation_tpu_torch.ops.tiled import pool2x2_mean
+from gabor_color_image_segmentation_tpu_torch.utils.trace import sync
 
 D_COARSE_MAX = 400  # feature rows K3 stages (two tiles of >= 32 pixels in shared memory)
 COARSE_CLUSTERS = (1, 2, 4, 8, 16)  # K3's cluster sizes (16 needs the non-portable size)
@@ -584,6 +585,6 @@ def kmeans_fused(x: torch.Tensor, k: int, n_iter: int = 25,
             upd = sums / torch.clamp(counts, min=1.0)[:, :, None]
             new = torch.where(counts[:, :, None] > 0, upd, centers)
         t += 1
-        if t > n_iter or torch.equal(new, centers):
+        if t > n_iter or sync("lloyd_rows_fixed_point", torch.equal, new, centers):
             return labels, new
         centers = new

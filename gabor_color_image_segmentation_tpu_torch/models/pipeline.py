@@ -73,6 +73,17 @@ graph (config3, config4; ``segment_batch`` for the n-cut,
      to pixels by K15); or min-cut: the greedy merge on the host per
      image;
   6. with pooling, each label repeated 2^pool times along both axes.
+
+Spans (utils/trace.py; ``torch.profiler`` ranges named ``gcis.<stage>``,
+recorded only while a profiler records): ``segment`` holds a whole call;
+``features`` the colour transform (``color``) and the energies;
+``assemble`` the standardisation (colour rows, 2x2 pools, the affine, the
+normalised buffer); ``assemble_xp`` the coarse buffer or the GMM's fit
+buffer; ``coarse``, ``mid`` and ``cluster`` the clustering's levels (the
+EM on the GMM's route); ``superpixels`` and ``graph_cut`` the graph
+stage. Every host read of a device value, and the upload of host frames,
+runs in a ``sync.<site>`` range: ``upload``, ``lloyd_fixed_point``,
+``mincut_download``, ``mincut_upload``.
 """
 
 from __future__ import annotations
@@ -122,14 +133,16 @@ from gabor_color_image_segmentation_tpu_torch.ops.tiled import (
     gabor_energies_tiled,
     pool2x2_mean,
 )
+from gabor_color_image_segmentation_tpu_torch.utils.trace import span, sync
 
 
 def _color_transform(rgb: torch.Tensor, color_space: str) -> torch.Tensor:
-    if rgb.dtype == torch.uint8:
-        rgb = rgb.to(torch.float32) / 255.0
-    if color_space == "lab":
-        return rgb_to_lab(rgb)
-    return rgb.to(torch.float32)
+    with span("color"):
+        if rgb.dtype == torch.uint8:
+            rgb = rgb.to(torch.float32) / 255.0
+        if color_space == "lab":
+            return rgb_to_lab(rgb)
+        return rgb.to(torch.float32)
 
 
 def segment_chw_grouped(
@@ -148,28 +161,32 @@ def segment_chw_grouped(
     dtype = energies_cm.dtype
     c = cfg.cluster
     multigrid = pooled_e is not None
-    xc4 = build_color4(color, dtype)
-    twin = fold_twin if fold_twin is not None else pooled_e
-    pc0 = _pool2x2_cm(xc4) if (multigrid or twin is not None) else None
-    affine = _affine_params(energies_cm, xc4, c, 1e-6,
-                            pooled=(twin, pc0) if twin is not None else None)
+    with span("assemble"):
+        xc4 = build_color4(color, dtype)
+        twin = fold_twin if fold_twin is not None else pooled_e
+        pc0 = _pool2x2_cm(xc4) if (multigrid or twin is not None) else None
+        affine = _affine_params(energies_cm, xc4, c, 1e-6,
+                                pooled=(twin, pc0) if twin is not None else None)
+        levels = [(pooled_e, pc0)] if multigrid else []  # pooled twins, finest first
+        for _ in range(c.coarse_levels - 1 if multigrid else 0):
+            levels.append((_pool2x2_cm(levels[-1][0]), _pool2x2_cm(levels[-1][1])))
     c0 = None
     if multigrid:
-        pe_l, pc_l = pooled_e, pc0
-        levels = [(pe_l, pc_l)]  # pooled twins, finest first
-        for _ in range(c.coarse_levels - 1):
-            pe_l, pc_l = _pool2x2_cm(pe_l), _pool2x2_cm(pc_l)
-            levels.append((pe_l, pc_l))
+        pe_l, pc_l = levels[-1]
         e = energies_cm.shape[1]
         m = pe_l.shape[2] * pe_l.shape[3]
-        xp = assemble_xp_from_affine(pe_l, pc_l, affine[0], affine[1], dtype)
-        c0 = kmeans_coarse_centers_xp(xp, c.k, e + 3, m, c.coarse_iters)
+        with span("assemble_xp"):
+            xp = assemble_xp_from_affine(pe_l, pc_l, affine[0], affine[1], dtype)
+        with span("coarse"):
+            c0 = kmeans_coarse_centers_xp(xp, c.k, e + 3, m, c.coarse_iters)
         if c.mid_iters > 0:
-            for pe_m, pc_m in reversed(levels[:-1]):
-                _, c0 = kmeans_fused_chw(pe_m, pc_m, affine, c.k, 0, c.mid_iters,
-                                         init_centers=c0, with_labels=False)
-    labels, _ = kmeans_fused_chw(energies_cm, xc4, affine, c.k, c.n_iter,
-                                 c.refine_iters, init_centers=c0)
+            with span("mid"):
+                for pe_m, pc_m in reversed(levels[:-1]):
+                    _, c0 = kmeans_fused_chw(pe_m, pc_m, affine, c.k, 0, c.mid_iters,
+                                             init_centers=c0, with_labels=False)
+    with span("cluster"):
+        labels, _ = kmeans_fused_chw(energies_cm, xc4, affine, c.k, c.n_iter,
+                                     c.refine_iters, init_centers=c0)
     return labels
 
 
@@ -179,11 +196,14 @@ def _normalised_buffer(rgb: torch.Tensor, cfg: PipelineConfig, bank):
     (B, H, W, 3), the affine (a, b)): the reference's assemble_features_t,
     whose affine reads the float32 colour."""
     dtype = storage_dtype(cfg.dtype)
-    color = _color_transform(rgb, cfg.color_space)
-    energies = _k1_energies(color, bank, dtype)
-    c4 = build_color4(color, torch.float32)
-    a, b_aff = _affine_params(energies, c4, cfg.cluster, 1e-6)
-    return assemble_xp_from_affine(energies, c4, a, b_aff, dtype), energies, color, (a, b_aff)
+    with span("features"):
+        color = _color_transform(rgb, cfg.color_space)
+        energies = _k1_energies(color, bank, dtype)
+    with span("assemble"):
+        c4 = build_color4(color, torch.float32)
+        a, b_aff = _affine_params(energies, c4, cfg.cluster, 1e-6)
+        x = assemble_xp_from_affine(energies, c4, a, b_aff, dtype)
+    return x, energies, color, (a, b_aff)
 
 
 def _segment_gmm(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
@@ -199,13 +219,15 @@ def _segment_gmm(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
     fit_x = None
     _, _, lv = gmm_fit_levels(h, w, c.gmm_fit_pool)
     if lv > 0:
-        pe, pc = energies, build_color4(color, dtype)
-        for _ in range(lv):
-            pe, pc = _pool2x2_cm(pe), _pool2x2_cm(pc)
-        fit_x = assemble_xp_from_affine(pe, pc, a, b_aff, dtype)
+        with span("assemble_xp"):
+            pe, pc = energies, build_color4(color, dtype)
+            for _ in range(lv):
+                pe, pc = _pool2x2_cm(pe), _pool2x2_cm(pc)
+            fit_x = assemble_xp_from_affine(pe, pc, a, b_aff, dtype)
     del energies
-    labels = gmm_fused_t_xt(x, c.k, c.n_iter, c.gmm_reg_covar, 10, c.gmm_tol, fit_x,
-                            c.gmm_refine_iters)
+    with span("cluster"):
+        labels = gmm_fused_t_xt(x, c.k, c.n_iter, c.gmm_reg_covar, 10, c.gmm_tol, fit_x,
+                                c.gmm_refine_iters)
     return labels.reshape(b, h, w)
 
 
@@ -247,23 +269,25 @@ def compute_energies(rgb: torch.Tensor, cfg: PipelineConfig, bank, pool: int = 0
         raise ValueError(f"unknown feature_impl {cfg.feature_impl!r}")
     fn = _ENERGIES[impl]
     dtype = storage_dtype(cfg.dtype)
-    color = _color_transform(rgb, cfg.color_space)
-    _, h, w, _ = color.shape
-    tile = cfg.tile_hw
-    if tile is not None and (h > tile[0] or w > tile[1]):
-        return gabor_energies_tiled(color, None, dtype, tile, bank.config.max_halo, pool,
-                                    energies_fn=lambda win: fn(win, bank, dtype)), color
-    energies = fn(color, bank, dtype)
-    for _ in range(pool):
-        energies = pool2x2_mean(energies, 2)
-    return energies, color
+    with span("features"):
+        color = _color_transform(rgb, cfg.color_space)
+        _, h, w, _ = color.shape
+        tile = cfg.tile_hw
+        if tile is not None and (h > tile[0] or w > tile[1]):
+            return gabor_energies_tiled(color, None, dtype, tile, bank.config.max_halo, pool,
+                                        energies_fn=lambda win: fn(win, bank, dtype)), color
+        energies = fn(color, bank, dtype)
+        for _ in range(pool):
+            energies = pool2x2_mean(energies, 2)
+        return energies, color
 
 
 def compute_features(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
     """(B, H, W, 3) sRGB -> (B, H, W, D) standardised pixel features, the
     view of a channel-major buffer (ops/features.py::assemble_features)."""
     energies, color = compute_energies(rgb, cfg, bank)
-    return assemble_features(energies, color, cfg.cluster)
+    with span("assemble"):
+        return assemble_features(energies, color, cfg.cluster)
 
 
 def _graph_features(rgb: torch.Tensor, cfg: PipelineConfig, bank, ncut: bool = True):
@@ -286,12 +310,13 @@ def _graph_features(rgb: torch.Tensor, cfg: PipelineConfig, bank, ncut: bool = T
     if ncut and cfg.feature_impl == "auto" and (b == 1 or cfg.dtype == "float32"):
         fcfg = cfg.replace(feature_impl="modulated")
     energies, color = compute_energies(rgb, fcfg, bank, p)
-    same = cfg.color_space == "lab"
-    lab = color if same else _color_transform(rgb, "lab")
-    for _ in range(p):
-        color = pool2x2_mean(color, 1)
-        lab = color if same else pool2x2_mean(lab, 1)
-    return assemble_features(energies, color, cfg.cluster), lab
+    with span("assemble"):
+        same = cfg.color_space == "lab"
+        lab = color if same else _color_transform(rgb, "lab")
+        for _ in range(p):
+            color = pool2x2_mean(color, 1)
+            lab = color if same else pool2x2_mean(lab, 1)
+        return assemble_features(energies, color, cfg.cluster), lab
 
 
 def _graph_front(rgb: torch.Tensor, cfg: PipelineConfig, bank, ncut: bool = True):
@@ -333,11 +358,13 @@ def _segment_mincut(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tenso
     g = cfg.graph
     hp, wp = h >> g.pool, w >> g.pool
     feats, sp, _ = _graph_front(rgb, cfg, bank, ncut=False)
-    feats = feats.to(torch.float32).cpu().numpy()
-    sp = sp.cpu().numpy()
-    out = np.stack([mincut_segment(feats[i].T.reshape(hp, wp, -1), sp[i].reshape(hp, wp),
-                                   g.mincut_k, g.mincut_min_size) for i in range(b)])
-    return _unpool(torch.from_numpy(out).to(rgb.device), g.pool)
+    feats = sync("mincut_download", torch.Tensor.cpu, feats.to(torch.float32)).numpy()
+    sp = sync("mincut_download", torch.Tensor.cpu, sp).numpy()
+    with span("graph_cut"):
+        out = np.stack([mincut_segment(feats[i].T.reshape(hp, wp, -1), sp[i].reshape(hp, wp),
+                                       g.mincut_k, g.mincut_min_size) for i in range(b)])
+    out = sync("mincut_upload", torch.from_numpy(out).to, rgb.device)
+    return _unpool(out, g.pool)
 
 
 def _can_segment_transposed(cfg: PipelineConfig, h: int, w: int) -> bool:
@@ -371,14 +398,16 @@ def _segment_batch_transposed(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> t
         # the reference's transposed route off its CHW solver: the strided
         # seeding needs the normalised buffer
         x = _normalised_buffer(rgb, cfg, bank)[0]
-        return kmeans_fused_t_xt(x, c.k, c.n_iter, c.init_stride)[0].reshape(b, h, w)
+        with span("cluster"):
+            return kmeans_fused_t_xt(x, c.k, c.n_iter, c.init_stride)[0].reshape(b, h, w)
     lvl = c.coarse_levels
     multigrid = c.coarse_iters > 0 and h >= max(4, 1 << lvl) and w >= max(4, 1 << lvl)
     # the coherence fold's statistics want the twin even without a warm start
     want_twin = multigrid or (c.cue_weight == "coherence" and h >= 16 and w >= 16)
-    color = _color_transform(rgb, cfg.color_space)
-    energies, twin = gabor_energies_fused(color, bank_tensors(bank, rgb.device),
-                                          dtype, pooled=want_twin)
+    with span("features"):
+        color = _color_transform(rgb, cfg.color_space)
+        energies, twin = gabor_energies_fused(color, bank_tensors(bank, rgb.device),
+                                              dtype, pooled=want_twin)
     return segment_chw_grouped(color, energies, twin if multigrid else None, cfg,
                                fold_twin=twin)
 
@@ -392,16 +421,17 @@ def _segment_nhwc(rgb: torch.Tensor, cfg: PipelineConfig, bank):
     c = cfg.cluster
     feats = compute_features(rgb, cfg, bank)
     flat = feats.reshape(b, h * w, feats.shape[3])  # a view: (B, N, D) over the (B, D, N) buffer
-    if c.method == "kmeans":
-        labels, _ = kmeans_batch(flat, c.k, c.n_iter, storage_dtype(cfg.dtype), c.subsample,
-                                 c.init_stride, (h, w), c.coarse_iters, c.refine_iters,
-                                 c.coarse_levels, c.mid_iters)
-    elif fused_solver_ready(c.k, h * w, n_max=PIPELINE_N_MAX) and c.subsample == 1:
-        labels = gmm_fused_t(flat, c.k, c.n_iter, c.gmm_reg_covar, 10, c.gmm_tol, (h, w),
-                             c.gmm_fit_pool, c.gmm_refine_iters)
-    else:
-        labels = gmm_predict(flat, c.k, c.n_iter, c.gmm_reg_covar, c.subsample, c.gmm_tol,
-                             (h, w), c.gmm_fit_pool, c.gmm_refine_iters)
+    with span("cluster"):
+        if c.method == "kmeans":
+            labels, _ = kmeans_batch(flat, c.k, c.n_iter, storage_dtype(cfg.dtype),
+                                     c.subsample, c.init_stride, (h, w), c.coarse_iters,
+                                     c.refine_iters, c.coarse_levels, c.mid_iters)
+        elif fused_solver_ready(c.k, h * w, n_max=PIPELINE_N_MAX) and c.subsample == 1:
+            labels = gmm_fused_t(flat, c.k, c.n_iter, c.gmm_reg_covar, 10, c.gmm_tol, (h, w),
+                                 c.gmm_fit_pool, c.gmm_refine_iters)
+        else:
+            labels = gmm_predict(flat, c.k, c.n_iter, c.gmm_reg_covar, c.subsample, c.gmm_tol,
+                                 (h, w), c.gmm_fit_pool, c.gmm_refine_iters)
     return labels.reshape(b, h, w), feats
 
 
@@ -425,6 +455,9 @@ def _prepare(rgb, cfg: PipelineConfig, bank, device):
         bank = make_bank(cfg.bank)
     if isinstance(rgb, np.ndarray):
         rgb = torch.from_numpy(rgb)
+    if rgb.device.type == "cpu" and dev.type != "cpu":
+        # from pageable memory: the host waits for the queue and the copy
+        return sync("upload", rgb.to, dev), bank
     return rgb.to(dev), bank
 
 
@@ -445,12 +478,13 @@ def segment_batch(
     path."""
     if not cfg.graph.enabled and cfg.cluster.method not in ("kmeans", "gmm"):
         raise ValueError(f"unknown cluster method {cfg.cluster.method!r}")
-    rgb, bank = _prepare(rgb, cfg, bank, device)
-    _, h, w, _ = rgb.shape
-    if not with_features and _can_segment_transposed(cfg, h, w):
-        return _segment_batch_transposed(rgb, cfg, bank), None
-    labels, feats = _segment_nhwc(rgb, cfg, bank)
-    return labels, (feats if with_features else None)
+    with span("segment"):
+        rgb, bank = _prepare(rgb, cfg, bank, device)
+        _, h, w, _ = rgb.shape
+        if not with_features and _can_segment_transposed(cfg, h, w):
+            return _segment_batch_transposed(rgb, cfg, bank), None
+        labels, feats = _segment_nhwc(rgb, cfg, bank)
+        return labels, (feats if with_features else None)
 
 
 def segment_image(rgb: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig, bank=None,
@@ -471,5 +505,6 @@ def segment_images(rgb: Union[np.ndarray, torch.Tensor], cfg: PipelineConfig, ba
     if not (g.enabled and g.cut == "mincut"):
         labels, _ = segment_batch(rgb, cfg, bank, False, device)
         return labels
-    rgb, bank = _prepare(rgb, cfg, bank, device)
-    return _segment_mincut(rgb, cfg, bank)
+    with span("segment"):
+        rgb, bank = _prepare(rgb, cfg, bank, device)
+        return _segment_mincut(rgb, cfg, bank)

@@ -22,8 +22,9 @@ shard that receives nothing gets zeros, as ``lax.ppermute``'s.
 
 ``mesh.collectives`` counts the collectives run, by kind, and
 ``mesh.host_syncs`` the flags read back to the host (``any_true``: the
-fixpoint loops of parallel/tiled_graph.py). A sub-mesh along one axis
-shares both counters with its parent.
+fixpoint loops of parallel/tiled_graph.py; under a profiler each read is
+a ``gcis.sync.mesh_any_true`` range, utils/trace.py). A sub-mesh along
+one axis shares both counters with its parent.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from gabor_color_image_segmentation_tpu_torch.utils.trace import sync
 
 COLLECTIVE_KINDS = ("psum", "pmean", "all_gather", "ppermute")
 
@@ -120,7 +123,7 @@ class Mesh:
         (one host sync, counted in ``host_syncs``)."""
         total = self.psum([f.to(torch.int32).reshape(()) for f in flags], axis)[0]
         self._syncs[0] += 1
-        return bool(total.item() > 0)
+        return bool(sync("mesh_any_true", torch.Tensor.item, total) > 0)
 
 
 def _ordered_sum(values: Sequence[torch.Tensor], dev: torch.device) -> torch.Tensor:
