@@ -52,7 +52,7 @@ _SIGNATURES = {
     "gcis_slic_w5_active_clusters": [_I] * 3 + [_P] * 2,
     "gcis_enforce_connectivity": [_P] * 6 + [_I] * 5 + [_P],
     "gcis_table_lookup": [_P] * 3 + [_I] * 3 + [_P],
-    "gcis_gabor_group": [_P] * 13 + [_I] * 10 + [_P],
+    "gcis_gabor_group": [_P] * 19 + [_I] * 10 + [_P],
     "gcis_lloyd_chw": [_P] * 8 + [_I] * 11 + [_P],
     "gcis_maximin_chw": [_P] * 8 + [_I] * 5 + [_P],
     "gcis_coarse_centers": [_P] * 3 + [_I] * 9 + [_P],

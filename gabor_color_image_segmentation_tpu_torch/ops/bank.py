@@ -155,6 +155,7 @@ class GroupTensors:
     mus: torch.Tensor  # (n,) float32 DC means
     smooth: torch.Tensor  # (2r+1,) float32 smoothing taps
     smooth_host: Tuple[float, ...]  # the same taps on the host (fused.smooth_table's key)
+    env_host: Tuple[float, ...]  # the envelope taps on the host (fused.band_tables' key)
 
 
 @functools.lru_cache(maxsize=64)
@@ -165,17 +166,19 @@ def _bank_tensors(bank, device: str) -> Tuple[GroupTensors, ...]:
     for g in bank.groups:
         p = g.ksize // 2
         taps = np.asarray(g.smooth_taps, np.float32)
+        env = _envelope_taps(g.sigma, p)
 
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
         out.append(GroupTensors(
             n=len(g.kernel_indices), p=p, r=len(taps) // 2,
-            env=t(_envelope_taps(g.sigma, p)),
+            env=t(env),
             freqs=t(group_frequencies(g, bank).astype(np.float32)),
             mus=t(_dc_mu(g, bank)),
             smooth=t(taps),
             smooth_host=tuple(float(v) for v in taps),
+            env_host=tuple(float(v) for v in env),
         ))
     return tuple(out)
 

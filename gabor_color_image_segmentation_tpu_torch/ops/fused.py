@@ -3,14 +3,26 @@ ops/fused_pallas.py::gabor_energies_fused).
 
 Replaces the TPU kernel ``ops/fused_pallas.py::_group_kernel``. The CUDA
 kernel (``csrc/gabor_energies.cu``) runs two launches per scale group, a
-magnitude pass and a smoothing pass, with a float32 magnitude intermediate
-of (B, max n_g * C, H, W) in device memory that every group reuses. It
-writes each group straight into its channel slice of one (B, E, H, W)
-output and of its 2x2-pooled twin (B, E, H // 2, W // 2), so there is no
-per-group tuple and no concatenation. It sizes its tiles and halos at
-launch from each group's radii, so it takes any radius a bank gives. Its
-note says what bounds it on the H100 and how its tap loops are
-register-blocked.
+magnitude pass and a smoothing pass, with a magnitude intermediate of
+(B, max n_g * C, H, W) in device memory, in the stored dtype (in bf16 its
+rows padded to ``mag_pitch``), that every group reuses. It writes each
+group straight into its channel slice of one (B, E, H, W) output and of
+its 2x2-pooled twin (B, E, H // 2, W // 2), so there is no per-group tuple
+and no concatenation. It sizes its tiles and halos at launch from each
+group's radii, so it takes any radius a bank gives.
+
+Two routes, by the stored dtype. bfloat16 runs every 1-D pass as a
+banded-Toeplitz product on the tensor cores (``mma.sync``, bf16 operands,
+float32 accumulators), the product ``_group_plain`` writes out; the
+kernels read each band as 16 x 16 blocks (``band_tables``, cached on the
+device). The band fills 34-77 % of the blocks it issues (65 % at a conv
+radius of 15, 77 % at a smoothing radius of 24, 25-63 % for the twin's
+stride-2 pooled smoothing). On the H100 that route takes ~11 ms for a
+config1 batch of 16 frames, mostly the elementwise work and the stores
+around the products. float32 keeps the register-blocked tap loops on the
+FMA pipes: its operands on the tensor cores would be TF32 (about three
+digits, past its 1e-4 contract) or a 3xTF32 split. The kernel's note says
+what bounds each route.
 
 Output order is the feature contract: groups in bank order, kernel-major,
 channel-minor within a group (the reference's features.py energy_index).
@@ -19,17 +31,20 @@ Arithmetic is float32, rounded to bfloat16 in bf16 mode where the
 reference's kernel rounds its matmul operands: the image before the box
 sums and the box sums' vertical pass, the envelope taps, the modulated
 planes, the vertical blur, the magnitude, the smoothing taps and the
-vertical smoothing, then the stored energies and twin. Labels turn on
-those bits: maximin seeding on bf16 features meets exact ties, and
-rounding only the stored values seeds other pixels on some frames
-(config2 at 321x481 agreed 0.54 with the reference on one mosaic).
+vertical smoothing, then the stored energies and twin. Those are the
+tensor-core route's operands, so its products are the reference's, summed
+in another order. Labels turn on those bits: maximin seeding on bf16
+features meets exact ties, and rounding only the stored values seeds other
+pixels on some frames (config2 at 321x481 agreed 0.54 with the reference on
+one mosaic).
 
 The smoothing follows the reference's Toeplitz matrices: REFLECT_101
 borders folded into each output's taps (two taps that reach the same
 source pixel sum first, in float32, and round once), and the twin is the
 pooled smoothing (P_v S_v) mag (S_h P_h), its taps the mean of two rows of
 the folded matrix, not the mean of four stored energies. ``smooth_table``
-gives each output's taps over the padded axis.
+gives each output's taps over the padded axis; ``band_tables`` cuts those
+rows into the tensor-core route's blocks.
 """
 
 from __future__ import annotations
@@ -114,8 +129,8 @@ def _smooth_taps_np(taps: Tuple[float, ...], pooled: bool, bf16: bool) -> np.nda
 
 
 @functools.lru_cache(maxsize=256)
-def _on_device(fn, device: str, *args) -> torch.Tensor:
-    return torch.from_numpy(fn(*args)).to(device)
+def _on_device(fn, device: str, *args, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return torch.from_numpy(fn(*args)).to(device, dtype)
 
 
 def smooth_taps(g: GroupTensors, pooled: bool, bf16: bool) -> torch.Tensor:
@@ -133,6 +148,75 @@ def smooth_table(g: GroupTensors, n: int, pooled: bool, bf16: bool) -> torch.Ten
     from two padded positions takes its folded tap at the first and zero at
     the other. Rows clear of the borders hold the plain taps."""
     return _on_device(_smooth_table_np, str(g.smooth.device), g.smooth_host, n, pooled, bf16)
+
+
+def _band_blocks_np(tab: np.ndarray, stride: int) -> np.ndarray:
+    """A per-output tap table as the tensor-core kernels read its band:
+    (ceil(n_out / 16), nk, 16, 16) float32, nk = ceil((15 stride + ntap) /
+    16). ``tab`` (n_out, ntap): output o reads padded position stride * o +
+    t with weight tab[o, t]. Block (m, k) holds outputs 16 m + a (rows a)
+    at padded positions stride * 16 m + 16 k + b (columns b): tab[16 m + a,
+    16 k + b - stride * a] inside the band, zero outside it and past n_out."""
+    n_out, ntap = tab.shape
+    nk = (15 * stride + ntap + 15) // 16
+    nm = -(-n_out // 16)
+    rows = np.zeros((nm * 16, ntap), np.float32)
+    rows[:n_out] = tab
+    a = np.arange(16)
+    t = 16 * np.arange(nk)[:, None, None] + a[None, None, :] - stride * a[None, :, None]
+    inside = (t >= 0) & (t < ntap)  # (nk, 16, 16)
+    blocks = rows.reshape(nm, 16, ntap)[:, a[:, None], np.clip(t, 0, ntap - 1)]
+    return np.ascontiguousarray(np.where(inside[None], blocks, 0.0), np.float32)
+
+
+@functools.lru_cache(maxsize=256)
+def _envelope_blocks_np(env: Tuple[float, ...], ones: bool) -> np.ndarray:
+    """The bands of the envelope taps, rounded to bfloat16, or of ones (the
+    box sums), the same for every row block: (1, nk, 16, 16)."""
+    taps = np.ones(len(env), np.float32) if ones else _round_storage(
+        np.asarray(env, np.float32), True)
+    return _band_blocks_np(np.tile(taps, (16, 1)), 1)
+
+
+def column_shift(r: int) -> int:
+    """How many columns before its padded axis the smoothing's staged strip
+    starts, (-r) mod 8: the strip starts on an 8-element boundary of the
+    bf16 magnitude rows (``mag_pitch``), so it is copied 16 bytes at a
+    time, and the bands across the columns carry the shift."""
+    return -r % 8
+
+
+def mag_pitch(w: int) -> int:
+    """Row pitch (elements) of the bf16 magnitude intermediate: w rounded up
+    to a multiple of 8, so every tile's rows start 16-byte aligned."""
+    return -(-w // 8) * 8
+
+
+@functools.lru_cache(maxsize=256)
+def _smooth_blocks_np(taps: Tuple[float, ...], n: int, pooled: bool, shift: int) -> np.ndarray:
+    """The folded smoothing's band over an axis of length n (bf16 mode),
+    at stride 2 for the twin, its padded axis read ``shift`` positions
+    later (the band's taps moved right by shift)."""
+    tab = _smooth_table_np(taps, n, pooled, True)
+    return _band_blocks_np(np.pad(tab, ((0, 0), (shift, 0))), 2 if pooled else 1)
+
+
+def band_tables(g: GroupTensors, h: int, w: int,
+                pooled: bool) -> Tuple[Optional[torch.Tensor], ...]:
+    """The bf16 band blocks of the tensor-core route, on g's device: the
+    envelope's and the box sums' (one row block), the smoothing's down the
+    rows and across the columns (shifted by ``column_shift``), and the
+    twin's (None unless ``pooled``). Every value is a bfloat16 (the tables
+    are rounded), so the cast is exact."""
+    dev, shift, bf = str(g.env.device), column_shift(g.r), torch.bfloat16
+    out = (_on_device(_envelope_blocks_np, dev, g.env_host, False, dtype=bf),
+           _on_device(_envelope_blocks_np, dev, g.env_host, True, dtype=bf),
+           _on_device(_smooth_blocks_np, dev, g.smooth_host, h, False, 0, dtype=bf),
+           _on_device(_smooth_blocks_np, dev, g.smooth_host, w, False, shift, dtype=bf))
+    if not pooled:
+        return out + (None, None)
+    return out + (_on_device(_smooth_blocks_np, dev, g.smooth_host, h, True, 0, dtype=bf),
+                  _on_device(_smooth_blocks_np, dev, g.smooth_host, w, True, shift, dtype=bf))
 
 
 def _smooth_matrix(g: GroupTensors, n: int, pooled: bool, bf16: bool) -> torch.Tensor:
@@ -234,29 +318,36 @@ def gabor_energies_fused(
     out = torch.empty((b, e, h, w), dtype=dtype, device=img.device)
     twin = (torch.empty((b, e, h // 2, w // 2), dtype=dtype, device=img.device)
             if pooled else None)
-    mag = torch.empty((b, max(g.n for g in groups) * c, h, w),
-                      dtype=torch.float32, device=img.device)
     bf16 = _kernels.storage_code(dtype) == 1
+    mag = torch.empty((b, max(g.n for g in groups) * c, h, mag_pitch(w) if bf16 else w),
+                      dtype=dtype, device=img.device)
     goff = 0
     has_twin = pooled and twin.numel() > 0
     for g in groups:
-        # the taps of the smoothing and the twin, then their per-output tables
-        twin_in = ((smooth_taps(g, True, bf16), smooth_table(g, h, True, bf16),
-                    smooth_table(g, w, True, bf16)) if has_twin else (None,) * 3)
-        taps = (smooth_taps(g, False, bf16), twin_in[0], smooth_table(g, h, False, bf16),
-                smooth_table(g, w, False, bf16), twin_in[1], twin_in[2])
+        if bf16:  # the tensor cores: band tables only
+            taps, band = (None,) * 7, band_tables(g, h, w, has_twin)
+        else:  # the FMA tap loops: the taps of the smoothing and the twin, their tables
+            twin_in = ((smooth_taps(g, True, False), smooth_table(g, h, True, False),
+                        smooth_table(g, w, True, False)) if has_twin else (None,) * 3)
+            taps = (g.env, smooth_taps(g, False, False), twin_in[0],
+                    smooth_table(g, h, False, False), smooth_table(g, w, False, False),
+                    twin_in[1], twin_in[2])
+            band = (None,) * 6
+        ptr = [None if t is None else t.data_ptr() for t in taps + band]
         _kernels.launch(
             "gcis_gabor_group", x.data_ptr(), mag.data_ptr(), out.data_ptr(),
-            twin.data_ptr() if has_twin else None, _round_storage(g.env, bf16).data_ptr(),
-            g.freqs.data_ptr(), g.mus.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in taps),
+            twin.data_ptr() if has_twin else None, ptr[0], g.freqs.data_ptr(),
+            g.mus.data_ptr(), *ptr[1:],
             b, c, h, w, g.n, g.p, g.r, e, goff, int(bf16),
             outputs=(out[:, goff:goff + g.n * c],)
             + ((twin[:, goff:goff + g.n * c],) if pooled else ()),
         )
         goff += g.n * c
     gabor_energies_fused.launches += 1
+    if bf16:
+        gabor_energies_fused.tc_groups += len(groups)
     return out, twin
 
 
 gabor_energies_fused.launches = 0
+gabor_energies_fused.tc_groups = 0  # groups launched on the tensor-core route

@@ -48,14 +48,18 @@ def device():
 
 # K1's banks: a small one; the config0 bank widened past the radii K1's
 # tiles were once sized for (conv radius 16, smoothing radius 25, as
-# tests/test_torch_refusals.py's WIDE_BANKS); and one at twice them or more
-# (conv radius 32, smoothing radius 50)
+# tests/test_torch_refusals.py's WIDE_BANKS); one at twice them or more
+# (conv radius 32, smoothing radius 50: the bf16 bands past the blocks a
+# warp keeps in registers); and radii of 300, where every tile reflects
+# many times and both bf16 kernels stage their tiles in column strips
 K1_BANKS = {
     "small": BankConfig(scales=(2.0, 4.0, 8.0), orientations=3, frequencies=(0.12,)),
     "conv_radius_16": dataclasses.replace(preset("config0").bank, max_ksize=33),
     "smooth_radius_25": dataclasses.replace(preset("config0").bank, smooth_truncate=3.1),
     "radii_32_50": BankConfig(scales=(2.0, 11.0), orientations=2, max_ksize=65,
                               smoothing=1.5),
+    "radii_300": BankConfig(scales=(2.0, 100.0), orientations=1, frequencies=(0.12,),
+                            max_ksize=601, smoothing=1.0),
 }
 
 
@@ -89,6 +93,30 @@ def test_gabor_energies_kernel_rounds_as_plain(device, hw, bank_name):
     torch.cuda.synchronize()
     assert (out == ref).float().mean().item() >= 0.99
     assert (twin == ref_twin).float().mean().item() >= 0.99
+
+
+# config1's bank (conv radii 5-15, smoothing radii 5-24), the benchmark's: at
+# its 321x481 frame, and at 37x53, where every tile lies on an edge and both
+# sides are odd. bf16 takes the tensor-core route (tc_groups counts its five
+# groups), float32 the FMA tap loops.
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hw", [(37, 53), (321, 481)])
+def test_gabor_energies_kernel_config1(device, dtype, hw):
+    dt = DTYPES[dtype]
+    groups = bank_tensors(make_bank(preset("config1").bank), device)
+    img = torch.randn((2, *hw, 3), generator=torch.Generator().manual_seed(2)).to(device)
+    before = fused.gabor_energies_fused.tc_groups
+    out, twin = fused.gabor_energies_fused(img, groups, dt)
+    assert fused.gabor_energies_fused.tc_groups - before == (5 if dt == torch.bfloat16 else 0)
+    ref, ref_twin = fused.gabor_energies_fused_plain(img, groups, dt)
+    torch.cuda.synchronize()
+    peak = ref.float().abs().max()
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max() <= tol * peak
+    assert (twin.float() - ref_twin.float()).abs().max() <= tol * peak
+    if dt == torch.bfloat16:
+        assert (out == ref).float().mean().item() >= 0.99
+        assert (twin == ref_twin).float().mean().item() >= 0.99
 
 
 def _rows(device, dt, b=2, e=7, h=29, w=41, seed=0):
