@@ -202,7 +202,7 @@ the probe; two K6 launches bit-equal); K2 past the rows a whole tile
 stages on blobs: labels and counts equal, sums within rtol 1e-4; EM labels
 equal on >= 99.99 %, and, held with the plain version against the plain
 version in float64, the log-likelihood within max(rtol 1e-5, twice the
-plain version's error) and the moments within max(1e-4 of each
+plain version's error) and the moments within max(1e-6 of each
 component's summed magnitude, twice the plain version's error), two K8
 launches bit-equal;
 SLIC labels equal on every pixel (K11 against ``slic_plain``, K12 and K13
@@ -610,7 +610,7 @@ def main() -> None:
                 return e_ll, e_m
 
             (ll_k, err), (ll_p, err_p) = err64(got), err64(ref)
-            tol = max(1e-4, 2.0 * err_p)
+            tol = max(1e-6, 2.0 * err_p)
             ok = ok and ll_k <= max(1e-5, 2.0 * ll_p)
             abs_err = max((g - r).abs().max().item() for g, r in zip(got[2:], ref[2:]))
             print(f"phase 3: em_pass [{tag}] against float64: ll rel kernel "
@@ -620,7 +620,7 @@ def main() -> None:
         report("em_pass", f"{tag} {tuple(buf.shape)} labels equal {same:.6f}, "
                f"two launches bit-equal {bits}",
                abs_err, err, f"labels 0.9999; vs float64, ll within max(1e-5, 2 x "
-               f"plain's), moments within max(1e-4, 2 x plain's) = {tol:.3e}",
+               f"plain's), moments within max(1e-6, 2 x plain's) = {tol:.3e}",
                ok and err <= tol,
                lambda: gf.em_pass(buf, *inputs, moments=moments),
                lambda: gf.em_pass_plain(buf, *inputs, moments=moments),

@@ -255,6 +255,10 @@ static __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
+static __device__ __forceinline__ double warp_sum(double v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
 
 // out[b, e] = sum over blocks i, in block order, of partial[b, i, e]: the
 // second launch of every kernel that writes per-block partials instead of
@@ -275,6 +279,28 @@ static inline cudaError_t block_order_sum(const float* partial, float* out, int 
                                           int nblk, int width, cudaStream_t s) {
   block_order_sum_kernel<<<dim3((width + 255) / 256, B), 256, 0, s>>>(partial, out,
                                                                       nblk, width);
+  return cudaGetLastError();
+}
+
+// The same over float64 partials, rounded to float32 once: the sums whose
+// terms run to millions a row (K8's EM moments), where float32 partials
+// would carry the rounding of every block.
+static __global__ void block_order_sum_f64_kernel(const double* __restrict__ partial,
+                                                  float* __restrict__ out, int nblk,
+                                                  int width) {
+  const int b = blockIdx.y;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= width) return;
+  const double* pp = partial + (long)b * nblk * width + e;
+  double acc = 0.0;
+  for (int i = 0; i < nblk; ++i) acc += pp[(long)i * width];
+  out[(long)b * width + e] = (float)acc;
+}
+
+static inline cudaError_t block_order_sum(const double* partial, float* out, int B,
+                                          int nblk, int width, cudaStream_t s) {
+  block_order_sum_f64_kernel<<<dim3((width + 255) / 256, B), 256, 0, s>>>(partial, out,
+                                                                          nblk, width);
   return cudaGetLastError();
 }
 

@@ -34,11 +34,24 @@
 //            pixels in pixel order: per pixel three float4 loads and one
 //            load of r feed 32 FMAs. Where the tiles are fewer than the
 //            threads, S = NT / tiles threads share a tile, each taking every
-//            S-th pixel; their sums are added in share order at the end.
-//   Each block writes its tiles and its log-likelihood sum to a partial row;
-//   block_order_sum adds the rows in block order. No float atomics: labels
-//   depend on these sums over 30 EM iterations, and the basin EM lands in
-//   can turn on their last bits. Two launches give the same bits.
+//            S-th pixel.
+//   sums     float32 only where the runs are short: an owner adds RUN = 32
+//            pixels into a run tile and the runs into its tile, which spans
+//            FOLD = 4 chunks (at most 4 x 640 / S pixels); then it stores
+//            the tile in shared memory, and after the chunk's barrier the
+//            block's threads convert the shares' tiles and add them, in
+//            share order, into the block's float64 partial row in device
+//            memory (stored at the block's first fold, then read, added and
+//            stored: one writer an entry, chunk order).
+//   The log-likelihood adds each pixel's float32 log-sum-exp in float64.
+//   block_order_sum adds the partial rows in block order in float64 and
+//   rounds each entry to float32 once, as em_pass_plain sums in float64
+//   and rounds once. A block walks up to ~120 chunks (config2 at batch 50):
+//   float32 sums across them carried 1e-5-4e-5 of an entry from float64,
+//   enough to move a covariance by its smallest eigenvalue. No float
+//   atomics: labels depend on these sums over 30 EM iterations, and the
+//   basin EM lands in can turn on their last bits. Two launches give the
+//   same bits.
 //
 // em_wide_kernel: the feature rows 40 < D <= 128 (the reference's K9 takes
 // d <= 128; a 16-kernel bank gives D = 51), where x no longer fits in a
@@ -51,9 +64,10 @@
 // the components' padded triangles one at a time and scores its pixel
 // against each; with moments every thread owns the tiles t, t + NTW, ...
 // of the wrapper's tile map, sums each over the chunk's pixels in pixel
-// order in 32 registers, and adds the sum into the block's partial row in
-// device memory (stored at the block's first chunk, then read, added and
-// stored: one owner, chunk order). The partial rows, their layout and
+// order in float32 registers (runs of RUN pixels, then the runs), and adds
+// the sum into the block's float64 partial row in device memory (its
+// entries read before the chunk's sums, stored at the block's first chunk:
+// one owner, chunk order). The partial rows, their layout and
 // block_order_sum are the narrow kernel's, so two launches give the same
 // bits.
 //
@@ -63,7 +77,11 @@
 // bytes of x: ~100-200 FLOP per byte, far above the card's ~20 for float32.
 // The padded rows add ~13 % to the score FMAs and the square tiles ~17 % to
 // the moments' (entries above the diagonal, which the wrapper does not
-// read).
+// read). The runs add 32 float32 adds a tile every RUN pixels (1,024
+// FMAs), and the float64 row a load, a conversion, an add and a store an
+// entry a share every FOLD chunks: ~2 % at the fit grid and ~3 % at full
+// resolution of config2 at batch 50, where the moments lie within twice
+// the plain pass's distance from float64 (experiments/torch_em_moments.py).
 
 #include "common.cuh"
 
@@ -82,6 +100,8 @@ constexpr int XS = 52;        // floats a pixel's extended column takes in share
 constexpr int TA = 4, TC = 8;  // rows and columns of a moments tile
 constexpr int TILE = TA * TC;
 constexpr int RSTRIDE = CH + 4;  // rs rows fall in different banks
+constexpr int RUN = 32;   // pixels a float32 run of the moments' sums adds
+constexpr int FOLD = 4;   // chunks an owner's float32 tile spans before the float64 row
 
 // Offset of row i in a padded triangle: row i holds 4 * (i / 4 + 1) floats.
 __host__ __device__ constexpr int row_off(int i) {
@@ -118,18 +138,19 @@ __device__ __forceinline__ float finish(float* rs, float* col, int p, const floa
   return lse;
 }
 
-template <typename T>
+template <typename T, bool MOMENTS>
 __global__ void __launch_bounds__(NT, 1) em_kernel(
     const T* __restrict__ x, const float* __restrict__ pt, const float* __restrict__ bias,
     const float* __restrict__ cnst, const int* __restrict__ tiles, int* __restrict__ labels,
-    float* __restrict__ partial, int D, int N, int k, int chunks, int njobs, int moments) {
+    double* __restrict__ partial, int D, int N, int k, int chunks, int njobs) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ float warp_ll[NT / 32];
+  __shared__ double warp_ll[NT / 32];
   float* P = smem;                 // (k, PSTRIDE) padded lower triangles
   float* bs = P + k * PSTRIDE;     // (k, DMAX) biases
   float* cs = bs + k * DMAX;       // (KMAX,) constants
   float* rs = cs + KMAX;           // (k, RSTRIDE) responsibilities (moments)
   float* xs = rs + k * RSTRIDE;    // (CH, XS) extended columns (moments)
+  float* red = xs + CH * XS;       // (nshare, njobs, TILE) a chunk's tiles (moments)
   const int tid = threadIdx.x, blk = blockIdx.x, b = blockIdx.y;
   const long n = N;
 
@@ -152,12 +173,14 @@ __global__ void __launch_bounds__(NT, 1) em_kernel(
   const bool tile_owner = share < nshare;
   const int code = tiles[job];
   const int tj = code >> 16, a0 = (code >> 8) & 0xff, c0 = code & 0xff;
-  float acc[TA][TC];
+  const int width = njobs * TILE + 1;
+  double* out = partial + ((long)b * gridDim.x + blk) * width;
+  float acc[TA][TC];  // the owner's tile since the last fold, a sum of runs
 #pragma unroll
   for (int i = 0; i < TA; ++i)
 #pragma unroll
     for (int c = 0; c < TC; ++c) acc[i][c] = 0.f;
-  float ll = 0.f;
+  double ll = 0.0;
   __syncthreads();
 
   const T* xb = x + (long)b * D * n;
@@ -201,7 +224,7 @@ __global__ void __launch_bounds__(NT, 1) em_kernel(
         }
       }
       const float lp0 = cs[j] - 0.5f * m0, lp1 = cs[j] - 0.5f * m1;
-      if (moments) {
+      if (MOMENTS) {
         rs[j * RSTRIDE + tid] = lp0;
         rs[j * RSTRIDE + tid + NT] = lp1;
       }
@@ -216,7 +239,7 @@ __global__ void __launch_bounds__(NT, 1) em_kernel(
     }
     if (v0) labels[(long)b * n + p0] = best0;
     if (v1) labels[(long)b * n + p1] = best1;
-    if (!moments) continue;
+    if (!MOMENTS) continue;
 
     // responsibilities, the log-sum-exp and the extended columns
     ll += finish(rs, xs + tid * XS, tid, x0, bv0, v0, D, k);
@@ -225,57 +248,81 @@ __global__ void __launch_bounds__(NT, 1) em_kernel(
     if (tile_owner) {
       const int nvalid = (int)min((long)CH, n - base);
       const float* rj = rs + tj * RSTRIDE;
+      for (int p0 = share; p0 < nvalid; p0 += RUN * nshare) {
+        const int p1 = min(nvalid, p0 + RUN * nshare);
+        float run[TA][TC];
+#pragma unroll
+        for (int i = 0; i < TA; ++i)
+#pragma unroll
+          for (int c = 0; c < TC; ++c) run[i][c] = 0.f;
 #pragma unroll 4
-      for (int p = share; p < nvalid; p += nshare) {
-        const float r = rj[p];
-        const float* col = xs + p * XS;
-        float wa[TA], xc[TC];
+        for (int p = p0; p < p1; p += nshare) {
+          const float r = rj[p];
+          const float* col = xs + p * XS;
+          float wa[TA], xc[TC];
 #pragma unroll
-        for (int u = 0; u < TA; u += 4) {
-          const float4 f = *reinterpret_cast<const float4*>(col + a0 + u);
-          wa[u] = r * f.x;
-          wa[u + 1] = r * f.y;
-          wa[u + 2] = r * f.z;
-          wa[u + 3] = r * f.w;
-        }
+          for (int u = 0; u < TA; u += 4) {
+            const float4 f = *reinterpret_cast<const float4*>(col + a0 + u);
+            wa[u] = r * f.x;
+            wa[u + 1] = r * f.y;
+            wa[u + 2] = r * f.z;
+            wa[u + 3] = r * f.w;
+          }
 #pragma unroll
-        for (int u = 0; u < TC; u += 4) {
-          const float4 f = *reinterpret_cast<const float4*>(col + c0 + u);
-          xc[u] = f.x;
-          xc[u + 1] = f.y;
-          xc[u + 2] = f.z;
-          xc[u + 3] = f.w;
+          for (int u = 0; u < TC; u += 4) {
+            const float4 f = *reinterpret_cast<const float4*>(col + c0 + u);
+            xc[u] = f.x;
+            xc[u + 1] = f.y;
+            xc[u + 2] = f.z;
+            xc[u + 3] = f.w;
+          }
+#pragma unroll
+          for (int i = 0; i < TA; ++i)
+#pragma unroll
+            for (int c = 0; c < TC; ++c) run[i][c] += wa[i] * xc[c];
         }
 #pragma unroll
         for (int i = 0; i < TA; ++i)
 #pragma unroll
-          for (int c = 0; c < TC; ++c) acc[i][c] += wa[i] * xc[c];
+          for (int c = 0; c < TC; ++c) acc[i][c] += run[i][c];
       }
     }
-    __syncthreads();  // rs and xs are rewritten next chunk
+    // the block's every FOLD-th chunk and its last (the same for all threads)
+    const bool fold = (q - q0) % FOLD == FOLD - 1 || q == q1 - 1;
+    if (fold && tile_owner) {
+      float* rd = red + (share * njobs + job) * TILE;
+#pragma unroll
+      for (int i = 0; i < TA; ++i)
+#pragma unroll
+        for (int c = 0; c < TC; c += 4) {
+          *reinterpret_cast<float4*>(rd + i * TC + c) =
+              make_float4(acc[i][c], acc[i][c + 1], acc[i][c + 2], acc[i][c + 3]);
+          acc[i][c] = acc[i][c + 1] = acc[i][c + 2] = acc[i][c + 3] = 0.f;
+        }
+    }
+    // every owner is done with rs and xs (rewritten next chunk) and has
+    // stored its tile
+    __syncthreads();
+    if (!fold) continue;
+    // the tiles, each share converted and added in share order, into the
+    // block's float64 row (stored at its first fold): one writer an entry,
+    // chunk order. red is stored again only after the next chunk's first
+    // barrier.
+#pragma unroll 4
+    for (int e = tid; e < njobs * TILE; e += NT) {
+      double s = q - q0 < FOLD ? 0.0 : out[e];
+      for (int h = 0; h < nshare; ++h) s += (double)red[h * njobs * TILE + e];
+      out[e] = s;
+    }
   }
-  if (!moments) return;
+  if (!MOMENTS) return;
 
-  // the shares' tiles, added in share order; the log-likelihood in warp order
-  float* red = xs;  // (nshare, njobs, TILE), free after the last chunk
-  if (tile_owner) {
-#pragma unroll
-    for (int i = 0; i < TA; ++i)
-#pragma unroll
-      for (int c = 0; c < TC; ++c) red[(share * njobs + job) * TILE + i * TC + c] = acc[i][c];
-  }
-  const float wl = warp_sum(ll);
+  // the log-likelihood in warp order
+  const double wl = warp_sum(ll);
   if ((tid & 31) == 0) warp_ll[tid >> 5] = wl;
   __syncthreads();
-  const int width = njobs * TILE + 1;
-  float* out = partial + ((long)b * gridDim.x + blk) * width;
-  for (int e = tid; e < njobs * TILE; e += NT) {
-    float s = 0.f;
-    for (int h = 0; h < nshare; ++h) s += red[h * njobs * TILE + e];
-    out[e] = s;
-  }
   if (tid == 0) {
-    float s = 0.f;
+    double s = 0.0;
     for (int w = 0; w < NT / 32; ++w) s += warp_ll[w];
     out[njobs * TILE] = s;
   }
@@ -298,9 +345,9 @@ template <typename T>
 __global__ void __launch_bounds__(NTW) em_wide_kernel(
     const T* __restrict__ x, const float* __restrict__ pt, const float* __restrict__ bias,
     const float* __restrict__ cnst, const int* __restrict__ tiles, int* __restrict__ labels,
-    float* __restrict__ partial, int D, int N, int k, int chunks, int njobs, int moments) {
+    double* __restrict__ partial, int D, int N, int k, int chunks, int njobs, int moments) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ float warp_ll[NTW / 32];
+  __shared__ double warp_ll[NTW / 32];
   const int xsw = wide_stride(D);
   float* P = smem;                 // (row_off(D),) one padded lower triangle
   float* bs = P + row_off(D);      // (D,) its bias
@@ -311,9 +358,9 @@ __global__ void __launch_bounds__(NTW) em_wide_kernel(
   const T* xb = x + (long)b * D * n;
   const float* ptb = pt + (long)b * k * D * D;
   const int width = njobs * TILE + 1;
-  float* out = partial + ((long)b * gridDim.x + blk) * width;
+  double* out = partial + ((long)b * gridDim.x + blk) * width;
   const int rw = 4 * ((D + 3) / 4);  // a padded row's widest length
-  float ll = 0.f;
+  double ll = 0.0;
 
   const int nchunks = (N + CHW - 1) / CHW;
   const int q0 = blk * chunks, q1 = min(nchunks, q0 + chunks);
@@ -379,38 +426,53 @@ __global__ void __launch_bounds__(NTW) em_wide_kernel(
       const int code = tiles[t];
       const int tj = code >> 16, a0 = (code >> 8) & 0xff, c0 = code & 0xff;
       const float* rj = rs + tj * CHW;
-      float acc[TA][TC];
+      double* o = out + t * TILE;
+      double prev[TA][TC];  // the row so far, read before the chunk's sums
+#pragma unroll
+      for (int i = 0; i < TA; ++i)
+#pragma unroll
+        for (int c = 0; c < TC; ++c) prev[i][c] = q == q0 ? 0.0 : o[i * TC + c];
+      float acc[TA][TC];  // a sum of runs of at most RUN pixels
 #pragma unroll
       for (int i = 0; i < TA; ++i)
 #pragma unroll
         for (int c = 0; c < TC; ++c) acc[i][c] = 0.f;
-      for (int pp = 0; pp < nvalid; ++pp) {
-        const float r = rj[pp];
-        const float* cp = xs + pp * xsw;
-        const float4 fa = *reinterpret_cast<const float4*>(cp + a0);
-        const float4 f0 = *reinterpret_cast<const float4*>(cp + c0);
-        const float4 f1 = *reinterpret_cast<const float4*>(cp + c0 + 4);
-        const float wa[TA] = {r * fa.x, r * fa.y, r * fa.z, r * fa.w};
-        const float xc[TC] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+      for (int p0 = 0; p0 < nvalid; p0 += RUN) {
+        float run[TA][TC];
 #pragma unroll
         for (int i = 0; i < TA; ++i)
 #pragma unroll
-          for (int c = 0; c < TC; ++c) acc[i][c] += wa[i] * xc[c];
+          for (int c = 0; c < TC; ++c) run[i][c] = 0.f;
+        for (int pp = p0; pp < min(nvalid, p0 + RUN); ++pp) {
+          const float r = rj[pp];
+          const float* cp = xs + pp * xsw;
+          const float4 fa = *reinterpret_cast<const float4*>(cp + a0);
+          const float4 f0 = *reinterpret_cast<const float4*>(cp + c0);
+          const float4 f1 = *reinterpret_cast<const float4*>(cp + c0 + 4);
+          const float wa[TA] = {r * fa.x, r * fa.y, r * fa.z, r * fa.w};
+          const float xc[TC] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+#pragma unroll
+          for (int i = 0; i < TA; ++i)
+#pragma unroll
+            for (int c = 0; c < TC; ++c) run[i][c] += wa[i] * xc[c];
+        }
+#pragma unroll
+        for (int i = 0; i < TA; ++i)
+#pragma unroll
+          for (int c = 0; c < TC; ++c) acc[i][c] += run[i][c];
       }
-      float* o = out + t * TILE;
 #pragma unroll
       for (int i = 0; i < TA; ++i)
 #pragma unroll
-        for (int c = 0; c < TC; ++c)
-          o[i * TC + c] = q == q0 ? acc[i][c] : o[i * TC + c] + acc[i][c];
+        for (int c = 0; c < TC; ++c) o[i * TC + c] = prev[i][c] + (double)acc[i][c];
     }
   }
   if (!moments) return;
-  const float wl = warp_sum(ll);
+  const double wl = warp_sum(ll);
   if ((tid & 31) == 0) warp_ll[tid >> 5] = wl;
   __syncthreads();
   if (tid == 0) {
-    float s = 0.f;
+    double s = 0.0;
     for (int w = 0; w < NTW / 32; ++w) s += warp_ll[w];
     out[njobs * TILE] = s;
   }
@@ -418,7 +480,7 @@ __global__ void __launch_bounds__(NTW) em_wide_kernel(
 
 template <typename T>
 int launch_wide(const void* x, const float* pt, const float* bias, const float* cnst,
-                const int* tiles, int* labels, float* partial, float* out, int B, int D,
+                const int* tiles, int* labels, double* partial, float* out, int B, int D,
                 int N, int k, int chunks, int njobs, int moments, cudaStream_t s) {
   const int nchunks = (N + CHW - 1) / CHW;
   const int nblk = (nchunks + chunks - 1) / chunks;
@@ -438,19 +500,25 @@ int launch_wide(const void* x, const float* pt, const float* bias, const float* 
 
 template <typename T>
 int launch(const void* x, const float* pt, const float* bias, const float* cnst,
-           const int* tiles, int* labels, float* partial, float* out, int B, int D, int N,
+           const int* tiles, int* labels, double* partial, float* out, int B, int D, int N,
            int k, int chunks, int njobs, int moments, cudaStream_t s) {
   const int nchunks = (N + CH - 1) / CH;
   const int nblk = (nchunks + chunks - 1) / chunks;
+  const size_t nshare = NT / njobs > 1 ? NT / njobs : 1;  // as the kernel's
   const size_t words = (size_t)k * PSTRIDE + (size_t)k * DMAX + KMAX +
-                       (moments ? (size_t)k * RSTRIDE + (size_t)CH * XS : 0);
+                       (moments ? (size_t)k * RSTRIDE + (size_t)CH * XS +
+                                      nshare * njobs * TILE
+                                : 0);
   const size_t smem = words * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      em_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // one kernel a pass: with the flag read at run time the compiler kept two
+  // copies of the scoring loop, spilled, and the labels-only pass took
+  // 0.41 ms against 0.24 (config2's fit grid at batch 50)
+  auto kern = moments ? em_kernel<T, true> : em_kernel<T, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  em_kernel<T><<<dim3(nblk, B), NT, smem, s>>>((const T*)x, pt, bias, cnst, tiles,
-                                               labels, partial, D, N, k, chunks, njobs,
-                                               moments);
+  kern<<<dim3(nblk, B), NT, smem, s>>>((const T*)x, pt, bias, cnst, tiles, labels, partial,
+                                       D, N, k, chunks, njobs);
   err = cudaGetLastError();
   if (err != cudaSuccess || !moments) return (int)err;
   return (int)gcis::block_order_sum(partial, out, B, nblk, njobs * TILE + 1, s);
@@ -465,12 +533,12 @@ int launch(const void* x, const float* pt, const float* bias, const float* cnst,
 // column, rows a multiple of 4, columns of 8), njobs <= 320 for D <= 40.
 // labels: (B, N) int32. chunks: the chunks a block walks, of 640 pixels
 // (D <= 40) or 256 (D > 40). With moments != 0: partial (B, nblk, W)
-// scratch, nblk = ceil(ceil(N / chunk) / chunks), and out (B, W) float32,
+// float64 scratch, nblk = ceil(ceil(N / chunk) / chunks), and out (B, W) float32,
 // W = 32 njobs + 1: tile t's entry (i, c) at 32 t + 8 i + c, the sum of
 // r [x 1]_(row + i) [x 1]_(column + c), then the sum of the per-pixel
 // log-likelihoods. partial and out are untouched when moments == 0.
 GCIS_API int gcis_em_pass(const void* x, const float* pt, const float* bias,
-                          const float* cnst, const int* tiles, int* labels, float* partial,
+                          const float* cnst, const int* tiles, int* labels, double* partial,
                           float* out, int B, int D, int N, int k, int chunks, int njobs,
                           int bf16, int moments, void* stream) {
   if (k < 1 || k > KMAX || D < 1 || D > DWIDE || B < 1 || B > 65535 || N < 1 ||

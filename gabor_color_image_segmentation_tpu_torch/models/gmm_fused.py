@@ -10,13 +10,16 @@ float32 in both storage dtypes: the TPU kernel's bf16x3 operand split made
 up for a missing float32 dot on the TPU and is not carried over. The
 kernel sums the moments in 4 x 8 register tiles of the extended scatter
 (``tile_map``) over chunks of 640 pixels (``em_plan`` spreads the chunks
-over one wave of blocks); partials are per block and reduced in block
-order, with no float atomics, so a run repeats bit for bit: EM's basin
-depends on these sums over 30 iterations. It takes D <= 128 feature rows,
-the reference's range (its K9 limit): up to ``D_REGS`` = 40 rows (config2:
-39) x sits in registers; wider rows (a 16-kernel bank gives 51) take a
-second, simple kernel in the same source that walks chunks of 256 pixels
-and stages the components' triangles one at a time.
+over one wave of blocks): in float32 over runs of 32 pixels and then over
+at most 4 chunks, in float64 across those, the shares and the blocks,
+rounded to float32 once, as ``em_pass_plain`` sums. Partials are per block
+(float64) and reduced in block order, with no float atomics, so a run
+repeats bit for bit: EM's basin depends on these sums over 30 iterations.
+It takes D <= 128 feature rows, the reference's range (its K9 limit): up
+to ``D_REGS`` = 40 rows (config2: 39) x sits in registers; wider rows (a
+16-kernel bank gives 51) take a second, simple kernel in the same source
+that walks chunks of 256 pixels and stages the components' triangles one
+at a time.
 
 The solver ``gmm_fused_t_xt`` mirrors the reference's sklearn semantics:
 k-means init (K6 + K5), hard one-hot moments, ``n_iter`` EM iterations with
@@ -54,6 +57,7 @@ from gabor_color_image_segmentation_tpu_torch.models.gmm import gmm_fit_levels
 from gabor_color_image_segmentation_tpu_torch.models.kmeans import pool2x2
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import K_MAX
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import kmeans_fused_t_xt
+from gabor_color_image_segmentation_tpu_torch.utils.trace import span
 
 D_MAX = 128  # feature rows the card takes: the reference's K9 limit (its _LANES)
 D_REGS = 40  # feature rows the first kernel holds in registers (config2: 39)
@@ -192,7 +196,7 @@ def em_pass(x, pt, bias, const, moments: bool = True):
                            em_chunk(d))
     partial = packed = None
     if moments:
-        partial = torch.empty((b, nblk, width), dtype=torch.float32, device=x.device)
+        partial = torch.empty((b, nblk, width), dtype=torch.float64, device=x.device)
         packed = torch.empty((b, width), dtype=torch.float32, device=x.device)
     _kernels.launch(
         "gcis_em_pass", x.data_ptr(), pt.data_ptr(), bias.data_ptr(), const.data_ptr(),
@@ -239,12 +243,13 @@ def gmm_fused_t_xt(
     ``_FUSED_PREP``). tol > 0 applies sklearn's rule per image: an image
     whose mean log-likelihood moved by less than tol keeps its parameters
     (its moments, with ``_FUSED_PREP``) from then on. Then ``refine_iters``
-    EM passes on x and one labels-only pass on x."""
+    EM passes on x and one labels-only pass on x. The three stages are the
+    spans ``gcis.gmm_init``, ``gcis.em_fit`` and ``gcis.em_refine``
+    (utils/trace.py), with no host sync inside."""
     if not 1 <= k <= K_MAX:
         raise ValueError(f"fused EM supports k <= {K_MAX}, got {k}")
     fit = x if fit_x is None else fit_x
     b, _, m = fit.shape
-    init_labels, _ = kmeans_fused_t_xt(fit, k, kmeans_iters)
     fused = _use_fused_prep()
 
     def inputs(state, rows):
@@ -259,28 +264,32 @@ def gmm_fused_t_xt(
             return tuple(moments), ll
         return _moments_to_params(*moments, buf.shape[2], reg_covar), ll
 
-    # the state: EM's moments with the fused prep, else sklearn's parameters
-    state = _init_moments(fit, init_labels, k)
-    if not fused:
-        state = _moments_to_params(*state, m, reg_covar)
-    prev_ll = torch.full((b,), float("-inf"), device=x.device)
-    go = torch.full((b,), n_iter > 0, dtype=torch.bool, device=x.device)
-    for _ in range(n_iter):
-        new, ll = em(state, m, fit)
-        ll = ll / m
-        if tol == 0.0:
-            state = new
-            continue
-        state = tuple(torch.where(go.reshape((b,) + (1,) * (p.dim() - 1)), p, q)
-                      for p, q in zip(new, state))
-        ll = torch.where(go, ll, prev_ll)
-        go = go & ((ll - prev_ll).abs() >= tol)
-        prev_ll = ll
-    rows = m
-    for _ in range(refine_iters):
-        state, _ = em(state, rows, x)
-        rows = x.shape[2]
-    return em_pass(x, *inputs(state, rows), moments=False)
+    with span("gmm_init"):
+        init_labels, _ = kmeans_fused_t_xt(fit, k, kmeans_iters)
+        # the state: EM's moments with the fused prep, else sklearn's parameters
+        state = _init_moments(fit, init_labels, k)
+        if not fused:
+            state = _moments_to_params(*state, m, reg_covar)
+    with span("em_fit"):
+        prev_ll = torch.full((b,), float("-inf"), device=x.device)
+        go = torch.full((b,), n_iter > 0, dtype=torch.bool, device=x.device)
+        for _ in range(n_iter):
+            new, ll = em(state, m, fit)
+            ll = ll / m
+            if tol == 0.0:
+                state = new
+                continue
+            state = tuple(torch.where(go.reshape((b,) + (1,) * (p.dim() - 1)), p, q)
+                          for p, q in zip(new, state))
+            ll = torch.where(go, ll, prev_ll)
+            go = go & ((ll - prev_ll).abs() >= tol)
+            prev_ll = ll
+    with span("em_refine"):
+        rows = m
+        for _ in range(refine_iters):
+            state, _ = em(state, rows, x)
+            rows = x.shape[2]
+        return em_pass(x, *inputs(state, rows), moments=False)
 
 
 def gmm_fused_t(

@@ -524,6 +524,12 @@ EM_CASES = {
     "d123": (2, 123, 3001, 5),
     "d123_k8": (2, 123, 1001, 8),
     "d128": (1, 128, 700, 3),
+    # config2's own shapes, where a block walks many chunks: the fit grid at
+    # batch 50 (8 chunks a block) and full resolution at batch 8 (16), and
+    # the wide kernel at full resolution (38 chunks of 256 a block)
+    "b50_n9600": (50, 39, 9600, 5),
+    "b8_n154401": (8, 39, 154401, 5),
+    "d51_b8_n154401": (8, 51, 154401, 5),
 }
 
 
@@ -546,8 +552,10 @@ def test_em_pass_kernel(device, dtype, case):
         assert torch.allclose(llk, llp, rtol=1e-5)
         for g, r in ((ck, cp), (sk, sp), (xk, xp)):
             assert torch.allclose(g, r, rtol=1e-4, atol=1e-4 * r.abs().max().item())
-    # chip_smoke's gate: both against the plain version in float64, the
-    # moments' error scaled by each component's summed magnitude
+    # both against the plain version in float64, the moments' error scaled
+    # by each component's summed magnitude; the moments within 1e-6 or twice
+    # the plain pass's distance (float64 sums rounded once), whichever is
+    # larger
     r64 = gf.em_pass_plain(x, *(t.double() for t in (pt, bias, const)))
     scale = torch.maximum(r64[2], torch.diagonal(r64[4], dim1=2, dim2=3).amax(dim=2))
     scale = scale.clamp(min=1e-30)
@@ -560,7 +568,7 @@ def test_em_pass_kernel(device, dtype, case):
 
     (ll_k, m_k), (ll_p, m_p) = err64(got), err64(ref)
     assert ll_k <= max(1e-5, 2.0 * ll_p)
-    assert m_k <= max(1e-4, 2.0 * m_p)
+    assert m_k <= max(1e-6, 2.0 * m_p), (m_k, m_p)
     assert torch.equal(only, lk)
     assert torch.equal(xk, xk.transpose(2, 3))  # one packed entry per pair
     for g, a in zip(got, again):  # two launches give the same bits
