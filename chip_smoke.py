@@ -39,7 +39,15 @@ Phases, one line each, stopping with a non-zero exit at the first failure:
    d = 39, 64, 65 and 128 on EM-shaped and well-conditioned matrices (d =
    129 raises, as the reference's), K8 at D = 51 and 123 on fit-grid
    buffers in both dtypes with moments and labels only, and K10 at d = 123
-   on a D = 123 pass's moments;
+   on a D = 123 pass's moments; the standardisation
+   (``ops/standardise.py``: ``pool2x2``, ``affine_params``,
+   ``normalised_rows``) at config1's shapes (batch 16, 240 energy rows
+   with their 2x2 twin, the coarse buffer pooled once) and config2's
+   (batch 50, 36 energy rows, float32 colour, the buffer and its fit grid
+   pooled twice, one read): pools and buffers bit-equal to the plain twins
+   given the same (a, b), (a, b) within 1e-6 of a float64 evaluation of
+   their formulas, two launches bit-equal, the launches counted (set to 0
+   just before, read just after), the stage timed beside the plain chain;
    K1 at config3 (bf16, no twin) and at any radius: config0's bank widened
    to conv radius 16 and to smoothing radius 25, and a bank of radii 32
    and 50 (batch 2, both dtypes), each K1 line with its achieved TFLOP/s
@@ -357,6 +365,7 @@ def main() -> None:
     from gabor_color_image_segmentation_tpu_torch.ops import features as ft
     from gabor_color_image_segmentation_tpu_torch.config import GraphConfig
     from gabor_color_image_segmentation_tpu_torch.ops import fused, lookup, modulated, tiled
+    from gabor_color_image_segmentation_tpu_torch.ops import standardise as sd
     from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
     from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy
 
@@ -416,6 +425,11 @@ def main() -> None:
     # belongs to K13's line of the JSON
     counters = {name: wrapper for name, (wrapper, *_) in kernels.items()}
     counters["slic_band_update"] = sf.slic_band_update
+    # the standardisation's wrappers (csrc/standardise.cu; no TPU kernel,
+    # so no line of the JSON)
+    std_names = ("pool2x2", "affine_params", "normalised_rows")
+    for name in std_names:
+        counters[name] = getattr(sd, name)
 
     def cuda_ms(fn, reps=5, inner=1, hold_ms=0.0):
         """Median over ``reps`` pairs of CUDA events of the mean time of
@@ -748,11 +762,111 @@ def main() -> None:
                lambda: kc.maximin_chw_pass_plain(xe, xc4, a2, probe, dp, False),
                main if main_shape else None)
 
+    def affine64(xe, xc4, cluster, pooled):
+        """affine_params' formulas in float64 on the same (pooled) values,
+        image by image: (a, b, the rows' mean, their std), (B, E + 3) each;
+        std None without normalisation and coherence."""
+        b, e, h, w = xe.shape
+        n = 8
+        hb, wb = h // n, w // n
+        scale = torch.tensor([1.0] * e + [cluster.color_weight * math.sqrt(e / 3.0)] * 3,
+                             dtype=torch.float64, device=dev)
+        coh = cluster.cue_weight == "coherence" and hb >= 2 and wb >= 2
+
+        def stats(qe, qc):
+            v = torch.cat([qe.double().reshape(e, -1), qc[:3].double().reshape(3, -1)])
+            m = v.mean(dim=1)
+            return m, (v.square().mean(dim=1) - m * m).clamp(min=0).sqrt()
+
+        out = []
+        for i in range(b):
+            m, s = torch.zeros_like(scale), None
+            a, bb = scale.clone(), torch.zeros_like(scale)
+            if cluster.normalize:
+                m, s = stats(xe[i], xc4[i])
+                a = scale / (s + 1e-6)
+                bb = -m * a
+            if coh:
+                qe, qc, lv = ((pooled[0][i:i + 1], pooled[1][i:i + 1, :3], 2) if pooled
+                              else (xe[i:i + 1], xc4[i:i + 1, :3], 3))
+                for _ in range(lv):
+                    qe, qc = ft._pool2x2_cm(qe), ft._pool2x2_cm(qc)
+                _, sp = stats(qe[0, :, :hb, :wb], qc[0, :, :hb, :wb])
+                if s is None:
+                    _, s = stats(xe[i, :, :n * hb, :n * wb], xc4[i, :, :n * hb, :n * wb])
+                c = a * sp / (a * s + 1e-6)
+                wgt = c ** cluster.coherence_pow
+                a, bb = a * wgt, bb * wgt
+            out.append((a, bb, m, s))
+        return [None if t[0] is None else torch.stack(t) for t in zip(*out)]
+
+    def compare_standardisation(cfg, xe, xc4, twin, pools, tag):
+        """The standardisation's kernels at a cell's shapes, as the pipeline
+        calls them: with a twin, the colour rows' 2x2 pool, the affine from
+        the twins and the coarse buffer from the twins pooled ``pools``;
+        without, the affine from the rows and their buffers pooled
+        ``pools``. Pools (the twin's too) and buffers bit-equal to the plain
+        twins given the same (a, b); (a, b) within 1e-6 of affine64 (a
+        relative to a, b to a (|m| + s)); two launches bit-equal; the
+        launches counted (set to 0 just before, read just after); the
+        stage timed beside the plain chain (a reading)."""
+        cl = cfg.cluster
+        for name in std_names:
+            counters[name].launches = 0
+        pooled, same_pools = None, True
+        if twin is not None:
+            pc = sd.pool2x2(xc4)
+            same_pools = (torch.equal(pc, sd.pool2x2_plain(xc4))
+                          and torch.equal(sd.pool2x2(twin), sd.pool2x2_plain(twin)))
+            pooled = (twin, pc)
+        a, b = sd.affine_params(xe, xc4, cl, 1e-6, pooled)
+        again = sd.affine_params(xe, xc4, cl, 1e-6, pooled)
+        rows = pooled if pooled is not None else (xe, xc4)
+        bufs = sd.normalised_rows(*rows, a, b, pools)
+        bits = (torch.equal(a, again[0]) and torch.equal(b, again[1]) and all(
+            torch.equal(x, y) for x, y in zip(bufs, sd.normalised_rows(*rows, a, b, pools))))
+        counts = {name: counters[name].launches for name in std_names}
+        h, w = xe.shape[2:]
+        coh = cl.cue_weight == "coherence" and h >= 16 and w >= 16
+        want = {"pool2x2": 2 if twin is not None else 0,
+                "affine_params": 2 * (1 + cl.normalize + coh + (coh and not cl.normalize)),
+                "normalised_rows": 2}
+        plain = sd.normalised_rows_plain(*rows, a, b, pools)
+        same_bufs = all(x.shape == y.shape and torch.equal(x, y) for x, y in zip(bufs, plain))
+        del plain
+        a64, b64, m64, s64 = affine64(xe, xc4, cl, pooled)
+        err_a = ((a.double() - a64).abs() / a64.abs()).max().item()
+        scale = a64.abs() * (m64.abs() + (s64 if s64 is not None else 0))
+        err_b = ((b.double() - b64).abs() / scale.clamp(min=1e-30)).max().item()
+        del a64, b64, m64, s64, scale
+
+        def stage(pool, affine, norm):
+            pq = (twin, pool(xc4)) if twin is not None else None
+            a_, b_ = affine(xe, xc4, cl, 1e-6, pq)
+            return norm(*(pq if pq is not None else (xe, xc4)), a_, b_, pools)
+
+        ms = cuda_ms(lambda: stage(sd.pool2x2, sd.affine_params, sd.normalised_rows))
+        plain_ms = cuda_ms(lambda: stage(sd.pool2x2_plain, sd.affine_params_plain,
+                                         sd.normalised_rows_plain))
+        print(f"phase 3: standardisation [{tag}, pools {pools}] pools bit-equal {same_pools}, "
+              f"buffers {[tuple(x.shape) for x in bufs]} bit-equal to the plain twins "
+              f"{same_bufs}, two launches bit-equal {bits}; (a, b) against float64: a "
+              f"{err_a:.3e}, b {err_b:.3e} (floor 1e-6); launches (counts set to 0 before, "
+              f"read after) {counts}; the stage {ms:.4f} ms, the plain chain {plain_ms:.4f} ms "
+              f"({card})", flush=True)
+        check(same_pools and same_bufs and bits,
+              f"standardisation [{tag}]: a buffer or pool differs from its plain twin, or "
+              "two launches differ")
+        check(err_a <= 1e-6 and err_b <= 1e-6,
+              f"standardisation [{tag}]: (a, b) past 1e-6 of the float64 evaluation")
+        check(counts == want, f"standardisation [{tag}]: launches {counts}, expected {want}")
+
     cfg1 = preset("config1").replace(batch_size=16, dtype="bfloat16")
     rgb16, gt16 = mosaics(16)
     tag = "config1 16x321x481 bf16"
     color, e, tw = compare_features(cfg1, rgb16, torch.bfloat16, tag, True)
     xc4, pc0, affine = chw_inputs(cfg1, color, e, tw, torch.bfloat16)
+    compare_standardisation(cfg1, e, xc4, tw, (1,), f"{tag}, E = {e.shape[1]}, with the twin")
     pe2, pc2 = ft._pool2x2_cm(tw), ft._pool2x2_cm(pc0)
     d, m = e.shape[1] + 3, pe2.shape[2] * pe2.shape[3]
     xp = ft.assemble_xp_from_affine(pe2, pc2, affine[0], affine[1], torch.bfloat16)
@@ -916,6 +1030,16 @@ def main() -> None:
     cfg2 = preset("config2")  # batch 8
     c2 = cfg2.cluster
     rgb8, gt8 = mosaics(cfg2.batch_size)
+    # the standardisation at config2's cell: batch 50, float32 colour, the
+    # buffer and the fit grid from one read
+    rgb50, _ = mosaics(50)
+    color = pl._color_transform(torch.from_numpy(rgb50).to(dev), "lab")
+    e, _ = fused.gabor_energies_fused(color, bank_tensors(make_bank(cfg2.bank), dev),
+                                      torch.bfloat16, pooled=False)
+    compare_standardisation(cfg2, e, kc.build_color4(color, torch.float32), None,
+                            (0, gmm_fit_levels(321, 481, c2.gmm_fit_pool)[2]),
+                            f"config2 50x321x481 bf16, E = {e.shape[1]}, float32 colour")
+    del rgb50, color, e
     for dt in (torch.bfloat16, torch.float32):
         main2 = dt == torch.bfloat16  # the production dtype is the JSON line's
         tag2 = f"config2 8x321x481 {'bf16' if main2 else 'f32'}"
@@ -1734,7 +1858,11 @@ def main() -> None:
                  (gr, "slic_batch", slic_batch_plain),
                  (gr, "enforce_connectivity_fused", sl.enforce_connectivity_plain),
                  (gr, "table_lookup", lookup.table_lookup_plain),
-                 (gr, "superpixel_moments_fused_t", moments_t_plain)]
+                 (gr, "superpixel_moments_fused_t", moments_t_plain),
+                 (pl, "affine_params", sd.affine_params_plain),
+                 (pl, "normalised_rows", sd.normalised_rows_plain),
+                 (pl, "pool2x2", sd.pool2x2_plain),
+                 (kc, "pool2x2", sd.pool2x2_plain)]
         swaps = [(mod, name, fn) for mod, name, fn in swaps if name not in keep]
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, fn in swaps:
@@ -1787,10 +1915,11 @@ def main() -> None:
 
     # (config, images, ground truth, label, kernels that must launch,
     # kernels that must not, the _FUSED_PREP switch)
-    k1to4 = ["gabor_energies_fused", "lloyd_chw_pass"]
-    runs = [(cfg1, rgb16, gt16, "config1 batch 16 bf16", k1to4 + ["kmeans_coarse_centers_xp"],
-             [], False),
-            (cfg0, rgb1, gt1, "config0 batch 1 f32", k1to4 + ["maximin_chw_pass"], [], False)]
+    k1to4 = ["gabor_energies_fused", "lloyd_chw_pass", "pool2x2", "affine_params"]
+    runs = [(cfg1, rgb16, gt16, "config1 batch 16 bf16",
+             k1to4 + ["kmeans_coarse_centers_xp", "normalised_rows"], [], False),
+            (cfg0, rgb1, gt1, "config0 batch 1 f32", k1to4 + ["maximin_chw_pass"],
+             ["normalised_rows"], False)]
     # config1 with a 160-kernel bank (its bank with two more frequencies):
     # E = 480 energy rows, past the 400 K3 takes, so the warm start takes
     # the blocked route (K6, K5; fault 11), batch 2 in both dtypes
@@ -1799,10 +1928,13 @@ def main() -> None:
     for dtype in ("bfloat16", "float32"):
         runs.append((cfg1.replace(batch_size=2, dtype=dtype, bank=bank160), rgb16[:2], gt16[:2],
                      f"config1 batch 2 {'bf16' if dtype == 'bfloat16' else 'f32'} 160-kernel "
-                     "bank (E = 480)", k1to4 + ["maximin_t_pass", "lloyd_t_pass"],
+                     "bank (E = 480)",
+                     k1to4 + ["maximin_t_pass", "lloyd_t_pass", "normalised_rows"],
                      ["kmeans_coarse_centers_xp"], False))
-    gmm_path = ["gabor_energies_fused", "maximin_t_pass", "lloyd_t_pass", "em_pass"]
-    moments_off = ["superpixel_moments_fused", "superpixel_moments_fused_nhwc"]
+    gmm_path = ["gabor_energies_fused", "maximin_t_pass", "lloyd_t_pass", "em_pass",
+                "affine_params", "normalised_rows"]
+    # the graph stage standardises its NHWC features in plain torch
+    moments_off = ["superpixel_moments_fused", "superpixel_moments_fused_nhwc", *std_names]
     graph_path = ["gabor_energies_fused", "slic_w3", "enforce_connectivity_fused",
                   "superpixel_moments_fused_t", "table_lookup"]
     banded_path = ["gabor_energies_fused", "slic_band_pass", "slic_band_update",
@@ -1813,7 +1945,8 @@ def main() -> None:
                          f"config2 batch 8 {'bf16' if dtype == 'bfloat16' else 'f32'}"
                          + (" _FUSED_PREP on" if prep else ""),
                          gmm_path + ["precision_chol_params" if prep else "precision_chol"],
-                         ["precision_chol" if prep else "precision_chol_params"], prep))
+                         ["precision_chol" if prep else "precision_chol_params", "pool2x2"],
+                         prep))
     # config2 with a 16-kernel bank (4 scales x 4 orientations): D = 51
     # feature rows, past the 40 of K8's first kernel (its wide kernel, K9 at
     # d = 51)
@@ -1822,8 +1955,8 @@ def main() -> None:
     for dtype in ("bfloat16", "float32"):
         runs.append((cfg2.replace(dtype=dtype, bank=bank16), rgb8, gt8,
                      f"config2 batch 8 {'bf16' if dtype == 'bfloat16' else 'f32'} 16-kernel "
-                     "bank (D = 51)", gmm_path + ["precision_chol"], ["precision_chol_params"],
-                     False))
+                     "bank (D = 51)", gmm_path + ["precision_chol"],
+                     ["precision_chol_params", "pool2x2"], False))
     # the graph stage's energies: K1 for bf16 batches, the reference's
     # modulated route (no K1) in float32
     for dtype in ("bfloat16", "float32"):

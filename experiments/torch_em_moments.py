@@ -59,8 +59,6 @@ from gabor_color_image_segmentation_tpu_torch.models import gmm_fused as gf  # n
 from gabor_color_image_segmentation_tpu_torch.models import kmeans_fused as kf  # noqa: E402
 from gabor_color_image_segmentation_tpu_torch.models import pipeline as pl  # noqa: E402
 from gabor_color_image_segmentation_tpu_torch.models.gmm import gmm_fit_levels  # noqa: E402
-from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import build_color4  # noqa: E402
-from gabor_color_image_segmentation_tpu_torch.ops import features as ft  # noqa: E402
 from gabor_color_image_segmentation_tpu_torch.ops.bank import make_bank  # noqa: E402
 from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy  # noqa: E402
 from _turns import build, card_line, cuda_ms, ptxas, source  # noqa: E402
@@ -99,12 +97,8 @@ def buffers(rgb, cfg, dev):
     """(x, fit): the normalised full-resolution buffer and the fit grid, as
     ``pipeline._segment_gmm`` builds them."""
     bank = make_bank(cfg.bank)
-    x, energies, color, (a, b_aff) = pl._normalised_buffer(rgb, cfg, bank)
-    dtype = x.dtype
-    pe, pc = energies, build_color4(color, dtype)
-    for _ in range(gmm_fit_levels(rgb.shape[1], rgb.shape[2], cfg.cluster.gmm_fit_pool)[2]):
-        pe, pc = ft._pool2x2_cm(pe), ft._pool2x2_cm(pc)
-    fit = ft.assemble_xp_from_affine(pe, pc, a, b_aff, dtype)
+    lv = gmm_fit_levels(rgb.shape[1], rgb.shape[2], cfg.cluster.gmm_fit_pool)[2]
+    x, fit = pl._normalised_buffer(rgb, cfg, bank, lv)[:2]
     return x, fit
 
 

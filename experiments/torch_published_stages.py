@@ -131,24 +131,22 @@ def config2(seeds):
     ref_fit = assemble_xp_from_affine(pe, pc, a, b, dp, mp_pad, jnp.bfloat16)
     ref_init = np.asarray(kmeans_fused_t_xt(ref_fit, 5, d, m, 10)[0])[0, :m]
 
-    port_x, port_e, port_color, (pa, pb) = tpl._normalised_buffer(torch.from_numpy(rgb), cfg,
-                                                                  bank)
+    port_x, _, port_e, port_color, (pa, pb) = tpl._normalised_buffer(torch.from_numpy(rgb),
+                                                                     cfg, bank)
     print(f"config2 seed {seeds[0]} bf16: K1 energies equal to the reference's on "
           f"{(f32(port_e) == f32(energies)).mean():.6f} of the values", flush=True)
 
     def port_fit(affine):
-        qe, qc = port_e, tpl.build_color4(port_color, port_e.dtype)
-        for _ in range(lv):
-            qe, qc = tpl._pool2x2_cm(qe), tpl._pool2x2_cm(qc)
-        return tpl.assemble_xp_from_affine(qe, qc, *affine, port_e.dtype)
+        qc = tpl.build_color4(port_color, port_e.dtype)
+        return tpl.normalised_rows(port_e, qc, *affine, (lv,))[0]
 
     def init_agreement(fit):
         got = port_kmeans(fit, 5, 10)[0].numpy()[0]
         return round(float((align_labels(got, ref_init) == ref_init).mean()), 6)
 
     ref_fit_t = torch.from_numpy(f32(ref_fit)[:, :d, :m]).to(torch.bfloat16).contiguous()
-    storage_affine = tpl._affine_params(port_e, tpl.build_color4(port_color, port_e.dtype),
-                                        cfg.cluster, 1e-6)
+    storage_affine = tpl.affine_params(port_e, tpl.build_color4(port_color, port_e.dtype),
+                                       cfg.cluster, 1e-6)
     print(f"config2 seed {seeds[0]} bf16: k-means init on the pooled fit buffer against the "
           f"reference's: the port's buffer {init_agreement(port_fit((pa, pb)))}, the "
           f"reference's buffer {init_agreement(ref_fit_t)}, the port's with the "

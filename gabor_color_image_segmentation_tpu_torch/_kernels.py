@@ -40,7 +40,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # argument types of every C entry point, in csrc/ declaration order
 _SIGNATURES = {
     "gcis_slic": [_P] * 6 + [_I] * 8 + [_F] * 3 + [_P],
@@ -64,6 +64,9 @@ _SIGNATURES = {
     "gcis_precision_chol_params": [_P] * 6 + [_I] * 2 + [_F] * 2 + [_P],
     "gcis_lloyd_rows": [_P] * 8 + [_I] * 10 + [_P],
     "gcis_superpixel_moments": [_P] * 6 + [_I] * 9 + [_P],
+    "gcis_std_moments": [_P] * 3 + [_I] * 12 + [_P],
+    "gcis_std_affine": [_P] * 5 + [_I] * 5 + [_D] * 6 + [_P],
+    "gcis_std_apply": [_P] * 6 + [_I] * 16 + [_P],
 }
 
 

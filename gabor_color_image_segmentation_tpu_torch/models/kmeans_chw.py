@@ -23,15 +23,14 @@ blocks, so K2 takes any D). Each wrapper runs its
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 
 from gabor_color_image_segmentation_tpu_torch import _kernels
-from gabor_color_image_segmentation_tpu_torch.ops.features import (
-    _pool2x2_cm,
-    fold_coherence_affine,
+from gabor_color_image_segmentation_tpu_torch.ops.standardise import (  # noqa: F401
+    affine_params as _affine_params,
+    pool2x2,
 )
 from gabor_color_image_segmentation_tpu_torch.utils.trace import sync
 
@@ -258,39 +257,6 @@ def _maximin_init_chw(xe, xc4, a, b_aff, k: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _affine_params(xe, xc4, cluster_cfg, eps: float, pooled=None):
-    """Per-row standardisation affine over raw CHW rows: x = a*r + b, with
-    the sqrt(E/3) colour balance and ``color_weight`` in the colour rows and
-    the coherence weights folded in. Returns (a, b), each (B, E + 3)
-    float32. ``pooled`` = (energy twin, colour twin) for the coherence
-    statistics."""
-    b, e = xe.shape[:2]
-    dev = xe.device
-    cw = cluster_cfg.color_weight * float(math.sqrt(e / 3.0))
-    if not cluster_cfg.normalize:
-        a = torch.cat([torch.ones((b, e), device=dev),
-                       torch.full((b, 3), cw, device=dev)], dim=1)
-        return fold_coherence_affine(
-            a, torch.zeros((b, e + 3), device=dev), xe, xc4, cluster_cfg, eps,
-            pooled=pooled,
-        )
-
-    def moments(x):
-        xf = x.to(torch.float32)
-        mean = xf.mean(dim=(2, 3))
-        sq = xf.square().mean(dim=(2, 3))
-        return mean, torch.sqrt(torch.clamp(sq - mean.square(), min=0.0))
-
-    m_e, s_e = moments(xe)
-    m_c, s_c = moments(xc4[:, :3])
-    a_e = 1.0 / (s_e + eps)
-    a_c = cw / (s_c + eps)
-    a = torch.cat([a_e, a_c], dim=1)
-    bb = torch.cat([-m_e * a_e, -m_c * a_c], dim=1)
-    return fold_coherence_affine(a, bb, xe, xc4, cluster_cfg, eps,
-                                 pooled=pooled, s_full=torch.cat([s_e, s_c], dim=1))
-
-
 def build_color4(color: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(B, H, W, 3) colour -> (B, 4, H, W) channel-major rows [L, a, b, 1] in
     ``dtype`` (the reference's layout; the kernels read rows 0..2)."""
@@ -360,8 +326,7 @@ def kmeans_fused_chw(
     if init_centers is not None:
         c = solve(energies_cm, color4, init_centers, refine_iters)
     elif coarse_iters > 0 and h >= 2 and w >= 2:
-        pe, pc = pooled if pooled is not None else (_pool2x2_cm(energies_cm),
-                                                    _pool2x2_cm(color4))
+        pe, pc = pooled if pooled is not None else (pool2x2(energies_cm), pool2x2(color4))
         c = solve(pe, pc, _maximin_init_chw(pe, pc, a, b_aff, k), coarse_iters)
         c = solve(energies_cm, color4, c, refine_iters)
     else:

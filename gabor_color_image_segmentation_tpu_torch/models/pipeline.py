@@ -78,8 +78,8 @@ Spans (utils/trace.py; ``torch.profiler`` ranges named ``gcis.<stage>``,
 recorded only while a profiler records): ``segment`` holds a whole call;
 ``features`` the colour transform (``color``) and the energies;
 ``assemble`` the standardisation (colour rows, 2x2 pools, the affine, the
-normalised buffer); ``assemble_xp`` the coarse buffer or the GMM's fit
-buffer; ``coarse``, ``mid`` and ``cluster`` the clustering's levels (the
+normalised buffer and the GMM's fit buffer, ops/standardise.py);
+``assemble_xp`` the coarse buffer; ``coarse``, ``mid`` and ``cluster`` the clustering's levels (the
 EM on the GMM's route); ``superpixels`` and ``graph_cut`` the graph
 stage. Every host read of a device value, and the upload of host frames,
 runs in a ``sync.<site>`` range: ``upload``, ``lloyd_fixed_point``,
@@ -107,7 +107,6 @@ from gabor_color_image_segmentation_tpu_torch.models.kmeans import (
     kmeans_batch,
 )
 from gabor_color_image_segmentation_tpu_torch.models.kmeans_chw import (
-    _affine_params,
     build_color4,
     kmeans_fused_chw,
 )
@@ -118,9 +117,7 @@ from gabor_color_image_segmentation_tpu_torch.models.kmeans_fused import (
 from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
 from gabor_color_image_segmentation_tpu_torch.ops.color import rgb_to_lab
 from gabor_color_image_segmentation_tpu_torch.ops.features import (
-    _pool2x2_cm,
     assemble_features,
-    assemble_xp_from_affine,
     gabor_energies,
 )
 from gabor_color_image_segmentation_tpu_torch.ops.fused import gabor_energies_fused
@@ -128,6 +125,11 @@ from gabor_color_image_segmentation_tpu_torch.ops.modulated import gabor_energie
 from gabor_color_image_segmentation_tpu_torch.ops.precision import (
     set_policy,
     storage_dtype,
+)
+from gabor_color_image_segmentation_tpu_torch.ops.standardise import (
+    affine_params,
+    normalised_rows,
+    pool2x2,
 )
 from gabor_color_image_segmentation_tpu_torch.ops.tiled import (
     gabor_energies_tiled,
@@ -157,31 +159,32 @@ def segment_chw_grouped(
     color: (B, H, W, 3); pooled_e: the 2x2 twin (B, E, H//2, W//2) to run
     the multigrid warm start on, or None for none; fold_twin: the twin for
     the coherence statistics when there is no warm start."""
-    _, h, w, _ = color.shape
     dtype = energies_cm.dtype
     c = cfg.cluster
     multigrid = pooled_e is not None
+    # levels below full resolution; the coarsest is read only normalised
+    # (the coarse buffer), pooled in the launch that writes it
+    n_lv = max(c.coarse_levels, 1) if multigrid else 0
     with span("assemble"):
         xc4 = build_color4(color, dtype)
         twin = fold_twin if fold_twin is not None else pooled_e
-        pc0 = _pool2x2_cm(xc4) if (multigrid or twin is not None) else None
-        affine = _affine_params(energies_cm, xc4, c, 1e-6,
-                                pooled=(twin, pc0) if twin is not None else None)
-        levels = [(pooled_e, pc0)] if multigrid else []  # pooled twins, finest first
-        for _ in range(c.coarse_levels - 1 if multigrid else 0):
-            levels.append((_pool2x2_cm(levels[-1][0]), _pool2x2_cm(levels[-1][1])))
+        pc0 = pool2x2(xc4) if (multigrid or twin is not None) else None
+        affine = affine_params(energies_cm, xc4, c, 1e-6,
+                               pooled=(twin, pc0) if twin is not None else None)
+        levels = [(pooled_e, pc0)] if multigrid else []  # raw pooled twins, finest first
+        for _ in range(n_lv - 2):
+            levels.append((pool2x2(levels[-1][0]), pool2x2(levels[-1][1])))
     c0 = None
     if multigrid:
         pe_l, pc_l = levels[-1]
         e = energies_cm.shape[1]
-        m = pe_l.shape[2] * pe_l.shape[3]
         with span("assemble_xp"):
-            xp = assemble_xp_from_affine(pe_l, pc_l, affine[0], affine[1], dtype)
+            xp, = normalised_rows(pe_l, pc_l, affine[0], affine[1], (1 if n_lv >= 2 else 0,))
         with span("coarse"):
-            c0 = kmeans_coarse_centers_xp(xp, c.k, e + 3, m, c.coarse_iters)
+            c0 = kmeans_coarse_centers_xp(xp, c.k, e + 3, xp.shape[2], c.coarse_iters)
         if c.mid_iters > 0:
             with span("mid"):
-                for pe_m, pc_m in reversed(levels[:-1]):
+                for pe_m, pc_m in reversed(levels[:n_lv - 1]):
                     _, c0 = kmeans_fused_chw(pe_m, pc_m, affine, c.k, 0, c.mid_iters,
                                              init_centers=c0, with_labels=False)
     with span("cluster"):
@@ -190,41 +193,35 @@ def segment_chw_grouped(
     return labels
 
 
-def _normalised_buffer(rgb: torch.Tensor, cfg: PipelineConfig, bank):
+def _normalised_buffer(rgb: torch.Tensor, cfg: PipelineConfig, bank, fit_levels: int = 0):
     """(B, H, W, 3) sRGB -> (the normalised (B, E + 3, N) buffer in the
-    storage dtype, the K1 energies (B, E, H, W), the float32 colour
-    (B, H, W, 3), the affine (a, b)): the reference's assemble_features_t,
-    whose affine reads the float32 colour."""
+    storage dtype, the fit buffer of the rows pooled ``fit_levels`` times
+    under the same affine or None for 0, the K1 energies (B, E, H, W), the
+    float32 colour (B, H, W, 3), the affine (a, b)): the reference's
+    assemble_features_t, whose affine reads the float32 colour. Both
+    buffers come from one read of the energies (ops/standardise.py)."""
     dtype = storage_dtype(cfg.dtype)
     with span("features"):
         color = _color_transform(rgb, cfg.color_space)
         energies = _k1_energies(color, bank, dtype)
     with span("assemble"):
         c4 = build_color4(color, torch.float32)
-        a, b_aff = _affine_params(energies, c4, cfg.cluster, 1e-6)
-        x = assemble_xp_from_affine(energies, c4, a, b_aff, dtype)
-    return x, energies, color, (a, b_aff)
+        a, b_aff = affine_params(energies, c4, cfg.cluster, 1e-6)
+        bufs = normalised_rows(energies, c4, a, b_aff, (0, fit_levels) if fit_levels else (0,))
+    return bufs[0], (bufs[1] if fit_levels else None), energies, color, (a, b_aff)
 
 
 def _segment_gmm(rgb: torch.Tensor, cfg: PipelineConfig, bank) -> torch.Tensor:
     """(B, H, W, 3) sRGB -> (B, H, W) int32 labels of the per-image GMM."""
     b, h, w, _ = rgb.shape
-    dtype = storage_dtype(cfg.dtype)
     c = cfg.cluster
     # One affine for both buffers, from the float32 colour as the JAX
     # package's _norm_affine reads it for the full-resolution buffer; its
     # fit buffer's affine reads the colour rounded to the storage dtype, so
-    # in bfloat16 the colour rows' moments differ by that rounding.
-    x, energies, color, (a, b_aff) = _normalised_buffer(rgb, cfg, bank)
-    fit_x = None
+    # in bfloat16 the colour rows' moments differ by that rounding. The fit
+    # grid pools the colour rounded to the storage dtype, as the reference's.
     _, _, lv = gmm_fit_levels(h, w, c.gmm_fit_pool)
-    if lv > 0:
-        with span("assemble_xp"):
-            pe, pc = energies, build_color4(color, dtype)
-            for _ in range(lv):
-                pe, pc = _pool2x2_cm(pe), _pool2x2_cm(pc)
-            fit_x = assemble_xp_from_affine(pe, pc, a, b_aff, dtype)
-    del energies
+    x, fit_x = _normalised_buffer(rgb, cfg, bank, lv)[:2]
     with span("cluster"):
         labels = gmm_fused_t_xt(x, c.k, c.n_iter, c.gmm_reg_covar, 10, c.gmm_tol, fit_x,
                                 c.gmm_refine_iters)

@@ -9,6 +9,7 @@ file imports only the port, so the card's machine needs no JAX).
 Tolerances as in chip_smoke.py."""
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -28,6 +29,7 @@ from gabor_color_image_segmentation_tpu_torch.models import slic as sl
 from gabor_color_image_segmentation_tpu_torch.models import slic_fused as sf
 from gabor_color_image_segmentation_tpu_torch.models.pipeline import segment_batch
 from gabor_color_image_segmentation_tpu_torch.ops import fused, lookup, tiled
+from gabor_color_image_segmentation_tpu_torch.ops import standardise as sd
 from gabor_color_image_segmentation_tpu_torch.ops.bank import bank_tensors, make_bank
 from gabor_color_image_segmentation_tpu_torch.ops.color import rgb_to_lab
 from gabor_color_image_segmentation_tpu_torch.ops.precision import set_policy
@@ -1311,3 +1313,210 @@ def test_evaluate_debug_nans_on_the_card(device, tmp_path):
     evaluate(items, cfg, out_path=str(off))
     evaluate(items, cfg, out_path=str(on), debug_nans=True)
     assert off.read_text() == on.read_text()
+
+
+# ---------------------------------------------------------------------------
+# the standardisation (csrc/standardise.cu): the pools and the normalised
+# buffers bit-equal to their plain twins, the affine within 1e-6 of a
+# float64 evaluation of its formulas, two launches bit-equal
+# ---------------------------------------------------------------------------
+
+# (batch, energy rows, H, W): config1's frame with its 240 rows, config2's
+# batch of 50 with 36 rows, and odd small frames (15x17 has one 8x8 block
+# a side: coherence weights of ones)
+STD_SHAPES = {"config1": (16, 240, 321, 481), "config2": (50, 36, 321, 481),
+              "7x9": (2, 5, 7, 9), "15x17": (2, 6, 15, 17), "64x96": (2, 9, 64, 96)}
+
+
+def _std_inputs(device, dt, shape, seed, color_dt=None):
+    """Energies (B, E, H, W) in dt (|normal|, as magnitudes are), colour rows
+    (B, 4, H, W) in color_dt (default dt): L in [0, 100], a and b in [-60,
+    60], a row of ones; made on the card."""
+    b, e, h, w = shape
+    g = torch.Generator(device).manual_seed(seed)
+    xe = torch.randn((b, e, h, w), generator=g, device=device).abs_().to(dt)
+    lab = torch.rand((b, 3, h, w), generator=g, device=device)
+    lab = lab * torch.tensor([100.0, 120.0, 120.0], device=device)[:, None, None] \
+        - torch.tensor([0.0, 60.0, 60.0], device=device)[:, None, None]
+    xc4 = torch.cat([lab, torch.ones((b, 1, h, w), device=device)], dim=1)
+    return xe, xc4.to(color_dt or dt).contiguous()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["config1_twin", "config1_xc4", "7x9", "15x17", "64x96"])
+def test_std_pool_kernel(device, dtype, case):
+    dt = DTYPES[dtype]
+    if case.startswith("config1"):
+        b, e, h, w = STD_SHAPES["config1"]
+        shape = (b, e, h // 2, w // 2) if case == "config1_twin" else (b, 4, h, w)
+    else:
+        shape = STD_SHAPES[case]
+    got = want = _std_inputs(device, dt, shape, seed=11)[0]
+    for levels in (1, 2, 3):
+        before = sd.pool2x2.launches
+        got, want = sd.pool2x2(got), sd.pool2x2_plain(want)
+        assert got.shape == want.shape
+        assert torch.equal(got, want), (case, levels)
+        assert sd.pool2x2.launches - before == (1 if got.numel() else 0)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["config1", "config1_twin", "config2", "7x9", "15x17",
+                                  "64x96"])
+def test_std_normalised_rows_kernel(device, dtype, case):
+    """Given the same (a, b), the buffers equal the plain twin's bit for bit:
+    config1's coarse buffer from the twin (one pool) and its full
+    resolution, config2's buffer and fit grid (float32 colour) with 0-2
+    pools and both at once, and small odd frames."""
+    dt = DTYPES[dtype]
+    name = case.split("_")[0]
+    b, e, h, w = STD_SHAPES[name]
+    if case == "config1_twin":
+        h, w = h // 2, w // 2
+    xe, xc4 = _std_inputs(device, dt, (b, e, h, w), seed=12,
+                          color_dt=torch.float32 if name == "config2" else None)
+    g = torch.Generator(device).manual_seed(3)
+    a = torch.rand((b, e + 3), generator=g, device=device) + 0.1
+    b_aff = torch.randn((b, e + 3), generator=g, device=device)
+    pools = {"config1": [(0,)], "config1_twin": [(1,)],
+             "config2": [(0,), (1,), (2,), (0, 1), (0, 2)]}.get(
+        case, [(0,), (1,), (2,), (3,), (0, 1), (0, 2)])
+    for p in pools:
+        before = sd.normalised_rows.launches
+        got = sd.normalised_rows(xe, xc4, a, b_aff, p)
+        want = sd.normalised_rows_plain(xe, xc4, a, b_aff, p)
+        assert sd.normalised_rows.launches - before <= 1
+        for gg, ww in zip(got, want):
+            assert gg.shape == ww.shape and gg.dtype == ww.dtype == dt
+            assert torch.equal(gg, ww), (case, p)
+    again = sd.normalised_rows(xe, xc4, a, b_aff, pools[-1])
+    assert all(torch.equal(x, y) for x, y in
+               zip(again, sd.normalised_rows(xe, xc4, a, b_aff, pools[-1])))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("pools", [(6,), (0, 6), (0, 7)])
+def test_std_normalised_rows_past_max_pool(device, dtype, pools):
+    """A fit grid deeper than one launch pools (gmm_fit_pool >= 6 on frames of
+    16 MP or more): the raw rows pooled first, then the rest in the apply;
+    bit-equal to the plain twin, every launch counted."""
+    dt = DTYPES[dtype]
+    xe, xc4 = _std_inputs(device, dt, (2, 9, 300, 520), seed=14, color_dt=torch.float32)
+    g = torch.Generator(device).manual_seed(5)
+    a = torch.rand((2, 12), generator=g, device=device) + 0.1
+    b_aff = torch.randn((2, 12), generator=g, device=device)
+    counts = (sd.pool2x2.launches, sd.normalised_rows.launches)
+    got = sd.normalised_rows(xe, xc4, a, b_aff, pools)
+    deep = pools[-1] - sd.MAX_POOL
+    assert (sd.pool2x2.launches - counts[0], sd.normalised_rows.launches - counts[1]) == (
+        2 * deep, len(pools))
+    want = sd.normalised_rows_plain(xe, xc4, a, b_aff, pools)
+    for gg, ww in zip(got, want):
+        assert gg.shape == ww.shape and gg.dtype == ww.dtype == dt
+        assert torch.equal(gg, ww), pools
+
+
+def _affine64(xe, xc4, cfg, eps, pooled):
+    """affine_params' formulas in float64 on the same (pooled) values:
+    (a, b, the whole rows' mean and std)."""
+    b, e, h, w = xe.shape
+
+    def stats(qe, qc):
+        v = torch.cat([qe.double().reshape(b, e, -1), qc[:, :3].double().reshape(b, 3, -1)], 1)
+        m = v.mean(dim=2)
+        return m, (v.square().mean(dim=2) - m * m).clamp(min=0).sqrt()
+
+    scale = torch.cat([torch.ones(e), torch.full((3,), cfg.color_weight * math.sqrt(e / 3.0))])
+    scale = scale.double().to(xe.device)[None].expand(b, -1)
+    m = torch.zeros_like(scale)
+    if cfg.normalize:
+        m, s = stats(xe, xc4)
+        a = scale / (s + eps)
+        bb = -m * a
+    else:
+        a, bb = scale, torch.zeros_like(scale)
+        s = None
+    hb, wb = h // 8, w // 8
+    if cfg.cue_weight == "coherence" and hb >= 2 and wb >= 2:
+        qe, qc, lv = (pooled[0], pooled[1], 2) if pooled is not None else (xe, xc4, 3)
+        qc = qc[:, :3]
+        for _ in range(lv):
+            qe, qc = sd.pool2x2_plain(qe), sd.pool2x2_plain(qc)
+        qe, qc = qe[:, :, :hb, :wb], qc[:, :, :hb, :wb]
+        _, sp = stats(qe, qc)
+        if s is None:
+            _, s = stats(xe[:, :, :8 * hb, :8 * wb], xc4[:, :, :8 * hb, :8 * wb])
+        c = a * sp / (a * s + eps)
+        wgt = c ** cfg.coherence_pow
+        a, bb = a * wgt, bb * wgt
+    return a, bb, m, s
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["config1", "config2", "normalize_off", "no_twin",
+                                  "15x17", "7x9"])
+def test_std_affine_params_kernel(device, dtype, case):
+    """(a, b) within 1e-6 of the float64 evaluation: a relative to a, b
+    relative to the scale of a standardised value, a (|m| + s). config1 at
+    its frame with the twins, config2 at its batch of 50 with float32 colour
+    (no coherence), coherence without normalisation (the 8x8-divisible
+    crop's stds), coherence from the full-resolution rows (no twin), and
+    frames under two 8x8 blocks a side (weights of ones). Two launches give
+    the same bits; the launches are counted."""
+    dt = DTYPES[dtype]
+    cl1 = preset("config1").cluster
+    cfg, shape, twin, color_dt = {
+        "config1": (cl1, STD_SHAPES["config1"], True, None),
+        "config2": (preset("config2").cluster, STD_SHAPES["config2"], False, torch.float32),
+        "normalize_off": (dataclasses.replace(cl1, normalize=False), STD_SHAPES["64x96"],
+                          True, None),
+        "no_twin": (cl1, STD_SHAPES["64x96"], False, None),
+        "15x17": (cl1, STD_SHAPES["15x17"], True, None),
+        "7x9": (cl1, STD_SHAPES["7x9"], True, None),
+    }[case]
+    xe, xc4 = _std_inputs(device, dt, shape, seed=13, color_dt=color_dt)
+    pooled = (sd.pool2x2_plain(xe), sd.pool2x2_plain(xc4)) if twin else None
+    before = sd.affine_params.launches
+    a, b_aff = sd.affine_params(xe, xc4, cfg, 1e-6, pooled)
+    h, w = shape[2:]
+    coh = cfg.cue_weight == "coherence" and h >= 16 and w >= 16
+    assert sd.affine_params.launches - before == 1 + cfg.normalize + coh + (
+        coh and not cfg.normalize)
+    a2, b2 = sd.affine_params(xe, xc4, cfg, 1e-6, pooled)
+    assert torch.equal(a, a2) and torch.equal(b_aff, b2)
+    a64, b64, m64, s64 = _affine64(xe, xc4, cfg, 1e-6, pooled)
+    assert ((a.double() - a64).abs() <= 1e-6 * a64.abs()).all()
+    scale = a64.abs() * (m64.abs() + (s64 if s64 is not None else 0))
+    assert ((b_aff.double() - b64).abs() <= 1e-6 * scale + 1e-30).all()
+    if cfg.normalize:
+        part = sd._moments(xe.contiguous(), xc4, 0, h, w).sum(dim=2)  # (B, R, 2)
+        n = h * w
+        m = part[..., 0] / n
+        s = (part[..., 1] / n - m * m).clamp(min=0).sqrt()
+        assert ((m - m64).abs() <= 1e-6 * (m64.abs() + s64)).all()
+        assert ((s - s64).abs() <= 1e-6 * s64).all()
+    plain_a, plain_b = sd.affine_params_plain(xe, xc4, cfg, 1e-6, pooled)
+    assert ((a - plain_a).abs() <= 1e-4 * plain_a.abs()).all()
+
+
+@pytest.mark.parametrize("name", ["config1", "config2"])
+def test_std_pipeline_stage_against_plain(device, name, monkeypatch):
+    """segment_batch at the published 321x481 frame (two images) with the
+    standardisation's kernels against the same call with the plain twins
+    on the card; the stage's launches counted."""
+    rgb = np.stack([synthetic_mosaic(h=321, w=481, n_regions=5, seed=200 + i)[0]
+                    for i in range(2)])
+    cfg = preset(name).replace(batch_size=2, dtype="bfloat16")
+    counts = [sd.pool2x2.launches, sd.affine_params.launches, sd.normalised_rows.launches]
+    got, _ = segment_batch(rgb, cfg, with_features=False)
+    counts = [f.launches - c for f, c in zip(
+        (sd.pool2x2, sd.affine_params, sd.normalised_rows), counts)]
+    assert counts == ([1, 3, 1] if name == "config1" else [0, 2, 1])
+    for attr, plain in (("affine_params", sd.affine_params_plain),
+                        ("normalised_rows", sd.normalised_rows_plain),
+                        ("pool2x2", sd.pool2x2_plain)):
+        monkeypatch.setattr(pipeline, attr, plain)
+    want, _ = segment_batch(rgb, cfg, with_features=False)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    for i in range(2):
+        assert (align_labels(got[i], want[i]) == want[i]).mean() >= 0.999

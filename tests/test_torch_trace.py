@@ -42,7 +42,7 @@ ROUTES = {
                    {"features": ["color"], "mid": ["sync.lloyd_fixed_point"] * 3,
                     "cluster": ["sync.lloyd_fixed_point"]}),
     "gmm": (preset("config2").replace(batch_size=2), (128, 128), "batch", False,
-            ["features", "assemble", "assemble_xp", "cluster"],
+            ["features", "assemble", "cluster"],
             {"features": ["color"], "cluster": ["gmm_init", "em_fit", "em_refine"]}),
     "nhwc": (preset("config1").replace(batch_size=2), (64, 96), "batch", True,
              ["features", "assemble", "cluster"], {"features": ["color"]}),
